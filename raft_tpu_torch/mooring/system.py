@@ -1,0 +1,145 @@
+"""Quasi-static mooring system: parse, equilibrium, linearized stiffness
+(port of ``raft_tpu.mooring.system``).
+
+Every quantity is a function of the 6-DOF platform displacement ``r6``;
+stiffness and tension Jacobians are ``torch.func.jacfwd`` through the
+catenary Newton solve, as the JAX package uses ``jax.jacfwd``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.func import jacfwd
+
+from raft_tpu_torch.core.linalg6 import solve_re
+from raft_tpu_torch.core.transforms import cross
+from raft_tpu_torch.mooring.catenary import CatenaryState, LineProps, solve_catenary
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class MooringSystem:
+    """Stacked single-body mooring system (nl lines, vessel <-> anchor)."""
+
+    r_anchor: Tensor      # (nl, 3) anchor positions, global frame
+    r_fair_body: Tensor   # (nl, 3) fairlead positions, body frame
+    props: LineProps      # per-line L / w / EA / CB
+    depth: Tensor         # () water depth [m]
+    yaw_stiffness: Tensor  # () additive C[5, 5]
+
+
+def parse_mooring(mooring: dict, device, dtype=torch.float64, rho: float = 1025.0,
+                  g: float = 9.81, yaw_stiffness: float = 0.0) -> MooringSystem:
+    """Build a :class:`MooringSystem` from the design-YAML ``mooring`` dict
+    on ``device`` (fixed <-> vessel lines; w = g (m_lin - rho pi/4 d^2))."""
+    pts = {p["name"]: p for p in mooring["points"]}
+    types = {t["name"]: t for t in mooring["line_types"]}
+    anchors, fairs, Ls, ws, EAs, CBs = [], [], [], [], [], []
+    for ln in mooring["lines"]:
+        a, b = pts[ln["endA"]], pts[ln["endB"]]
+        if a["type"] == "vessel":
+            a, b = b, a
+        if a["type"] != "fixed" or b["type"] != "vessel":
+            raise ValueError(f"line {ln['name']}: only fixed<->vessel lines are supported")
+        t = types[ln["type"]]
+        anchors.append(a["location"])
+        fairs.append(b["location"])
+        Ls.append(ln["length"])
+        m_lin = float(t["mass_density"])
+        d = float(t["diameter"])
+        ws.append(g * (m_lin - rho * np.pi / 4.0 * d * d))
+        EAs.append(float(t["stiffness"]))
+        CBs.append(float(t.get("seabed_friction", t.get("cb", 0.0))))
+
+    def ten(x):
+        return torch.as_tensor(np.asarray(x, dtype=float), device=device).to(dtype)
+
+    return MooringSystem(
+        r_anchor=ten(anchors),
+        r_fair_body=ten(fairs),
+        props=LineProps(L=ten(Ls), w=ten(ws), EA=ten(EAs), CB=ten(CBs)),
+        depth=ten(float(mooring.get("water_depth", 300.0))),
+        yaw_stiffness=ten(float(yaw_stiffness)),
+    )
+
+
+def _rotation(r6: Tensor) -> Tensor:
+    """Roll-pitch-yaw rotation R = Rz(yaw) Ry(pitch) Rx(roll)."""
+    cr, sr = torch.cos(r6[3]), torch.sin(r6[3])
+    cp, sp = torch.cos(r6[4]), torch.sin(r6[4])
+    cy, sy = torch.cos(r6[5]), torch.sin(r6[5])
+    o, z = torch.ones_like(cr), torch.zeros_like(cr)
+    Rx = torch.stack([torch.stack([o, z, z]), torch.stack([z, cr, -sr]), torch.stack([z, sr, cr])])
+    Ry = torch.stack([torch.stack([cp, z, sp]), torch.stack([z, o, z]), torch.stack([-sp, z, cp])])
+    Rz = torch.stack([torch.stack([cy, -sy, z]), torch.stack([sy, cy, z]), torch.stack([z, z, o])])
+    return Rz @ Ry @ Rx
+
+
+def fairlead_positions(sys: MooringSystem, r6: Tensor) -> Tensor:
+    """Global fairlead positions (nl, 3) for platform displacement r6."""
+    return r6[:3] + sys.r_fair_body @ _rotation(r6).T
+
+
+def line_states(sys: MooringSystem, r6: Tensor) -> CatenaryState:
+    """Every line's catenary at the given platform displacement."""
+    rf = fairlead_positions(sys, r6)
+    dxy = rf[:, :2] - sys.r_anchor[:, :2]
+    xf = torch.sqrt(torch.sum(dxy * dxy, dim=-1) + 1e-12)
+    zf = rf[:, 2] - sys.r_anchor[:, 2]
+    return solve_catenary(xf, zf, sys.props)
+
+
+def mooring_force(sys: MooringSystem, r6: Tensor) -> Tensor:
+    """Net 6-DOF mooring load on the platform at displacement r6."""
+    rf = fairlead_positions(sys, r6)
+    dxy = sys.r_anchor[:, :2] - rf[:, :2]
+    dist = torch.sqrt(torch.sum(dxy * dxy, dim=-1) + 1e-12)
+    u = dxy / dist[:, None]
+    st = line_states(sys, r6)
+    F3 = torch.cat([st.H[:, None] * u, -st.V[:, None]], dim=-1)
+    M3 = cross(rf - r6[:3], F3)
+    return torch.cat([F3.sum(dim=0), M3.sum(dim=0)])
+
+
+def mooring_stiffness(sys: MooringSystem, r6: Tensor) -> Tensor:
+    """Linearized 6x6 mooring stiffness C = -dF/dr6 about r6, plus the yaw
+    spring."""
+    C = -jacfwd(lambda x: mooring_force(sys, x))(r6)
+    C = C.clone()
+    C[5, 5] += sys.yaw_stiffness
+    return C
+
+
+def fairlead_tensions(sys: MooringSystem, r6: Tensor) -> Tensor:
+    """Fairlead tension magnitude per line (nl,)."""
+    return line_states(sys, r6).Tf
+
+
+def tension_jacobian(sys: MooringSystem, r6: Tensor) -> Tensor:
+    """dT_fairlead / dr6, (nl, 6)."""
+    return jacfwd(lambda x: fairlead_tensions(sys, x))(r6)
+
+
+def solve_equilibrium(sys: MooringSystem, F_const: Tensor, C_body: Tensor,
+                      r6_init: Tensor | None = None, iters: int = 40):
+    """Mean-offset equilibrium F_const - C_body r6 + F_moor(r6) = 0 by a
+    fixed-iteration damped Newton; returns (r6_eq, residual norm)."""
+    dtype, dev = sys.r_anchor.dtype, sys.r_anchor.device
+    r6 = torch.zeros(6, dtype=dtype, device=dev) if r6_init is None else r6_init
+
+    def residual(x):
+        r = F_const - C_body @ x + mooring_force(sys, x)
+        return r, r
+
+    cap = torch.tensor([10.0, 10.0, 10.0, 0.1, 0.1, 0.1], dtype=dtype, device=dev)
+    for _ in range(iters):
+        J, r = jacfwd(residual, has_aux=True)(r6)    # one catenary solve for both
+        dx = solve_re(J, -r)
+        dx = torch.minimum(torch.maximum(dx, -cap), cap)
+        r6 = r6 + dx
+    res = residual(r6)[0]
+    return r6, torch.sqrt(torch.sum(res * res))
+

@@ -1,0 +1,87 @@
+"""The port stands alone: ``raft_tpu_torch`` imports neither JAX nor Flax
+nor any module of the JAX package ``raft_tpu``, and its entry points refuse
+to fall back to the CPU when no card is present."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "raft_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "raft_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    # exact package names: the prefix "raft_tpu" also begins "raft_tpu_torch"
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_fresh_process_imports_nothing_of_jax():
+    code = (
+        "import sys, torch\n"
+        "import raft_tpu_torch.model, raft_tpu_torch.convert\n"
+        "from raft_tpu_torch.parallel.sweep import sweep_north_star_strip\n"
+        "out = sweep_north_star_strip(n_designs=2, nw=8, chunk=2, n_iter=5, device='cpu')\n"
+        "assert out['std'].shape == (2, 6) and bool(torch.isfinite(out['std']).all())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_no_forbidden_import_in_source():
+    found = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            found += [f"{path.relative_to(ROOT)}: {n}" for n in names if _forbidden(n)]
+    assert found == []
+    assert _forbidden("raft_tpu.core") and not _forbidden("raft_tpu_torch.core")
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    """Without CUDA, the default device (the card) raises instead of
+    silently running on the CPU."""
+    from raft_tpu_torch.core.device import resolve_device
+    from raft_tpu_torch.model import Model, load_design, run_raft
+    from raft_tpu_torch.parallel.sweep import forward_response, sweep_north_star_strip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    design = load_design(ROOT / "raft_tpu" / "designs" / "OC3spar.yaml")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(design)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_raft(ROOT / "raft_tpu" / "designs" / "OC3spar.yaml")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep_north_star_strip(n_designs=2, nw=8)
+    m = Model(design, device="cpu")
+    m.calcSystemProps()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        forward_response(m.members, m.rna, m.env, m.wave, m.C_moor0)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_refuses_without_card():
+    """chip_smoke.py exits non-zero and prints no result without CUDA."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
