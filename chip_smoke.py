@@ -9,22 +9,39 @@ Phases (each failure makes the script exit non-zero, and then it prints no
 result line):
 
 1. device: CUDA is required; prints the card's name and power limit;
-2. build: compiles kernel K1 (``raft_tpu_torch/csrc/solve6.cu``) with nvcc;
+2. build: compiles kernels K1 (``csrc/solve6.cu``), K3 (``csrc/bem_rankine.cu``)
+   and K4 (``csrc/bem_wave.cu``) of ``raft_tpu_torch`` with one nvcc each,
+   all at once, prints ptxas' registers and spills, and builds (or loads)
+   the BEM wave-integral tables into ``raft_tpu_torch/_build/``;
 3. K1 against its plain PyTorch version on the card, numpy-seeded inputs at
    the sweep's call shape (250 designs x 200 frequencies) and at 1,000 x 200,
    in float64 and float32: random systems, a permutation matrix with w = 0
    (forces pivoting) and one singular lane (zero-denominator guard); with
    kernel, plain-version and ``torch.linalg.solve`` times beside the bound;
-4. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
+4. K3 (Rankine assembly) against its plain version on the VolturnUS-S hull
+   (1,024-panel class) and the OC4semi hull with its waterplane lid
+   (2,048 class), float64 and float32, with the pairs per subdivision level;
+5. K4 (wave part) against its plain version on the same meshes, on a deep
+   (1.5 rad/s) and a finite-depth (0.4 rad/s, 200 m) frequency chunk, and on
+   every chunk of the north star's 48-frequency staging grid;
+6. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
    against the same run on the CPU (plain path);
-5. the north-star sweep at full size (1,000 VolturnUS-S variants x 200
-   frequencies, float32) -- the main path whose kernel launches are
-   counted -- then a 16-lane subset in float64 through the kernel and
-   through the plain solve on the card;
-6. the same sweep again under ``torch.profiler``: device busy time, idle
-   share and the operations that take the device time.
+7. the strip-theory north-star sweep at full size (1,000 VolturnUS-S
+   variants x 200 frequencies, float32) with its K1 launches counted, then
+   a 16-lane subset in float64 through the kernel and through the plain
+   solve on the card;
+8. ``Model(BEM="jax")`` on VolturnUS-S and OC4semi at full width in float64,
+   once through K3/K4 and once through their plain versions on the card;
+   and the VolturnUS-S panel solve in float32 against float64;
+9. the BEM-staged north star -- the main path whose K1, K3 and K4 launches
+   are counted: the nominal hull's panel solve on the card at 48
+   frequencies in float64, interpolated to 200 and staged, then the
+   1,000 x 200 sweep in float32; then a 16-lane float64 subset through K1
+   and through the plain solve;
+10. both sweeps again under ``torch.profiler``: device busy time, idle share
+   and the operations that take the device time.
 
-The last lines are the kernel JSON record, the nvidia-smi line and
+The last lines are the kernels JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -45,6 +62,22 @@ DESIGNS = ROOT / "raft_tpu" / "designs"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 TOL = {"float64": 1e-12, "float32": 1e-5}
+# K3 / K4 against their plain versions, scale-relative per output: f64 to
+# roundoff; f32 at the JAX package's assembly-route bound INTERP_PARITY_RTOL
+TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
+           "float32": {"rankine": 1e-4, "wave": 1e-4}}
+# floating-point operations counted from bem_rankine.cu: per pair (two
+# level selections), per visited subdivision point (its position and
+# weight), per contribution (one point source, potential + normal
+# derivative), and the masked store
+K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB = 24, 28, 22
+# counted from bem_wave.cu, per pair and frequency: the wave integrals by
+# region (near quadrature: 16 nodes x the 12-term series; table;
+# far-field Bessel; deep tail), the deep-water Green function around them,
+# the finite-depth one (its 4 images' pole parts call the integrals again,
+# plus 46 fit terms x 4 images), and the combine
+K4_FLOPS_REGION = {"near": 3475, "table": 60, "far": 110, "deep": 17}
+K4_FLOPS_DEEP, K4_FLOPS_FD, K4_FLOPS_COMBINE = 95, 300 + 46 * 55, 16
 
 
 def k1_flops_per_system() -> int:
@@ -70,6 +103,72 @@ def k1_bound_ms(n_designs: int, nw: int, itemsize: int, dtype_name: str):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str):
+    """Pairs per level, operations and bytes of one K3 call on these
+    inputs, and its bound (ms, what binds)."""
+    import torch
+
+    from raft_tpu_torch.hydro import torch_bem
+
+    n = c.shape[0]
+    sel_d, sel_i = torch_bem.pair_levels(c, diag, lid_surface)
+    count = torch.tensor((0,) + torch_bem.LEVEL_COUNT, device=c.device)   # id -1 -> 0
+    cd, ci = count[sel_d.long() + 1], count[sel_i.long() + 1]
+    points = int(torch.where(sel_d == sel_i, cd, cd + ci).sum())
+    contribs = int((cd + ci).sum())
+    flops = n * n * K3_FLOPS_PAIR + points * K3_FLOPS_POINT + contribs * K3_FLOPS_CONTRIB
+    nbytes = itemsize * (12 * n + 3 * n + 3 * n + 5 * n + 3 * 766 + 2 * n * n)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
+    hist = {"direct": torch.bincount(sel_d.flatten().long() + 1, minlength=6).tolist()[1:5],
+            "image": torch.bincount(sel_i.flatten().long() + 1, minlength=6).tolist()[1:]}
+    return (hist, contribs / (n * n), 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name: str):
+    """Operations and bytes of one K4 call on these inputs (each pair's
+    region of the wave integrals, per frequency), and its bound (ms, what
+    binds, the operations' and the bytes' times)."""
+    import torch
+
+    from raft_tpu_torch.hydro import wavetable
+
+    n, nf = c.shape[0], k.shape[0]
+    dx = c[:, None, 0] - c[None, :, 0]
+    dy = c[:, None, 1] - c[None, :, 1]
+    R = torch.sqrt(dx * dx + dy * dy + 1e-20)
+    diag_lid = torch.eye(n, dtype=torch.bool, device=c.device) & lid_surface[None, :]
+    R_use = torch.where(diag_lid, 0.4 * torch.sqrt(torch.clamp(area, min=1e-14))[None, :], R)
+    zP, zQ = c[:, 2][:, None], c[:, 2][None, :]
+
+    def region_flops(X, Y):
+        rho = torch.sqrt(X * X + Y * Y + 1e-18)
+        near = rho < 0.6
+        far = ~near & (X >= wavetable.XMAX * (1.0 - 1e-7))
+        deep = ~near & ~far & (torch.log1p(-Y) >= wavetable.SMAX * (1.0 - 1e-7))
+        table = ~near & ~far & ~deep
+        f = K4_FLOPS_REGION
+        return (f["near"] * int(near.sum()) + f["far"] * int(far.sum())
+                + f["deep"] * int(deep.sum()) + f["table"] * int(table.sum()))
+
+    flops = 0
+    for i in range(nf):
+        if fd is not None and float(fd["active"][i]) > 0.5:
+            k0 = float(fd["k0"][i])
+            d4 = (-(zP + zQ), 2 * depth - (zP - zQ), 2 * depth + (zP - zQ), 4 * depth + (zP + zQ))
+            flops += K4_FLOPS_FD * n * n + sum(region_flops(k0 * R_use, -k0 * d.expand(n, n))
+                                               for d in d4)
+        else:
+            kk = float(k[i])
+            flops += K4_FLOPS_DEEP * n * n + region_flops(kk * R_use, kk * (zP + zQ))
+        flops += K4_FLOPS_COMBINE * n * n
+    nbytes = itemsize * (2 * n * n + 9 * n + 2 * wavetable.NX * wavetable.NS + 32
+                         + nf * (4 + 2 * 46) + 4 * nf * n * n)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * t_ops, 1e3 * t_bytes)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -84,6 +183,10 @@ class Smoke:
         self.torch = torch
         self.failures: list[str] = []
         self.record: dict = {}
+        self.records: dict = {}
+        self.record_bem: dict = {}
+        self.main_launches: dict = {}
+        self._cases: dict = {}
         self.dev = torch.device("cuda")
         self._flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=self.dev)
 
@@ -114,14 +217,25 @@ class Smoke:
     # ---------------------------------------------------------------- phases
 
     def phase_build(self):
-        from raft_tpu_torch.core import cuda6
+        from raft_tpu_torch.core import cuda6, cuda_bem, nvcc
+        from raft_tpu_torch.hydro import wavetable
 
         t0 = time.perf_counter()
+        nvcc.compile_all([cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE])
         cuda6.build()
-        print(f"  K1 built in {time.perf_counter() - t0:.2f} s")
-        for line in cuda6.BUILD_LOG.splitlines():
-            if "registers" in line or "spill" in line or "stack" in line:
-                print("  ptxas:", line.strip())
+        cuda_bem.build()
+        print(f"  K1, K3, K4 built in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+        for name, log in nvcc.BUILD_LOGS.items():
+            kind = ""
+            for line in log.splitlines():
+                if "Compiling entry" in line:
+                    kind = "f64" if "IdE" in line else ("f32" if "IfE" in line else "")
+                elif "registers" in line or "spill" in line:
+                    print(f"  ptxas {name} {kind}: {line.split(':', 1)[-1].strip()}")
+        t0 = time.perf_counter()
+        tab = wavetable.load_tables()
+        print(f"  wave tables {tab['I0'].shape} ready in {time.perf_counter() - t0:.2f} s "
+              f"(built, or loaded from raft_tpu_torch/_build/wavetable/)")
 
     def _k1_inputs(self, case: str, B: int, nw: int, dtype, rng):
         from raft_tpu_torch.core.cplx import Cx
@@ -197,6 +311,169 @@ class Smoke:
                 if name == "float32" and B == 250:   # the sweep's call shape
                     self.record = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        # K2 (pallas6.py::_kernel, the plain 6x6 solve, not ported yet) at
+        # its microbench's shape: 16,384 systems in f32, 96 values each
+        n2 = 16384
+        t_bytes = 4 * n2 * 96 / HBM_BYTES_PER_S
+        t_ops = n2 * (k1_flops_per_system() - 72) / PEAK_FLOPS["float32"]
+        print(f"  K2 (not ported) reckoned bound at bench.py::pallas6_microbench's shape "
+              f"({n2} systems, float32): {1e3 * max(t_bytes, t_ops):.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+    def _bem_case(self, name: str, lid: bool, dtype):
+        """A shipped design's panel mesh (dz_max 3, da_max 2), padded, and
+        its geometry on the card: the K3 arguments."""
+        from raft_tpu_torch.hydro import mesh, torch_bem
+        from raft_tpu_torch.model import load_design
+
+        key = (name, lid, dtype)
+        if key not in self._cases:
+            torch = self.torch
+            design = load_design(DESIGNS / f"{name}.yaml")
+            hull = mesh.mesh_design(design, dz_max=3.0, da_max=2.0)
+            lid_p = mesh.mesh_lid(design, da_max=2.0) if lid else None
+            padded, pm, lm = torch_bem.pad_mesh(hull, lid_p)
+
+            def t(a):
+                return torch.as_tensor(a, device=self.dev).to(dtype)
+
+            P, pmt, lmt = t(padded), t(pm), t(lm)
+            c, nrm, area, diag = torch_bem.panel_geometry(P)
+            ls = (lmt > 0.5) & (torch.abs(c[:, 2]) < 1e-6 * torch.clamp(diag, min=1e-9))
+            spot = torch_bem.self_potential(P, c, nrm)
+            self._cases[key] = {
+                "args": (P, c, nrm, area, diag, pmt, ls, spot), "n": len(padded),
+                "label": f"{name}{' + lid' if lid else ''} ({len(hull)} hull + "
+                         f"{0 if lid_p is None else len(lid_p)} lid -> {len(padded)})",
+                "depth": float(design["mooring"]["water_depth"])}
+        return self._cases[key]
+
+    def _errs(self, got, ref):
+        """(largest scale-relative, largest absolute) difference over outputs."""
+        rel = max(float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                  for g, r in zip(got, ref))
+        return rel, max(float((g - r).abs().max()) for g, r in zip(got, ref))
+
+    def phase_k3(self):
+        from raft_tpu_torch.core import cuda_bem
+        from raft_tpu_torch.hydro import torch_bem
+
+        torch = self.torch
+        for name, lid in (("VolturnUS-S", False), ("OC4semi", True)):
+            for dtype in (torch.float64, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                case = self._bem_case(name, lid, dtype)
+                args = case["args"]
+                got = cuda_bem.rankine_assembly(*args)
+                ref = torch_bem.rankine_plain(*args)
+                torch.cuda.synchronize()
+                rel, ab = self._errs(got, ref)
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                lim = TOL_BEM[dn]["rankine"]
+                self.check(finite and rel <= lim, f"K3 {dn} {case['label']}: scale-relative "
+                           f"diff {rel:.3e} (limit {lim:.0e})")
+                ms = self.time_ms(lambda: cuda_bem.rankine_assembly(*args))
+                plain_ms = self.time_ms(lambda: torch_bem.rankine_plain(*args), reps=2)
+                hist, per_pair, bound, by = k3_work(args[1], args[4], args[6],
+                                                    torch.finfo(dtype).bits // 8, dn)
+                print(f"  K3 {dn} n={case['n']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                      f"bound {bound:.4f} ms ({by}); {per_pair:.2f} contributions per pair; "
+                      f"pairs per level (ns 1/3/6/12[/24]) direct {hist['direct']}, "
+                      f"image {hist['image']}; max abs diff {ab:.3e}")
+                if name == "VolturnUS-S" and dtype == torch.float64:   # the staging's call
+                    self.records["rankine"] = {"max_abs_err": ab, "ms": ms, "plain_ms": plain_ms,
+                                               "bound_ms": bound, "bound_by": by,
+                                               "library_ms": None}
+
+    def phase_k4(self):
+        from raft_tpu_torch.core import cuda_bem
+        from raft_tpu_torch.hydro import torch_bem, wavetable
+
+        torch = self.torch
+        tab = wavetable.load_tables()
+        for name, lid in (("VolturnUS-S", False), ("OC4semi", True)):
+            for dtype in (torch.float64, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                case = self._bem_case(name, lid, dtype)
+                P, c, nrm, area, diag, pm, ls, spot = case["args"]
+                R_pot, R_dn = torch_bem.rankine_plain(*case["args"])
+                tabd = torch_bem.stage_tables(tab, dtype, self.dev)
+                nf = torch_bem.freq_chunk(case["n"], 48)
+                depth = case["depth"]
+                for label, w0 in (("deep", 1.5), ("finite-depth", 0.4)):
+                    ws = w0 + 0.02 * np.arange(nf)
+                    fd_np = wavetable.fd_fit_grid(ws, depth, 9.81)
+                    want_active = 1.0 if label == "finite-depth" else 0.0
+                    if not (fd_np["active"] == want_active).all():
+                        self.check(False, f"K4 {label} chunk {ws} has active {fd_np['active']}")
+                        continue
+                    fd = {k: torch.as_tensor(v, device=self.dev).to(dtype) for k, v in fd_np.items()}
+                    k = torch.as_tensor(ws * ws / 9.81, device=self.dev).to(dtype)
+                    wargs = (R_pot, R_dn, c, nrm, area, pm, ls, tabd, k, fd)
+                    kw = {"finite_depth": True, "depth": depth}
+                    got = cuda_bem.wave_assembly(*wargs, **kw)
+                    ref = torch_bem.wave_plain(*wargs, **kw)
+                    torch.cuda.synchronize()
+                    rel, ab = self._errs(got, ref)
+                    finite = all(bool(torch.isfinite(g).all()) for g in got)
+                    lim = TOL_BEM[dn]["wave"]
+                    self.check(finite and rel <= lim, f"K4 {dn} {case['label']} {label} "
+                               f"{nf} x w: scale-relative diff {rel:.3e} (limit {lim:.0e})")
+                    ms = self.time_ms(lambda: cuda_bem.wave_assembly(*wargs, **kw))
+                    plain_ms = self.time_ms(lambda: torch_bem.wave_plain(*wargs, **kw), reps=2)
+                    bound, by, t_ops, t_bytes = k4_work(c, area, ls, k, fd, depth,
+                                                        torch.finfo(dtype).bits // 8, dn)
+                    print(f"  K4 {dn} n={case['n']} {label} ({nf} x w from {w0}): kernel "
+                          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}; "
+                          f"operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms); max abs diff "
+                          f"{ab:.3e}")
+        self._k4_main_path(tab)
+
+    def _k4_main_path(self, tab):
+        """K4 at the main path's calls: every chunk of the north star's
+        staging (VolturnUS-S, 1,024 class, 48 w, 200 m, float64)."""
+        from raft_tpu_torch.core import cuda_bem
+        from raft_tpu_torch.hydro import torch_bem, wavetable
+
+        torch = self.torch
+        dtype = torch.float64
+        case = self._bem_case("VolturnUS-S", False, dtype)
+        P, c, nrm, area, diag, pm, ls, spot = case["args"]
+        R_pot, R_dn = cuda_bem.rankine_assembly(*case["args"])
+        tabd = torch_bem.stage_tables(tab, dtype, self.dev)
+        w = np.linspace(0.05, 2.95, 48)
+        nf = torch_bem.freq_chunk(case["n"], len(w))
+        fd_all = wavetable.fd_fit_grid(w, case["depth"], 9.81)
+        ms, plain_ms, bound, t_ops, t_bytes, rel, ab = [], [], [], 0.0, 0.0, 0.0, 0.0
+        for lo in range(0, len(w), nf):
+            sl = slice(lo, lo + nf)
+            fd = {k: torch.as_tensor(v[sl], device=self.dev).to(dtype) for k, v in fd_all.items()}
+            k = torch.as_tensor(w[sl] ** 2 / 9.81, device=self.dev).to(dtype)
+            wargs = (R_pot, R_dn, c, nrm, area, pm, ls, tabd, k, fd)
+            kw = {"finite_depth": True, "depth": case["depth"]}
+            got = cuda_bem.wave_assembly(*wargs, **kw)
+            ref = torch_bem.wave_plain(*wargs, **kw)
+            r, a = self._errs(got, ref)
+            rel, ab = max(rel, r), max(ab, a)
+            ms.append(self.time_ms(lambda: cuda_bem.wave_assembly(*wargs, **kw), reps=5))
+            plain_ms.append(self.time_ms(lambda: torch_bem.wave_plain(*wargs, **kw), reps=1))
+            b, _by, to, tb = k4_work(c, area, ls, k, fd, case["depth"], 8, "float64")
+            bound.append(b)
+            t_ops, t_bytes = t_ops + to, t_bytes + tb
+        lim = TOL_BEM["float64"]["wave"]
+        self.check(rel <= lim, f"K4 float64 on all {len(ms)} staging chunks: scale-relative "
+                   f"diff {rel:.3e} (limit {lim:.0e})")
+        n_fd = int(fd_all["active"].sum())
+        print(f"  K4 float64 staging grid ({len(ms)} chunks of {nf} w, {n_fd} of 48 w finite "
+              f"depth): kernel {np.mean(ms):.4f} ms per chunk (min {min(ms):.4f}, max "
+              f"{max(ms):.4f}), plain {np.mean(plain_ms):.2f} ms, bound {np.mean(bound):.4f} ms "
+              f"(operations {t_ops / len(ms):.4f}, bytes {t_bytes / len(ms):.4f}); max abs "
+              f"diff {ab:.3e}")
+        self.records["wave"] = {"max_abs_err": ab, "ms": float(np.mean(ms)),
+                                "plain_ms": float(np.mean(plain_ms)),
+                                "bound_ms": float(np.mean(bound)),
+                                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                                "library_ms": None}
 
     def phase_run_raft(self):
         from raft_tpu_torch.core import cuda6
@@ -228,7 +505,7 @@ class Smoke:
 
     def phase_sweep(self):
         from raft_tpu_torch.core import cuda6, linalg6
-        from raft_tpu_torch.parallel.sweep import sweep_north_star_strip
+        from raft_tpu_torch.parallel.sweep import sweep_north_star
         from raft_tpu_torch.solve import dynamics
 
         torch = self.torch
@@ -237,8 +514,8 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         cuda6.LAUNCHES = 0
         t0 = time.perf_counter()
-        res = sweep_north_star_strip(n_designs=n, nw=nw, chunk=chunk, n_iter=40,
-                                     dtype=torch.float32, device="cuda")
+        res = sweep_north_star(n_designs=n, nw=nw, chunk=chunk, n_iter=40,
+                               dtype=torch.float32, device="cuda", bem=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = cuda6.LAUNCHES
@@ -255,13 +532,13 @@ class Smoke:
                    f"sweep: {n_conv}/{n} lanes converged, all finite, K1 launched")
 
         lanes = np.arange(0, n, n // 16)[:16]
-        sub_k = sweep_north_star_strip(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
-                                       device="cuda", lanes=lanes)
+        sub_k = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
+                                 device="cuda", bem=False, lanes=lanes)
         orig = dynamics.solve_rao
         dynamics.solve_rao = linalg6.solve_cx_fused      # plain solve, same card
         try:
-            sub_p = sweep_north_star_strip(n_designs=n, nw=nw, chunk=16,
-                                           dtype=torch.float64, device="cuda", lanes=lanes)
+            sub_p = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
+                                     device="cuda", bem=False, lanes=lanes)
         finally:
             dynamics.solve_rao = orig
         same_it = bool((sub_k["n_iter"] == sub_p["n_iter"]).all())
@@ -272,20 +549,156 @@ class Smoke:
         self.check(same_it and d <= 1e-10,
                    "16-lane subset: kernel == plain (identical iterations, std 1e-10)")
 
-    def phase_profile(self):
-        """Where the sweep's time goes: a second, warm run of the full sweep
-        under torch.profiler (its launches are not counted)."""
+    def _launches(self):
+        from raft_tpu_torch.core import cuda6, cuda_bem
+
+        return {"solve6_fused": cuda6.LAUNCHES, **dict(cuda_bem.LAUNCHES)}
+
+    def _model(self, design, dtype, full: bool = True):
+        """``Model(BEM="jax")`` through run_raft's steps on the card; returns
+        the model and the calcBEM wall-clock (ending in a synchronise)."""
+        from raft_tpu_torch.model import Model
+
+        torch = self.torch
+        m = Model(design, BEM="jax", dtype=dtype, device="cuda")
+        m.setEnv(Hs=8.0, Tp=12.0, V=10.0, beta=0.0,
+                 Fthrust=float(design.get("turbine", {}).get("Fthrust", 0.0)))
+        t0 = time.perf_counter()
+        m.calcBEM()
+        torch.cuda.synchronize()
+        t_bem = time.perf_counter() - t0
+        if full:
+            m.calcSystemProps()
+            m.solveEigen()
+            m.calcMooringAndOffsets()
+            m.solveDynamics()
+            m.calcOutputs()
+        return m, t_bem
+
+    def phase_model_bem(self):
+        from raft_tpu_torch.hydro import torch_bem
+        from raft_tpu_torch.model import load_design
+
+        torch = self.torch
+        for name in ("VolturnUS-S", "OC4semi"):
+            design = load_design(DESIGNS / f"{name}.yaml")
+            runs = {}
+            for route in ("kernels", "plain"):
+                before = self._launches()
+                orig = torch_bem.rankine_assembly, torch_bem.wave_assembly
+                if route == "plain":                 # plain assembly, same card
+                    torch_bem.rankine_assembly = torch_bem.rankine_plain
+                    torch_bem.wave_assembly = torch_bem.wave_plain
+                try:
+                    t0 = time.perf_counter()
+                    m, t_bem = self._model(design, torch.float64)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    torch_bem.rankine_assembly, torch_bem.wave_assembly = orig
+                after = self._launches()
+                grew = {k: after[k] - before[k] for k in after}
+                runs[route] = (m, t_bem, wall, grew)
+            (mk, tk, wk, gk), (mp, tp, wp, gp) = runs["kernels"], runs["plain"]
+            d_abf = max(torch_bem.parity_err(a, b) for a, b in zip(mk.bem, mp.bem))
+            fk, fp = mk.results["eigen"]["frequencies"], mp.results["eigen"]["frequencies"]
+            sk, sp = mk.results["response"]["std dev"], mp.results["response"]["std dev"]
+            d_f = float(np.max(np.abs(fk - fp) / np.abs(fp)))
+            d_s = torch_bem.parity_err(sk, sp)
+            ik, ip = mk.results["response"]["iterations"], mp.results["response"]["iterations"]
+            diag = mk.bem_diagnostics
+            print(f"  Model(BEM='jax') {name} float64: {diag['panels']} panels -> "
+                  f"{diag['padded']}, {diag['nw']} w; calcBEM {tk:.2f} s with K3/K4, {tp:.2f} s "
+                  f"plain; whole run {wk:.2f} s / {wp:.2f} s; launches {gk} (plain run {gp}); "
+                  f"A/B/F scale-rel diff {d_abf:.2e}, fn rel diff {d_f:.2e}, std scale-rel diff "
+                  f"{d_s:.2e}, iterations {ik}/{ip}, max refinement residual "
+                  f"{diag['max_residual']:.2e}")
+            print(f"    natural frequencies [Hz]: {np.array2string(fk, precision=5)}; "
+                  f"std dev: {np.array2string(sk, precision=5)}")
+            self.check(d_abf <= 1e-10 and d_f <= 1e-9 and d_s <= 1e-9 and ik == ip
+                       and all(gk[k] > 0 for k in gk) and gp["rankine"] == gp["wave"] == 0
+                       and diag["max_residual"] < 1e-4 and mk.results["response"]["converged"],
+                       f"Model(BEM='jax') {name}: kernels == plain (A/B/F 1e-10, fn and std "
+                       f"1e-9, identical iterations), K1/K3/K4 launched, residual < 1e-4")
+            if name == "VolturnUS-S":
+                m32, t32 = self._model(design, torch.float32, full=False)
+                d32 = max(torch_bem.parity_err(a, b) for a, b in zip(m32.bem, mk.bem))
+                print(f"  VolturnUS-S panel solve float32 vs float64: A/B/F scale-rel diff "
+                      f"{d32:.3e} (PARITY_RTOL {torch_bem.PARITY_RTOL}); calcBEM {t32:.2f} s; "
+                      f"refinement residual {m32.bem_diagnostics['max_residual']:.2e}")
+                self.check(d32 <= torch_bem.PARITY_RTOL,
+                           f"VolturnUS-S float32 panel solve within PARITY_RTOL of float64")
+
+    def phase_north_star_bem(self):
+        from raft_tpu_torch.core import cuda6, cuda_bem, linalg6
+        from raft_tpu_torch.parallel.sweep import stage_north_star_bem, sweep_north_star
+        from raft_tpu_torch.solve import dynamics
+
+        torch = self.torch
+        n, nw, chunk = 1000, 200, 250
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda6.LAUNCHES = 0
+        cuda_bem.LAUNCHES.update(rankine=0, wave=0)
+        t0 = time.perf_counter()
+        staged, diag = stage_north_star_bem(nw=nw, nw_bem=48, dtype=torch.float64,
+                                            device="cuda", return_diagnostics=True)
+        torch.cuda.synchronize()
+        t_stage = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = sweep_north_star(n_designs=n, nw=nw, chunk=chunk, n_iter=40, dtype=torch.float32,
+                               device="cuda", bem=staged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self._launches()
+        self.main_launches = launches
+        peak = torch.cuda.max_memory_allocated()
+        self.record_bem = {"stage_ms": 1e3 * t_stage, "sweep_wall_ms": 1e3 * wall}
+        std, it, conv = res["std"], res["n_iter"], res["converged"]
+        n_conv = int(conv.sum())
+        print(f"  BEM staging: {diag['panels']} panels -> {diag['padded']}, {diag['nw']} w, "
+              f"float64, {t_stage:.3f} s (panel solve {diag['seconds']:.3f} s), max refinement "
+              f"residual {diag['max_residual']:.2e}")
+        print(f"  BEM-staged sweep {n} x {nw} float32 (chunk {chunk}): wall {wall:.3f} s, "
+              f"{n * nw / wall:.1f} solves/s, max iterations {int(it.max())}, mean iterations "
+              f"{float(it.float().mean()):.2f}, launches {launches}, peak memory "
+              f"{peak / 2**20:.1f} MiB")
+        self.check(n_conv == n and bool(torch.isfinite(std).all())
+                   and launches["solve6_fused"] > 0 and launches["rankine"] == 1
+                   and launches["wave"] == 24,
+                   f"BEM-staged sweep: {n_conv}/{n} lanes converged, all finite, K1 launched, "
+                   f"K3 once, K4 once per chunk of 2 w")
+
+        lanes = np.arange(0, n, n // 16)[:16]
+        sub_k = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
+                                 device="cuda", bem=staged, lanes=lanes)
+        orig = dynamics.solve_rao
+        dynamics.solve_rao = linalg6.solve_cx_fused      # plain solve, same card
+        try:
+            sub_p = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
+                                     device="cuda", bem=staged, lanes=lanes)
+        finally:
+            dynamics.solve_rao = orig
+        same_it = bool((sub_k["n_iter"] == sub_p["n_iter"]).all())
+        d = float((sub_k["std"] - sub_p["std"]).abs().max() / sub_p["std"].abs().max())
+        d32 = float((std[lanes].double() - sub_k["std"]).abs().max() / sub_k["std"].abs().max())
+        print(f"  16-lane float64 subset: kernel vs plain std scale-rel diff {d:.2e}, "
+              f"iterations {sub_k['n_iter'].tolist()}; float32 sweep vs float64 {d32:.2e}")
+        print(f"    lane 0 std dev: {np.array2string(sub_k['std'][0].cpu().numpy(), precision=5)}")
+        self.check(same_it and d <= 1e-10,
+                   "BEM 16-lane subset: kernel == plain (identical iterations, std 1e-10)")
+
+    def _profile(self, label: str, fn, kernels: dict, wall_key: tuple):
+        """Where a run's time goes: a second, warm run under torch.profiler
+        (its launches are not counted)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-
-        from raft_tpu_torch.parallel.sweep import sweep_north_star_strip
 
         torch = self.torch
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sweep_north_star_strip(n_designs=1000, nw=200, chunk=250, n_iter=40,
-                                   dtype=torch.float32, device="cuda")
+            fn()
             torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -300,23 +713,52 @@ class Smoke:
         rows.sort(reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
         n_dev = sum(r[1] for r in rows)
-        k1_ms = sum(r[0] for r in rows if "solve6_fused" in r[2]) / 1e3
-        wall = self.record.get("sweep_wall_ms", wall_ms)
-        print(f"  profiled sweep: wall {wall_ms:.1f} ms with the profiler on, "
+        rec, key = wall_key
+        wall = sum(rec.get(k, 0.0) for k in key) or wall_ms
+        shares = []
+        for kname, pattern in kernels.items():
+            k_ms = sum(r[0] for r in rows if pattern in r[2]) / 1e3
+            shares.append(f"{kname} {k_ms:.3f} ms ({100 * k_ms / busy_ms:.2f}% of device time)")
+        print(f"  profiled {label}: wall {wall_ms:.1f} ms with the profiler on, "
               f"{wall:.1f} ms without; device busy {busy_ms:.2f} ms in {n_dev} device "
               f"operations; idle share {1 - busy_ms / wall:.3f} of the unprofiled wall; "
-              f"K1 {k1_ms:.3f} ms ({100 * k1_ms / busy_ms:.2f}% of device time)")
-        for us, count, key in rows[:10]:
-            print(f"    {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
-        self.check(busy_ms > 0, "profiler saw device time")
+              + "; ".join(shares))
+        for us, count, name in rows[:10]:
+            print(f"    {us / 1e3:9.3f} ms  {count:6d}x  {name[:90]}")
+        self.check(busy_ms > 0, f"profiler saw device time ({label})")
+
+    def phase_profile(self):
+        from raft_tpu_torch.parallel.sweep import stage_north_star_bem, sweep_north_star
+
+        torch = self.torch
+
+        def strip():
+            sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
+                             dtype=torch.float32, device="cuda", bem=False)
+
+        def bem():
+            staged = stage_north_star_bem(nw=200, nw_bem=48, dtype=torch.float64, device="cuda")
+            sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
+                             dtype=torch.float32, device="cuda", bem=staged)
+
+        self._profile("strip sweep", strip, {"K1": "solve6_fused"},
+                      (self.record, ("sweep_wall_ms",)))
+        self._profile("BEM staging + BEM-staged sweep", bem,
+                      {"K1": "solve6_fused", "K3": "rankine_kernel", "K4": "wave_kernel"},
+                      (self.record_bem, ("stage_ms", "sweep_wall_ms")))
 
     def run(self) -> int:
         torch = self.torch
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
         print("card:", nvidia_smi(), flush=True)
+        self.check(torch.backends.cuda.matmul.allow_tf32 is False,
+                   "TF32 matmul is off (PyTorch's default; the port never turns it on)")
         phases = [("build", self.phase_build), ("K1 vs plain", self.phase_k1),
+                  ("K3 vs plain", self.phase_k3), ("K4 vs plain", self.phase_k4),
                   ("run_raft", self.phase_run_raft), ("sweep", self.phase_sweep),
+                  ("Model(BEM='jax')", self.phase_model_bem),
+                  ("BEM-staged north star", self.phase_north_star_bem),
                   ("profile", self.phase_profile)]
         for name, fn in phases:
             print(f"== {name}", flush=True)
@@ -330,15 +772,23 @@ class Smoke:
         if self.failures:
             print("FAILED: " + "; ".join(self.failures), file=sys.stderr)
             return 1
-        kernel = {
-            "name": "solve6_fused", "route": "cuda",
-            "source": "raft_tpu_torch/csrc/solve6.cu",
-            "replaces": "raft_tpu/core/pallas6.py:213",
-            "launches": self.record.get("launches", 0),
-            **{k: self.record[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")},
-        }
-        print(json.dumps({"kernels": [kernel]}))
+        fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        kernels = [
+            {"name": "solve6_fused", "route": "cuda", "source": "raft_tpu_torch/csrc/solve6.cu",
+             "replaces": "raft_tpu/core/pallas6.py:213",
+             "launches": self.main_launches["solve6_fused"],
+             **{k: self.record[k] for k in fields}},
+            {"name": "bem_rankine", "route": "cuda",
+             "source": "raft_tpu_torch/csrc/bem_rankine.cu",
+             "replaces": "raft_tpu/core/pallas_bem.py:103",
+             "launches": self.main_launches["rankine"],
+             **{k: self.records["rankine"][k] for k in fields}},
+            {"name": "bem_wave", "route": "cuda", "source": "raft_tpu_torch/csrc/bem_wave.cu",
+             "replaces": "raft_tpu/core/pallas_bem.py:255",
+             "launches": self.main_launches["wave"],
+             **{k: self.records["wave"][k] for k in fields}},
+        ]
+        print(json.dumps({"kernels": kernels}))
         print(nvidia_smi())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

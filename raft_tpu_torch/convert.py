@@ -6,6 +6,11 @@ arrive as dicts of numpy arrays, one entry per dataclass field
 (``{f.name: np.asarray(getattr(x, f.name))}``); a nested dataclass field
 (``MooringSystem.props``, the ``Cx`` fields) is itself such a dict.  No JAX
 object crosses: the port imports nothing of the JAX package.
+
+For the panel BEM, :func:`wave_tables`, :func:`padded_mesh` and
+:func:`bem_tuple` carry across the JAX package's wave-integral tables, a
+padded mesh with its masks, and a raw ``(A, B, F)`` coefficient tuple, so
+both packages can be fed identical inputs.
 """
 from __future__ import annotations
 
@@ -67,3 +72,28 @@ def to_numpy(obj) -> dict:
         else:
             out[f.name] = None if v is None else np.asarray(v)
     return out
+
+
+def wave_tables(tab: dict) -> dict:
+    """The JAX package's ``wavetable.load_tables()`` dict -> the port's
+    ``{"I0", "I1", "meta"}`` f64 numpy tables (what
+    :func:`raft_tpu_torch.hydro.wavetable.load_tables` returns)."""
+    out = {k: np.array(tab[k], dtype=np.float64) for k in ("I0", "I1")}
+    out["meta"] = np.array(tab.get("meta", [out["I0"].shape[0], out["I0"].shape[1], 0, 0]),
+                           dtype=np.float64)
+    return out
+
+
+def padded_mesh(padded, panel_mask, lid_mask, device, dtype=torch.float64):
+    """A padded panel mesh (n, 4, 3) and its (n,) masks -> tensors on
+    ``device`` in ``dtype``."""
+    return tuple(_tensor(a, device, dtype) for a in (padded, panel_mask, lid_mask))
+
+
+def bem_tuple(bem) -> tuple:
+    """A raw (A[6, 6, nw], B[6, 6, nw], F[6, nw] or F[nb, 6, nw]) tuple ->
+    host numpy in f64 / complex128, the layout ``Model(BEM=...)`` and
+    :func:`raft_tpu_torch.parallel.sweep.stage_bem` take."""
+    A, B, F = bem
+    return (np.asarray(A, dtype=np.float64), np.asarray(B, dtype=np.float64),
+            np.asarray(F, dtype=np.complex128))

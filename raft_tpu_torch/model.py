@@ -1,10 +1,16 @@
 """Model facade of the port (counterpart of ``raft_tpu.model``).
 
-``Model`` runs one mooring-coupled floating wind turbine analysis on the
-strip-theory (Morison) path: ``setEnv`` -> ``calcSystemProps`` ->
-``solveEigen`` -> ``calcMooringAndOffsets`` -> ``solveDynamics`` ->
+``Model`` runs one mooring-coupled floating wind turbine analysis:
+``setEnv`` -> ``calcSystemProps`` (with ``calcBEM`` when BEM is asked for)
+-> ``solveEigen`` -> ``calcMooringAndOffsets`` -> ``solveDynamics`` ->
 ``calcOutputs``, with the same ``results`` dict keys as the JAX package.
-Every numeric step runs on ``device`` (the card by default) in ``dtype``.
+Hydrodynamics are strip theory (Morison), plus potential-flow (BEM)
+coefficients for the potMod members when ``BEM`` is given: ``"jax"`` or
+``"auto"`` (the JAX package's mode names) mesh those members and solve
+them with the on-device panel BEM (:mod:`raft_tpu_torch.hydro.torch_bem`,
+kernels K3/K4 on the card); a precomputed ``(A, B, F)`` tuple is used as
+given.  Every numeric step runs on ``device`` (the card by default) in
+``dtype``, the BEM solve included.
 """
 from __future__ import annotations
 
@@ -22,8 +28,9 @@ from raft_tpu_torch.mooring.system import (
     fairlead_tensions, mooring_force, mooring_stiffness, parse_mooring,
     solve_equilibrium, tension_jacobian,
 )
+from raft_tpu_torch.parallel.sweep import stage_bem
 from raft_tpu_torch.solve.dynamics import LinearCoeffs, solve_dynamics
-from raft_tpu_torch.solve.eigen import diagonal_estimates, solve_eigen
+from raft_tpu_torch.solve.eigen import diagonal_estimates, eigen_with_bem, solve_eigen
 from raft_tpu_torch.statics import assemble_statics
 
 DOF_NAMES = ("surge", "sway", "heave", "roll", "pitch", "yaw")
@@ -37,7 +44,11 @@ class Model:
     """One floating wind turbine analysis (cf. ``raft_tpu.model.Model``).
 
     ``design``: the parsed YAML dict; ``w``: frequency grid (default
-    ``arange(0.05, 3, 0.05)``); ``depth``: water-depth override.
+    ``arange(0.05, 3, 0.05)``); ``depth``: water-depth override; ``BEM``:
+    None (strip theory only), ``"jax"`` or ``"auto"`` (on-device panel
+    solve at ``calcSystemProps``), or a precomputed (A[6, 6, nw],
+    B[6, 6, nw], F[6, nw]) tuple.  ``"native"``, the JAX package's host
+    C++ solver, is not ported yet and raises.
     """
 
     def __init__(self, design: dict, w=None, depth: float | None = None,
@@ -46,10 +57,14 @@ class Model:
             raise NotImplementedError(
                 "nTurbines != 1 (ArrayModel) comes with the scenario-batch slice "
                 "(ROADMAP.md, queue 1)")
-        if BEM is not None:
+        if isinstance(BEM, str) and BEM == "native":
             raise NotImplementedError(
-                "BEM coefficients come with the BEM-staged north-star slice "
-                "(ROADMAP.md, queue 1: the host panel solver port)")
+                "BEM='native' (the host C++ panel solver, raft_tpu/native/bem.cpp) "
+                "comes with a later slice (ROADMAP.md, queue 1, item 1); BEM='jax' "
+                "or 'auto' solves the panels on the device")
+        if isinstance(BEM, str) and BEM not in ("jax", "auto"):
+            raise ValueError(f"BEM={BEM!r}: expected 'jax', 'auto', or a precomputed "
+                             "(A, B, F) tuple")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.design = design
@@ -67,7 +82,10 @@ class Model:
         self.w = self._t(np.asarray(w, dtype=float))
         self.env = Env(depth=self.depth)
         self.wave: WaveState | None = None
-        self.bem = None
+        self.bem_mode = BEM if isinstance(BEM, str) else None
+        self.bem = BEM if not isinstance(BEM, str) else None
+        self._bem_headings = None        # staged heading grid (calcBEM)
+        self.bem_diagnostics: dict | None = None
         self.statics = None
         self.A_morison = None
         self.F_morison = None
@@ -91,7 +109,15 @@ class Model:
 
     def setEnv(self, Hs=8.0, Tp=12.0, V=10.0, beta=0.0, Fthrust=0.0,
                current=0.0, current_heading=0.0, current_exp=0.0):
-        """Sea state, wind thrust and an optional steady current."""
+        """Sea state, wind thrust and an optional steady current.  With a
+        heading grid staged by ``calcBEM(headings=...)`` the BEM excitation
+        is re-staged for ``beta`` by interpolation, without a new solve."""
+        # validate before mutating: a heading outside the staged grid must
+        # leave the model as it was
+        F_beta = None
+        if self._bem_headings is not None and self.bem is not None:
+            betas, F_all, _A, _B = self._bem_headings
+            F_beta = interp_heading_excitation(betas, F_all, float(beta))
         self.env = Env(Hs=float(Hs), Tp=float(Tp), V=float(V), beta=float(beta),
                        depth=self.depth, current=float(current),
                        current_heading=float(current_heading),
@@ -103,22 +129,70 @@ class Model:
         self.f6Ext = self._t([self.Fthrust, 0.0, 0.0, 0.0, self.Fthrust * hHub, 0.0])
         self.kin = None
         self.F_morison = None
+        if F_beta is not None:
+            # A, B are heading-independent: only the excitation changes
+            self.bem = (self._bem_headings[2], self._bem_headings[3], F_beta)
 
     # ------------------------------------------------------------- statics
 
-    def calcBEM(self, *args, **kwargs):
-        raise NotImplementedError(
-            "calcBEM comes with the BEM-staged north-star slice (ROADMAP.md, "
-            "queue 1: the host panel solver port)")
+    def calcBEM(self, dz_max: float = 3.0, da_max: float = 2.0,
+                out_dir: str | None = None, irr: bool = False, headings=None):
+        """Mesh the potMod members and solve them with the on-device panel
+        BEM, on the model's device in its dtype.
+
+        ``irr=True`` adds interior waterplane lid panels (irregular-frequency
+        removal).  ``headings``: optional heading grid [rad]; the excitation
+        is solved for every heading at once and later ``setEnv(beta=...)``
+        calls re-stage it by interpolation.  Writes HullMesh.pnl and
+        platform.gdf when ``out_dir`` is given.  Returns the (A, B, F) tuple
+        (host numpy), or None when the design has no potMod member."""
+        from raft_tpu_torch.hydro.mesh import mesh_design, mesh_lid, write_gdf, write_pnl
+        from raft_tpu_torch.hydro.torch_bem import solve_bem_any
+
+        panels = mesh_design(self.design, dz_max=dz_max, da_max=da_max)
+        if len(panels) == 0:
+            return None
+        if out_dir is not None:
+            import os
+
+            os.makedirs(out_dir, exist_ok=True)
+            write_pnl(os.path.join(out_dir, "HullMesh.pnl"), panels)
+            write_gdf(os.path.join(out_dir, "platform.gdf"), panels)
+        lid = mesh_lid(self.design, da_max=da_max) if irr else None
+        solve = dict(rho=float(self.env.rho), g=float(self.env.g), depth=self.depth, lid=lid,
+                     mode=self.bem_mode, dtype=self.dtype, device=self.device,
+                     return_diagnostics=True)
+        w = _np(self.w)
+        if headings is not None:
+            beta = float(self.env.beta)
+            betas = np.sort(np.asarray(headings, dtype=float))
+            if not (betas[0] - 1e-9 <= beta <= betas[-1] + 1e-9):
+                raise ValueError(
+                    f"current heading {beta:.3f} rad outside the requested grid "
+                    f"[{betas[0]:.3f}, {betas[-1]:.3f}]: include it or setEnv first")
+            A, B, F_all, self.bem_diagnostics = solve_bem_any(panels, w, beta=betas, **solve)
+            self._bem_headings = (betas, F_all, A, B)
+            self.bem = (A, B, interp_heading_excitation(betas, F_all, beta))
+        else:
+            A, B, F, self.bem_diagnostics = solve_bem_any(panels, w, beta=float(self.env.beta),
+                                                          **solve)
+            self.bem = (A, B, F)
+            self._bem_headings = None
+        return self.bem
 
     def calcSystemProps(self):
-        """Statics + strip-theory hydro + undisplaced mooring stiffness."""
+        """Statics + strip-theory hydro (+ BEM) + undisplaced mooring
+        stiffness."""
         if self.wave is None:
             self.setEnv()
+        if self.bem_mode is not None and self.bem is None:
+            self.calcBEM()
+        exclude = self.bem is not None
         self.statics = assemble_statics(self.members, self.rna, self.env)
         self.kin = node_kinematics(self.members, self.wave, self.env)
-        self.A_morison = strip_added_mass(self.members, self.env)
-        self.F_morison = strip_excitation(self.members, self.kin, self.env)
+        self.A_morison = strip_added_mass(self.members, self.env, exclude_potmod=exclude)
+        self.F_morison = strip_excitation(self.members, self.kin, self.env,
+                                          exclude_potmod=exclude)
         if self.moor is not None:
             z6 = self._zeros(6)
             self.C_moor0 = mooring_stiffness(self.moor, z6)
@@ -189,18 +263,25 @@ class Model:
 
     def solveEigen(self, n_pass: int = 3):
         """Natural frequencies and modes about the undisplaced mooring, plus
-        the per-DOF diagonal estimates."""
+        the per-DOF diagonal estimates.  With BEM coefficients staged, the
+        added mass is taken at each mode's own natural frequency by an
+        ``n_pass``-step fixed point."""
         if self.statics is None:
             self.calcSystemProps()
         M_base = self.statics.M_struc + self.A_morison
         C_tot = self.statics.C_struc + self.statics.C_hydro + self.C_moor0
-        self.eigen = solve_eigen(M_base, C_tot)
+        if self.bem is None:
+            self.eigen = solve_eigen(M_base, C_tot)
+            est = diagonal_estimates(M_base, C_tot)
+        else:
+            A_w = self._t(np.moveaxis(np.asarray(self.bem[0]), -1, 0))   # (nw, 6, 6)
+            self.eigen, est = eigen_with_bem(M_base, C_tot, A_w, self.w, n_pass=n_pass)
         fns = _np(self.eigen.fns)
         self.results["eigen"] = {
             "frequencies": fns,
             "periods": 1.0 / np.maximum(fns, 1e-12),
             "modes": _np(self.eigen.modes),
-            "estimates": _np(diagonal_estimates(M_base, C_tot)),
+            "estimates": _np(est),
         }
         return self
 
@@ -210,8 +291,12 @@ class Model:
         nw = self.w.shape[0]
         s = self.statics
         M = (s.M_struc + self.A_morison).expand(nw, 6, 6)
-        return LinearCoeffs(M=M, B=torch.zeros_like(M),
-                            C=s.C_struc + s.C_hydro + self.C_moor, F=self.F_morison)
+        B = torch.zeros_like(M)
+        F = self.F_morison
+        if self.bem is not None:
+            A_bem, B_bem, F_bem = stage_bem(self.bem, self.wave)
+            M, B, F = M + A_bem, B + B_bem, F + F_bem
+        return LinearCoeffs(M=M, B=B, C=s.C_struc + s.C_hydro + self.C_moor, F=F)
 
     def solveDynamics(self, nIter: int = 40, tol: float = 0.01, method="while",
                       history: bool = False):
@@ -319,6 +404,21 @@ class Model:
             print(f"  dynamic pitch (|static| + 3 sigma): {c['dynamic pitch']:.2f} deg "
                   f"(limit {c['dynamic pitch limit']:.0f})")
         print("======================================")
+
+
+def interp_heading_excitation(betas, F_all, beta: float) -> np.ndarray:
+    """Excitation F[6, nw] at heading ``beta`` from a staged heading grid
+    (linear in heading between the two bracketing slices)."""
+    betas = np.asarray(betas)
+    if beta < betas[0] - 1e-6 or beta > betas[-1] + 1e-6:
+        raise ValueError(f"heading {beta:.3f} rad outside staged grid "
+                         f"[{betas[0]:.3f}, {betas[-1]:.3f}]")
+    beta = float(np.clip(beta, betas[0], betas[-1]))
+    if len(betas) == 1:
+        return np.asarray(F_all[0])
+    j = int(np.clip(np.searchsorted(betas, beta), 1, len(betas) - 1))
+    t = float(np.clip((beta - betas[j - 1]) / (betas[j] - betas[j - 1]), 0.0, 1.0))
+    return (1.0 - t) * np.asarray(F_all[j - 1]) + t * np.asarray(F_all[j])
 
 
 def load_design(fname) -> dict:

@@ -1,14 +1,16 @@
 """Design-batch forward pipeline and the north-star variant sweep (port of
 ``raft_tpu.parallel.sweep``: ``scale_diameters``, ``forward_response``,
-``response_std``).
+``response_std``, ``stage_bem``).
 
 A design batch is a MemberSet with a leading axis; ``forward_response``
 runs statics, strip hydrodynamics and the batched drag-linearized fixed
 point for every lane at once (the job ``jax.vmap`` does in the JAX
-package).  :func:`sweep_north_star_strip` is ``bench.py::north_star``'s
-workload on the strip-theory path: VolturnUS-S plan-radius x draft
-variants x 200 frequencies, in chunks, with the std dev reduced on the
-device.
+package).  :func:`sweep_north_star` is ``bench.py::north_star``'s
+workload: VolturnUS-S plan-radius x draft variants x 200 frequencies, in
+chunks, with the std dev reduced on the device, and BEM coefficients of
+the nominal hull staged into every lane (:func:`stage_north_star_bem`,
+solved on the device by the panel BEM); with ``bem=False`` it is the same
+sweep on the strip-theory path alone.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.build.members import build_member_set, build_rna
+from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.device import require_on, resolve_device
 from raft_tpu_torch.core.types import Env, MemberSet, RNA, WaveState
 from raft_tpu_torch.core.waves import jonswap, wave_number
@@ -45,6 +48,26 @@ def scale_diameters(members: MemberSet, scale) -> MemberSet:
         node_ds=members.node_ds * scale,
         node_drs=members.node_drs * scale,
     )
+
+
+def stage_bem(bem, wave: WaveState):
+    """Host-layout BEM coefficients -> frequency-leading device tensors.
+
+    ``bem``: (A[6, 6, nw], B[6, 6, nw], F[6, nw] complex) per unit wave
+    amplitude, numpy (the panel solver's / WAMIT reader's layout).
+    Returns (A[nw, 6, 6], B[nw, 6, 6], F Cx[nw, 6]) on the wave's device in
+    its dtype, with the excitation scaled onto the spectral-amplitude basis
+    (zeta = sqrt(S)) of the Morison path."""
+    A_bem, B_bem, F_bem = bem
+    dev, dtype = wave.zeta.device, wave.zeta.dtype
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    Fb = np.moveaxis(np.asarray(F_bem), -1, 0)           # (nw, 6) complex, host
+    z = wave.zeta[:, None]
+    return (t(np.moveaxis(np.asarray(A_bem), -1, 0)), t(np.moveaxis(np.asarray(B_bem), -1, 0)),
+            Cx(z * t(Fb.real), z * t(Fb.imag)))
 
 
 def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
@@ -111,22 +134,11 @@ def north_star_grid(n_designs: int) -> np.ndarray:
     return np.stack([pp.ravel(), dd.ravel()], axis=1)
 
 
-def sweep_north_star_strip(n_designs: int = 1000, nw: int = 200, chunk: int = 250,
-                           n_iter: int = 40, dtype=torch.float64, device=None,
-                           lanes=None) -> dict:
-    """The north star's 1,000 VolturnUS-S plan-radius x draft variants x
-    ``nw`` frequencies on the strip-theory path.
-
-    JONSWAP Hs 8 m / Tp 12 s on ``linspace(0.05, 2.95, nw)``, undisplaced
-    mooring stiffness, the ``while`` driver at ``n_iter``; each chunk of
-    lanes is one batched :func:`forward_response` with the std dev reduced
-    on the device.  ``lanes`` (indices into the grid) runs a subset.
-    Returns per-lane ``std`` (n, 6), ``n_iter`` (n,), ``converged`` (n,) and
-    ``scales`` (n, 2) as tensors on the device.
-    """
+def _volturnus(nw: int, dtype, dev):
+    """The north star's design, RNA, sea state (JONSWAP Hs 8 m / Tp 12 s on
+    ``linspace(0.05, 2.95, nw)``) and undisplaced mooring stiffness."""
     import yaml
 
-    dev = resolve_device(device)
     with open(VOLTURNUS_S) as f:
         design = yaml.safe_load(f)
     members = build_member_set(design, dev, dtype)
@@ -138,6 +150,63 @@ def sweep_north_star_strip(n_designs: int = 1000, nw: int = 200, chunk: int = 25
     moor = parse_mooring(design["mooring"], dev, dtype,
                          yaw_stiffness=design["turbine"].get("yaw_stiffness", 0.0))
     C_moor = mooring_stiffness(moor, torch.zeros(6, dtype=dtype, device=dev))
+    return design, members, rna, env, wave, C_moor
+
+
+def stage_north_star_bem(nw: int = 200, nw_bem: int = 48, dtype=torch.float64, device=None,
+                         return_diagnostics: bool = False):
+    """BEM coefficients of the nominal VolturnUS-S hull for the north star
+    (``bench.py::_volturn_setup``, with the panel solve on the device).
+
+    Meshes the potMod members at ``dz_max=3, da_max=2``, solves them at
+    ``nw_bem`` frequencies over ``linspace(0.05, 2.95, nw_bem)`` (depth
+    200 m, heading 0) with kernels K3/K4 on CUDA, interpolates A, B, F to
+    the sweep's ``nw`` frequencies and stages them (:func:`stage_bem`).
+    Returns (A, B, F Cx) on ``device`` in ``dtype`` (and the panel solve's
+    diagnostics with ``return_diagnostics``)."""
+    from raft_tpu_torch.hydro.bem_io import interp_to_grid
+    from raft_tpu_torch.hydro.mesh import mesh_design
+    from raft_tpu_torch.hydro.torch_bem import solve_bem_any
+
+    dev = resolve_device(device)
+    design, _members, _rna, env, wave, _C = _volturnus(nw, dtype, dev)
+    w = np.linspace(0.05, 2.95, nw)
+    w_bem = np.linspace(w[0], w[-1], nw_bem)
+    panels = mesh_design(design, dz_max=3.0, da_max=2.0)
+    A_c, B_c, F_c, diag = solve_bem_any(panels, w_bem, rho=float(env.rho), g=float(env.g),
+                                        beta=0.0, depth=env.depth, mode="jax", dtype=dtype,
+                                        device=dev, return_diagnostics=True)
+    staged = stage_bem((interp_to_grid(w_bem, A_c, w), interp_to_grid(w_bem, B_c, w),
+                        interp_to_grid(w_bem, F_c, w)), wave)
+    return (staged, diag) if return_diagnostics else staged
+
+
+def sweep_north_star(n_designs: int = 1000, nw: int = 200, chunk: int = 250,
+                     n_iter: int = 40, dtype=torch.float64, device=None, bem=True,
+                     lanes=None) -> dict:
+    """The north star: 1,000 VolturnUS-S plan-radius x draft variants x
+    ``nw`` frequencies (``bench.py::north_star``).
+
+    JONSWAP Hs 8 m / Tp 12 s on ``linspace(0.05, 2.95, nw)``, undisplaced
+    mooring stiffness, the ``while`` driver at ``n_iter``; each chunk of
+    lanes is one batched :func:`forward_response` with the std dev reduced
+    on the device.  ``bem``: True stages the nominal hull's panel-BEM
+    coefficients in float64 (:func:`stage_north_star_bem`) into every lane,
+    the approximation ``bench.py`` documents; a staged (A, B, F) tuple is
+    used as given; False runs strip theory alone.  The staged tuple is cast
+    to ``dtype``.  ``lanes`` (indices into the grid) runs a subset.
+    Returns per-lane ``std`` (n, 6), ``n_iter`` (n,), ``converged`` (n,) and
+    ``scales`` (n, 2) as tensors on the device.
+    """
+    dev = resolve_device(device)
+    _design, members, rna, env, wave, C_moor = _volturnus(nw, dtype, dev)
+    if bem is True:
+        bem = stage_north_star_bem(nw=nw, dtype=torch.float64, device=dev)
+    if bem:
+        A, B, F = bem
+        bem = (A.to(dtype), B.to(dtype), Cx(F.re.to(dtype), F.im.to(dtype)))
+    else:
+        bem = None
     draft = make_stretch_draft(members)
     plan = make_scale_plan(members)
 
@@ -149,11 +218,10 @@ def sweep_north_star_strip(n_designs: int = 1000, nw: int = 200, chunk: int = 25
     for lo in range(0, scales.shape[0], chunk):
         th = scales[lo:lo + chunk]
         m = plan(draft(members, th[:, 1]), th[:, 0])
-        out = forward_response(m, rna, env, wave, C_moor, n_iter=n_iter,
+        out = forward_response(m, rna, env, wave, C_moor, bem=bem, n_iter=n_iter,
                                method="while", dtype=dtype, device=dev)
         stds.append(response_std(out.Xi.abs2(), wave.w))
         iters.append(out.n_iter)
         convs.append(out.converged)
     return {"std": torch.cat(stds), "n_iter": torch.cat(iters),
             "converged": torch.cat(convs), "scales": scales}
-

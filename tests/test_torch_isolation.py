@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,8 +25,8 @@ def test_fresh_process_imports_nothing_of_jax():
     code = (
         "import sys, torch\n"
         "import raft_tpu_torch.model, raft_tpu_torch.convert\n"
-        "from raft_tpu_torch.parallel.sweep import sweep_north_star_strip\n"
-        "out = sweep_north_star_strip(n_designs=2, nw=8, chunk=2, n_iter=5, device='cpu')\n"
+        "from raft_tpu_torch.parallel.sweep import sweep_north_star\n"
+        "out = sweep_north_star(n_designs=2, nw=8, chunk=2, n_iter=5, device='cpu', bem=False)\n"
         "assert out['std'].shape == (2, 6) and bool(torch.isfinite(out['std']).all())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -37,6 +38,32 @@ def test_fresh_process_imports_nothing_of_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_bem_modules_import_nothing_of_jax():
+    """The panel-BEM modules (with their own copies of the JAX package's
+    mesher, wave tables, Bessel functions and interpolation) load in a
+    fresh process without JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "import raft_tpu_torch.hydro.torch_bem\n"
+        "import raft_tpu_torch.core.cuda_bem, raft_tpu_torch.core.nvcc\n"
+        "import raft_tpu_torch.hydro.mesh, raft_tpu_torch.hydro.wavetable\n"
+        "import raft_tpu_torch.hydro.bem_io, raft_tpu_torch.core.bessel\n"
+        "import raft_tpu_torch.solve.eigen, raft_tpu_torch.parallel.sweep\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"hydro/torch_bem.py", "hydro/mesh.py", "hydro/wavetable.py", "hydro/bem_io.py",
+            "core/bessel.py", "core/cuda_bem.py", "core/nvcc.py"} <= names
 
 
 def test_no_forbidden_import_in_source():
@@ -59,7 +86,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     silently running on the CPU."""
     from raft_tpu_torch.core.device import resolve_device
     from raft_tpu_torch.model import Model, load_design, run_raft
-    from raft_tpu_torch.parallel.sweep import forward_response, sweep_north_star_strip
+    from raft_tpu_torch.parallel.sweep import forward_response, sweep_north_star
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     design = load_design(ROOT / "raft_tpu" / "designs" / "OC3spar.yaml")
@@ -70,7 +97,16 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_raft(ROOT / "raft_tpu" / "designs" / "OC3spar.yaml")
     with pytest.raises(RuntimeError, match="CUDA"):
-        sweep_north_star_strip(n_designs=2, nw=8)
+        sweep_north_star(n_designs=2, nw=8, bem=False)
+    from raft_tpu_torch.hydro.torch_bem import solve_bem_any
+    from raft_tpu_torch.parallel.sweep import stage_north_star_bem
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep_north_star(n_designs=2, nw=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stage_north_star_bem(nw=8, nw_bem=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_bem_any(np.zeros((1, 4, 3)), [1.0])
     m = Model(design, device="cpu")
     m.calcSystemProps()
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -44,7 +44,7 @@ def test_unported_options_name_their_slice(capsys):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(design, device="cpu", **kwargs)
     m = Model(design, device="cpu")
-    for call in (m.calcBEM, lambda: m.airgap([[0.0, 0.0]], 10.0), m.plot):
+    for call in (lambda: m.airgap([[0.0, 0.0]], 10.0), m.plot):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     m.setEnv(Hs=6.0, Tp=10.0)
