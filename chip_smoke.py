@@ -11,8 +11,10 @@ result line):
 1. device: CUDA is required; prints the card's name and power limit;
 2. build: compiles kernels K1 (``csrc/solve6.cu``), K3 (``csrc/bem_rankine.cu``)
    and K4 (``csrc/bem_wave.cu``) of ``raft_tpu_torch`` with one nvcc each,
-   all at once, prints ptxas' registers and spills, and builds (or loads)
-   the BEM wave-integral tables into ``raft_tpu_torch/_build/``;
+   all at once, prints ptxas' registers and spills (kept beside each
+   library, so a run that only loads a built library prints them too), and
+   builds (or loads) the BEM wave-integral tables into
+   ``raft_tpu_torch/_build/``;
 3. K1 against its plain PyTorch version on the card, numpy-seeded inputs at
    the sweep's call shape (250 designs x 200 frequencies) and at 1,000 x 200,
    in float64 and float32: random systems, a permutation matrix with w = 0
@@ -23,7 +25,8 @@ result line):
    (2,048 class), float64 and float32, with the pairs per subdivision level;
 5. K4 (wave part) against its plain version on the same meshes, on a deep
    (1.5 rad/s) and a finite-depth (0.4 rad/s, 200 m) frequency chunk, and on
-   every chunk of the north star's 48-frequency staging grid;
+   every chunk of the north star's 48-frequency staging grid; then K3 and
+   K4 at a panel count off the 64-panel classes (850, the hull unpadded);
 6. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
    against the same run on the CPU (plain path);
 7. the strip-theory north-star sweep at full size (1,000 VolturnUS-S
@@ -225,7 +228,11 @@ class Smoke:
         cuda6.build()
         cuda_bem.build()
         print(f"  K1, K3, K4 built in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
-        for name, log in nvcc.BUILD_LOGS.items():
+        for spec in (cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE):
+            name, log = spec.name, nvcc.build_log(spec)
+            if log is None:
+                print(f"  ptxas {name}: no log beside {spec.path().name}")
+                continue
             kind = ""
             for line in log.splitlines():
                 if "Compiling entry" in line:
@@ -428,6 +435,36 @@ class Smoke:
                           f"operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms); max abs diff "
                           f"{ab:.3e}")
         self._k4_main_path(tab)
+        self._unaligned(tab)
+
+    def _unaligned(self, tab):
+        """K3 and K4 at a panel count off the 64-panel classes (the
+        VolturnUS-S hull unpadded, 850 panels): the kernels guard the edge
+        of the pair grid, and solve_panels launches them at any count."""
+        from raft_tpu_torch.core import cuda_bem
+        from raft_tpu_torch.hydro import torch_bem, wavetable
+
+        torch = self.torch
+        case = self._bem_case("VolturnUS-S", False, torch.float64)
+        n = int(case["args"][5].sum())
+        args = tuple(a[:n] for a in case["args"])
+        got = cuda_bem.rankine_assembly(*args)
+        ref = torch_bem.rankine_plain(*args)
+        rel_r, _ = self._errs(got, ref)
+        ws = 0.4 + 0.02 * np.arange(2)
+        fd = {k: torch.as_tensor(v, device=self.dev) for k, v in
+              wavetable.fd_fit_grid(ws, case["depth"], 9.81).items()}
+        k = torch.as_tensor(ws * ws / 9.81, device=self.dev)
+        P, c, nrm, area, diag, pm, ls, spot = args
+        wargs = (ref[0], ref[1], c, nrm, area, pm, ls,
+                 torch_bem.stage_tables(tab, torch.float64, self.dev), k, fd)
+        kw = {"finite_depth": True, "depth": case["depth"]}
+        rel_w, _ = self._errs(cuda_bem.wave_assembly(*wargs, **kw),
+                              torch_bem.wave_plain(*wargs, **kw))
+        self.check(n % 64 != 0 and rel_r <= TOL_BEM["float64"]["rankine"]
+                   and rel_w <= TOL_BEM["float64"]["wave"],
+                   f"K3/K4 float64 at an unaligned count n={n}: scale-relative diff "
+                   f"{rel_r:.3e} / {rel_w:.3e}")
 
     def _k4_main_path(self, tab):
         """K4 at the main path's calls: every chunk of the north star's
@@ -515,7 +552,7 @@ class Smoke:
         cuda6.LAUNCHES = 0
         t0 = time.perf_counter()
         res = sweep_north_star(n_designs=n, nw=nw, chunk=chunk, n_iter=40,
-                               dtype=torch.float32, device="cuda", bem=False)
+                               dtype=torch.float32, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = cuda6.LAUNCHES
@@ -533,12 +570,12 @@ class Smoke:
 
         lanes = np.arange(0, n, n // 16)[:16]
         sub_k = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
-                                 device="cuda", bem=False, lanes=lanes)
+                                 device="cuda", lanes=lanes)
         orig = dynamics.solve_rao
         dynamics.solve_rao = linalg6.solve_cx_fused      # plain solve, same card
         try:
             sub_p = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
-                                     device="cuda", bem=False, lanes=lanes)
+                                     device="cuda", lanes=lanes)
         finally:
             dynamics.solve_rao = orig
         same_it = bool((sub_k["n_iter"] == sub_p["n_iter"]).all())
@@ -734,7 +771,7 @@ class Smoke:
 
         def strip():
             sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
-                             dtype=torch.float32, device="cuda", bem=False)
+                             dtype=torch.float32, device="cuda")
 
         def bem():
             staged = stage_north_star_bem(nw=200, nw_bem=48, dtype=torch.float64, device="cuda")

@@ -5,8 +5,10 @@ becomes one shared library in ``raft_tpu_torch/_build/``, named by a hash of
 the source and the flags, so a changed source is rebuilt and an unchanged
 one is loaded as it is.  :func:`compile_all` starts one ``nvcc`` per
 missing library, all at once, and waits for them; :func:`load` builds one
-library if needed and opens it.  ``BUILD_LOGS`` keeps each build's compiler
-output (``-Xptxas -v``: registers and spills per kernel).
+library if needed and opens it.  Each build's compiler output (``-Xptxas
+-v``: registers and spills per kernel) is kept beside its library as
+``lib<name>-<hash>.log``, and :func:`build_log` reads it back whether the
+library was built in this process or loaded.
 """
 from __future__ import annotations
 
@@ -25,10 +27,6 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: library name -> compiler output of its build in this process
-BUILD_LOGS: dict[str, str] = {}
-
-
 @dataclasses.dataclass(frozen=True)
 class Spec:
     """One kernel library: ``name``, its source in ``csrc/`` and the flags
@@ -46,6 +44,9 @@ class Spec:
         src = (CSRC / self.source).read_bytes()
         key = hashlib.sha256(src + " ".join(self.flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}-{key}.so"
+
+    def log_path(self) -> Path:
+        return self.path().with_suffix(".log")
 
 
 def _nvcc() -> str:
@@ -74,10 +75,10 @@ def compile_all(specs) -> None:
         failed = []
         for spec, so, tmp, proc in jobs:
             _out, err = proc.communicate(timeout=900)
-            BUILD_LOGS[spec.name] = err
             if proc.returncode != 0:
                 failed.append(f"{spec.source} ({proc.returncode}):\n{err[-4000:]}")
             else:
+                spec.log_path().write_text(err)
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -88,6 +89,13 @@ def compile_all(specs) -> None:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
+
+
+def build_log(spec: Spec) -> str | None:
+    """The compiler output of ``spec``'s library build, or None when the
+    library was built before its log was kept."""
+    log = spec.log_path()
+    return log.read_text() if log.exists() else None
 
 
 def load(spec: Spec, signatures: dict) -> ctypes.CDLL:

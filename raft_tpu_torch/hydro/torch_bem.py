@@ -26,12 +26,14 @@ The two assembly stages are kernels on the card (``core/cuda_bem.py``):
 K3 :func:`rankine_assembly` (``csrc/bem_rankine.cu``) and K4
 :func:`wave_assembly` (``csrc/bem_wave.cu``).  Their plain versions live
 here, :func:`rankine_plain` and :func:`wave_plain`: CPU tensors take them,
-and so does a panel count that is not a multiple of ``TILE`` on either
-device (the JAX package's XLA-route rule).  The plain Rankine sum follows
-the Pallas kernel's order: per subdivision point, the direct then the
-image contribution is added to ``R_pot = pot_d + pot_i`` and to
-``R_dn = (grad_d + grad_i) . n_i`` (projected per point).  In f64 it
-agrees with the XLA route's separate sums to ~3e-16.
+CUDA tensors launch the kernels at any panel count (the kernels guard the
+edge of the pair grid, so the JAX package's rule that sends a count off
+its 64-panel tiles to the XLA route has nothing to protect here).  The
+plain Rankine sum follows the Pallas kernel's order: per subdivision
+point, the direct then the image contribution is added to
+``R_pot = pot_d + pot_i`` and to ``R_dn = (grad_d + grad_i) . n_i``
+(projected per point).  In f64 it agrees with the XLA route's separate
+sums to ~3e-16.
 
 The module's name avoids the old one, which names a framework; the
 ``BEM="jax"`` mode name and :func:`solve_bem_jax` keep the JAX package's
@@ -61,8 +63,6 @@ R_NEAR = 0.6
 PARITY_RTOL = 3e-3
 #: padded panel-count classes (the JAX package's ``panels`` ladder)
 PANEL_CLASSES = (64, 128, 256, 512, 768, 1024, 1536, 2048)
-#: assembly tile edge; every class above is a multiple of it
-TILE = 64
 #: subdivision levels of the Rankine integration (ns x ns midpoint)
 LEVELS = (1, 3, 6, 12, 24)
 #: E1 series terms of the near quadrature
@@ -92,11 +92,6 @@ def pad_panel_count(n_total: int) -> int:
             return c
     raise ValueError(f"{n_total} panels exceed the largest class "
                      f"{PANEL_CLASSES[-1]}; mesh coarser (dz_max, da_max)")
-
-
-def tile_ok(n: int) -> bool:
-    """True when an n-panel padded mesh divides into whole tiles."""
-    return n >= TILE and n % TILE == 0
 
 
 # ------------------------------------------------------------ wave integrals
@@ -568,10 +563,7 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *,
     hull_mask = panel_mask * (1.0 - lid_mask)
     lid_surface = (lid_mask > 0.5) & (torch.abs(c[:, 2]) < 1e-6 * torch.clamp(diag, min=1e-9))
     self_pot = self_potential(pans, c, nrm)
-    aligned = tile_ok(n)
-    assemble_r = rankine_assembly if aligned else rankine_plain
-    assemble_w = wave_assembly if aligned else wave_plain
-    R_pot, R_dn = assemble_r(pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot)
+    R_pot, R_dn = rankine_assembly(pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot)
 
     nvec6 = torch.cat([nrm, torch.linalg.cross(c, nrm)], dim=1)      # (n, 6)
     Wn = nvec6 * (hull_mask * area)[:, None]                          # (n, 6)
@@ -592,7 +584,7 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *,
         nf = om.shape[0]
         k = om * om / g
         fd_c = {key: val[sl] for key, val in fd.items()} if finite_depth else None
-        S_re, S_im, Dn_re, Dn_im = assemble_w(
+        S_re, S_im, Dn_re, Dn_im = wave_assembly(
             R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab_d, k, fd_c,
             finite_depth=finite_depth, depth=depth)
         M_re = torch.where(lid_row, S_re, Dn_re - _TWO_PI * eye)

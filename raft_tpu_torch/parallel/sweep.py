@@ -7,9 +7,9 @@ runs statics, strip hydrodynamics and the batched drag-linearized fixed
 point for every lane at once (the job ``jax.vmap`` does in the JAX
 package).  :func:`sweep_north_star` is ``bench.py::north_star``'s
 workload: VolturnUS-S plan-radius x draft variants x 200 frequencies, in
-chunks, with the std dev reduced on the device, and BEM coefficients of
-the nominal hull staged into every lane (:func:`stage_north_star_bem`,
-solved on the device by the panel BEM); with ``bem=False`` it is the same
+chunks, with the std dev reduced on the device, and the BEM coefficients
+of the nominal hull that :func:`stage_north_star_bem` solves on the device
+with the panel BEM staged into every lane; without them it is the same
 sweep on the strip-theory path alone.
 """
 from __future__ import annotations
@@ -182,7 +182,7 @@ def stage_north_star_bem(nw: int = 200, nw_bem: int = 48, dtype=torch.float64, d
 
 
 def sweep_north_star(n_designs: int = 1000, nw: int = 200, chunk: int = 250,
-                     n_iter: int = 40, dtype=torch.float64, device=None, bem=True,
+                     n_iter: int = 40, dtype=torch.float64, device=None, bem=None,
                      lanes=None) -> dict:
     """The north star: 1,000 VolturnUS-S plan-radius x draft variants x
     ``nw`` frequencies (``bench.py::north_star``).
@@ -190,23 +190,19 @@ def sweep_north_star(n_designs: int = 1000, nw: int = 200, chunk: int = 250,
     JONSWAP Hs 8 m / Tp 12 s on ``linspace(0.05, 2.95, nw)``, undisplaced
     mooring stiffness, the ``while`` driver at ``n_iter``; each chunk of
     lanes is one batched :func:`forward_response` with the std dev reduced
-    on the device.  ``bem``: True stages the nominal hull's panel-BEM
-    coefficients in float64 (:func:`stage_north_star_bem`) into every lane,
-    the approximation ``bench.py`` documents; a staged (A, B, F) tuple is
-    used as given; False runs strip theory alone.  The staged tuple is cast
-    to ``dtype``.  ``lanes`` (indices into the grid) runs a subset.
+    on the device.  ``bem``: a staged (A, B, F) tuple, as
+    :func:`stage_north_star_bem` returns for the nominal hull, added to
+    every lane (the approximation ``bench.py`` documents) after a cast to
+    ``dtype``; None runs strip theory alone.  ``lanes`` (indices into the
+    grid) runs a subset.
     Returns per-lane ``std`` (n, 6), ``n_iter`` (n,), ``converged`` (n,) and
     ``scales`` (n, 2) as tensors on the device.
     """
     dev = resolve_device(device)
     _design, members, rna, env, wave, C_moor = _volturnus(nw, dtype, dev)
-    if bem is True:
-        bem = stage_north_star_bem(nw=nw, dtype=torch.float64, device=dev)
-    if bem:
+    if bem is not None:
         A, B, F = bem
         bem = (A.to(dtype), B.to(dtype), Cx(F.re.to(dtype), F.im.to(dtype)))
-    else:
-        bem = None
     draft = make_stretch_draft(members)
     plan = make_scale_plan(members)
 

@@ -175,7 +175,5 @@ def test_padding_matches_jax():
         assert torch_bem.pad_panel_count(n) == jax_bem.pad_panel_count(n)
     with pytest.raises(ValueError):
         torch_bem.pad_panel_count(2049)
-    assert all(torch_bem.tile_ok(c) for c in torch_bem.PANEL_CLASSES)
-    assert not torch_bem.tile_ok(96) and not torch_bem.tile_ok(32)
     assert torch_bem.freq_chunk(1024, 48) == jax_bem._freq_chunk(1024, 48) == 2
     assert torch_bem.freq_chunk(64, 3) == jax_bem._freq_chunk(64, 3)

@@ -185,3 +185,25 @@ def test_quadrature_layout_matches_jax_and_kernel():
     starts = ", ".join(str(q) for q in torch_bem.LEVEL_START)
     counts = ", ".join(str(q) for q in torch_bem.LEVEL_COUNT)
     assert f"kLevelStart[5] = {{{starts}}}" in text and f"kLevelCount[5] = {{{counts}}}" in text
+
+
+def test_build_log_kept_beside_library(tmp_path, monkeypatch):
+    """The compiler's output (ptxas registers and spills) is written beside
+    the library it built, so it reads back on a later run that only loads
+    the library.  A stand-in compiler writes the library and one ptxas line."""
+    from raft_tpu_torch.core import nvcc
+
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n'
+                    'echo "ptxas info    : Used 40 registers, 0 bytes spill stores" >&2\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(nvcc, "_nvcc", lambda: str(fake))
+    spec = cuda_bem.RANKINE
+    assert nvcc.build_log(spec) is None
+    nvcc.compile_all([spec])
+    assert spec.path().exists() and spec.log_path().parent == spec.path().parent
+    assert "Used 40 registers" in nvcc.build_log(spec)
+    fake.write_text("#!/bin/sh\nexit 1\n")          # a second run builds nothing
+    nvcc.compile_all([spec])
+    assert "Used 40 registers" in nvcc.build_log(spec)

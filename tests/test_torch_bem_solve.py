@@ -43,7 +43,9 @@ def _case():
     return hull, lid
 
 
-def test_solve_panels_matches_jax():
+@pytest.fixture(scope="module")
+def jax_case():
+    """The padded mesh, fit arrays, tables and the JAX package's solve."""
     hull, lid = _case()
     padded, pm, lm = jax_bem._pad_mesh(hull, lid)
     fd = jwt.fd_fit_grid(W, DEPTH if DEPTH > 0 else -1.0, 9.81)
@@ -53,15 +55,38 @@ def test_solve_panels_matches_jax():
         jnp.asarray(BETAS), {k: jnp.asarray(v) for k, v in fd.items()},
         {k: jnp.asarray(tab[k]) for k in ("I0", "I1")}, depth=DEPTH,
         finite_depth=DEPTH > 0, dtype=jnp.float64, assembly="pallas")
-    P, pmt, lmt = convert.padded_mesh(padded, pm, lm, "cpu")
-    A, B, F, resid = torch_bem.solve_panels(P, pmt, lmt, W, BETAS, fd, tab, depth=DEPTH,
-                                            finite_depth=DEPTH > 0, dtype=torch.float64,
-                                            device="cpu")
+    return padded, pm, lm, fd, tab, ref
+
+
+def _check(out, ref):
+    A, B, F, resid = out
     assert A.shape == (2, 6, 6) and F.re.shape == (2, 2, 6) and resid.shape == (2,)
     for got, want in ((A, ref[0]), (B, ref[1]), (F.re, ref[2].re), (F.im, ref[2].im)):
         assert bool(torch.isfinite(got).all())
         assert torch_bem.parity_err(got.numpy(), np.asarray(want)) <= TOL
     assert float(resid.max()) < 1e-10
+
+
+def test_solve_panels_matches_jax(jax_case):
+    padded, pm, lm, fd, tab, ref = jax_case
+    P, pmt, lmt = convert.padded_mesh(padded, pm, lm, "cpu")
+    _check(torch_bem.solve_panels(P, pmt, lmt, W, BETAS, fd, tab, depth=DEPTH,
+                                  finite_depth=DEPTH > 0, dtype=torch.float64, device="cpu"),
+           ref)
+
+
+def test_solve_panels_unaligned_count_matches_jax(jax_case):
+    """A padded count off the 64-panel classes (here 3 padding panels past
+    the mesh, and none) solves the same system: the padding is masked out."""
+    padded, pm, lm, fd, tab, ref = jax_case
+    n_mesh = int(pm.sum())
+    assert n_mesh + 3 < len(padded)
+    for n in (n_mesh + 3, n_mesh):
+        assert n % 64 and n % 4
+        P, pmt, lmt = convert.padded_mesh(padded[:n], pm[:n], lm[:n], "cpu")
+        _check(torch_bem.solve_panels(P, pmt, lmt, W, BETAS, fd, tab, depth=DEPTH,
+                                      finite_depth=DEPTH > 0, dtype=torch.float64,
+                                      device="cpu"), ref)
 
 
 def test_solve_bem_layout_and_float32(monkeypatch):

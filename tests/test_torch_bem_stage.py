@@ -106,5 +106,5 @@ def test_sweep_north_star_with_staged_bem_matches_vmap():
                              device="cpu", bem=staged, lanes=np.array([1, 3]))
     assert _scale_rel(split["std"].numpy(), got["std"][[1, 3]].numpy()) <= 1e-14
     strip = sweep_north_star(n_designs=N, nw=NW, chunk=N, n_iter=40, dtype=torch.float64,
-                             device="cpu", bem=False)
+                             device="cpu")
     assert _scale_rel(strip["std"].numpy(), s_ref) > 1e-3

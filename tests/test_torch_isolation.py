@@ -26,7 +26,7 @@ def test_fresh_process_imports_nothing_of_jax():
         "import sys, torch\n"
         "import raft_tpu_torch.model, raft_tpu_torch.convert\n"
         "from raft_tpu_torch.parallel.sweep import sweep_north_star\n"
-        "out = sweep_north_star(n_designs=2, nw=8, chunk=2, n_iter=5, device='cpu', bem=False)\n"
+        "out = sweep_north_star(n_designs=2, nw=8, chunk=2, n_iter=5, device='cpu')\n"
         "assert out['std'].shape == (2, 6) and bool(torch.isfinite(out['std']).all())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -97,12 +97,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_raft(ROOT / "raft_tpu" / "designs" / "OC3spar.yaml")
     with pytest.raises(RuntimeError, match="CUDA"):
-        sweep_north_star(n_designs=2, nw=8, bem=False)
+        sweep_north_star(n_designs=2, nw=8)
     from raft_tpu_torch.hydro.torch_bem import solve_bem_any
     from raft_tpu_torch.parallel.sweep import stage_north_star_bem
 
-    with pytest.raises(RuntimeError, match="CUDA"):
-        sweep_north_star(n_designs=2, nw=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         stage_north_star_bem(nw=8, nw_bem=4)
     with pytest.raises(RuntimeError, match="CUDA"):
