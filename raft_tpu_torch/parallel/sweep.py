@@ -7,10 +7,10 @@ runs statics, strip hydrodynamics and the batched drag-linearized fixed
 point for every lane at once (the job ``jax.vmap`` does in the JAX
 package).  :func:`sweep_north_star` is ``bench.py::north_star``'s
 workload: VolturnUS-S plan-radius x draft variants x 200 frequencies, in
-chunks, with the std dev reduced on the device, and the BEM coefficients
-of the nominal hull that :func:`stage_north_star_bem` solves on the device
-with the panel BEM staged into every lane; without them it is the same
-sweep on the strip-theory path alone.
+chunks, with the std dev reduced on the device.  The caller may add the
+nominal hull's BEM coefficients to every lane (:func:`stage_north_star_bem`
+solves them on the device with the panel BEM); without them it is the
+same sweep on the strip-theory path alone.
 """
 from __future__ import annotations
 
