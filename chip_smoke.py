@@ -9,43 +9,58 @@ Phases (each failure makes the script exit non-zero, and then it prints no
 result line):
 
 1. device: CUDA is required; prints the card's name and power limit;
-2. build: compiles kernels K1 (``csrc/solve6.cu``), K3 (``csrc/bem_rankine.cu``)
-   and K4 (``csrc/bem_wave.cu``) of ``raft_tpu_torch`` with one nvcc each,
-   all at once, prints ptxas' registers and spills (kept beside each
-   library, so a run that only loads a built library prints them too), and
-   builds (or loads) the BEM wave-integral tables into
-   ``raft_tpu_torch/_build/``;
+2. build: compiles kernels K1/K2 (``csrc/solve6.cu``), K3
+   (``csrc/bem_rankine.cu``) and K4 (``csrc/bem_wave.cu``) of
+   ``raft_tpu_torch`` with one nvcc each, all at once, prints ptxas'
+   registers and spills (kept beside each library, so a run that only loads
+   a built library prints them too), and builds (or loads) the BEM
+   wave-integral tables into ``raft_tpu_torch/_build/``;
 3. K1 against its plain PyTorch version on the card, numpy-seeded inputs at
    the sweep's call shape (250 designs x 200 frequencies) and at 1,000 x 200,
    in float64 and float32: random systems, a permutation matrix with w = 0
    (forces pivoting) and one singular lane (zero-denominator guard); with
    kernel, plain-version and ``torch.linalg.solve`` times beside the bound;
-4. K3 (Rankine assembly) against its plain version on the VolturnUS-S hull
+4. K2 against its plain version at ``bench.py::pallas6_microbench``'s shape
+   (16,384 diagonally dominant systems) in float64 and float32, with a
+   permutation batch and a singular lane; then the microbench itself, K2's
+   path, with its launches counted;
+5. the adjoints of K1 and K2 (``solve_rao_ad``, ``solve_cx_ad``) against
+   autograd through the plain elimination on the card, float64, at the
+   sweep's call shape;
+6. K3 (Rankine assembly) against its plain version on the VolturnUS-S hull
    (1,024-panel class) and the OC4semi hull with its waterplane lid
    (2,048 class), float64 and float32, with the pairs per subdivision level;
-5. K4 (wave part) against its plain version on the same meshes, on a deep
+7. K4 (wave part) against its plain version on the same meshes, on a deep
    (1.5 rad/s) and a finite-depth (0.4 rad/s, 200 m) frequency chunk, and on
    every chunk of the north star's 48-frequency staging grid; then K3 and
    K4 at a panel count off the 64-panel classes (850, the hull unpadded);
-6. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
+8. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
    against the same run on the CPU (plain path);
-7. the strip-theory north-star sweep at full size (1,000 VolturnUS-S
+9. the strip-theory north-star sweep at full size (1,000 VolturnUS-S
    variants x 200 frequencies, float32) with its K1 launches counted, then
    a 16-lane subset in float64 through the kernel and through the plain
    solve on the card;
-8. ``Model(BEM="jax")`` on VolturnUS-S and OC4semi at full width in float64,
+10. ``Model(BEM="jax")`` on VolturnUS-S and OC4semi at full width in float64,
    once through K3/K4 and once through their plain versions on the card;
    and the VolturnUS-S panel solve in float32 against float64;
-9. the BEM-staged north star -- the main path whose K1, K3 and K4 launches
-   are counted: the nominal hull's panel solve on the card at 48
-   frequencies in float64, interpolated to 200 and staged, then the
-   1,000 x 200 sweep in float32; then a 16-lane float64 subset through K1
-   and through the plain solve;
-10. both sweeps again under ``torch.profiler``: device busy time, idle share
-   and the operations that take the device time.
+11. the BEM-staged north star, whose K1, K3 and K4 launches are counted:
+   the nominal hull's panel solve on the card at 48 frequencies in float64,
+   interpolated to 200 and staged, then the 1,000 x 200 sweep in float32;
+   then a 16-lane float64 subset through K1 and through the plain solve;
+12. the co-design gradient, this slice's main path, whose K1 forward and
+   adjoint launches are counted: ``grad_nacelle_accel_std`` of the 1,000
+   VolturnUS-S plan-radius x draft variants x 200 frequencies (float32, the
+   staged BEM, scan loop at 25 iterations, chunks of 250), with the
+   forward-only time beside it; then a 4-lane float64 subset through the
+   kernels and through the plain solve, and against central differences;
+13. ``optimize_design`` (6 Adam steps) on VolturnUS-S with the staged BEM,
+   and the OC3spar mooring-knob gradient on the card against the CPU;
+14. the sweeps and one gradient chunk again under ``torch.profiler``: device
+   busy time, idle share and the operations that take the device time.
 
-The last lines are the kernels JSON record, the nvidia-smi line and
-``{"ok": true, "device": {...}}``.
+``--phases a,b`` runs only the named phases (for debugging; the names are
+those printed after ``==``).  The last lines are the kernels JSON record,
+the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -65,6 +80,12 @@ DESIGNS = ROOT / "raft_tpu" / "designs"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 TOL = {"float64": 1e-12, "float32": 1e-5}
+# adjoint cotangents and co-design gradients, kernels against autograd
+# through the plain elimination (float64): the JAX package's bound between
+# its adjoint rule and its differentiated elimination (tests/test_pallas6.py)
+TOL_GRAD = 1e-9
+# central differences of the scan objective, h = 1e-4 (tests/test_optimize.py)
+FD_H, FD_RTOL = 1e-4, 2e-3
 # K3 / K4 against their plain versions, scale-relative per output: f64 to
 # roundoff; f32 at the JAX package's assembly-route bound INTERP_PARITY_RTOL
 TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
@@ -103,6 +124,14 @@ def k1_bound_ms(n_designs: int, nw: int, itemsize: int, dtype_name: str):
     nbytes = itemsize * (n * 36 * 2 + n * 6 * 2 + n * 6 * 2 + nw + n_designs * 36)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = n * k1_flops_per_system() / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_bound_ms(n: int, itemsize: int, dtype_name: str):
+    """Least time of one K2 call: 96 values per system (A and b read, x
+    written) against K1's operations less the 72 of the drag assembly."""
+    t_bytes = itemsize * n * 96 / HBM_BYTES_PER_S
+    t_ops = n * (k1_flops_per_system() - 72) / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -180,6 +209,9 @@ def nvidia_smi() -> str:
 
 
 class Smoke:
+    # the north star's full width: the co-design phases run at these sizes
+    n_designs, nw, chunk = 1000, 200, 250
+
     def __init__(self):
         import torch
 
@@ -189,6 +221,8 @@ class Smoke:
         self.records: dict = {}
         self.record_bem: dict = {}
         self.main_launches: dict = {}
+        self.record_grad: dict = {}
+        self.staged = None
         self._cases: dict = {}
         self.dev = torch.device("cuda")
         self._flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=self.dev)
@@ -227,7 +261,8 @@ class Smoke:
         nvcc.compile_all([cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE])
         cuda6.build()
         cuda_bem.build()
-        print(f"  K1, K3, K4 built in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+        print(f"  K1/K2, K3, K4 built in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
+              f"parallel)")
         for spec in (cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE):
             name, log = spec.name, nvcc.build_log(spec)
             if log is None:
@@ -236,7 +271,8 @@ class Smoke:
             kind = ""
             for line in log.splitlines():
                 if "Compiling entry" in line:
-                    kind = "f64" if "IdE" in line else ("f32" if "IfE" in line else "")
+                    kind = "f64" if "Id" in line else ("f32" if "If" in line else "")
+                    kind += " fused" if "Lb1E" in line else (" plain" if "Lb0E" in line else "")
                 elif "registers" in line or "spill" in line:
                     print(f"  ptxas {name} {kind}: {line.split(':', 1)[-1].strip()}")
         t0 = time.perf_counter()
@@ -318,14 +354,148 @@ class Smoke:
                 if name == "float32" and B == 250:   # the sweep's call shape
                     self.record = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
-        # K2 (pallas6.py::_kernel, the plain 6x6 solve, not ported yet) at
-        # its microbench's shape: 16,384 systems in f32, 96 values each
-        n2 = 16384
-        t_bytes = 4 * n2 * 96 / HBM_BYTES_PER_S
-        t_ops = n2 * (k1_flops_per_system() - 72) / PEAK_FLOPS["float32"]
-        print(f"  K2 (not ported) reckoned bound at bench.py::pallas6_microbench's shape "
-              f"({n2} systems, float32): {1e3 * max(t_bytes, t_ops):.5f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+    def _k2_inputs(self, case: str, n: int, dtype, rng):
+        """``bench.py::pallas6_microbench``'s systems (diagonally dominant:
+        A.re = N(0, 1) + 8 I, A.im = 0.3 N(0, 1)), a permutation batch, or
+        the microbench's systems with one singular lane."""
+        from raft_tpu_torch.core.cplx import Cx
+
+        torch = self.torch
+        if case == "permutation":
+            P = np.zeros((6, 6))
+            P[np.arange(6), (np.arange(6) + 1) % 6] = 1.0
+            Ar = np.broadcast_to(P, (n, 6, 6)).copy()
+            Ai = np.zeros((n, 6, 6))
+        else:
+            Ar = rng.normal(size=(n, 6, 6)) + 8.0 * np.eye(6)
+            Ai = 0.3 * rng.normal(size=(n, 6, 6))
+            if case == "singular":          # lane 0: diag(1, 1, 0, 1, 1, 1)
+                Ar[0] = np.diag([1.0, 1.0, 0.0, 1.0, 1.0, 1.0])
+                Ai[0] = 0.0
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=self.dev).to(dtype)
+
+        return Cx(t(Ar), t(Ai)), Cx(t(rng.normal(size=(n, 6))), t(rng.normal(size=(n, 6))))
+
+    def phase_k2(self):
+        from raft_tpu_torch.core import cuda6, linalg6
+
+        torch = self.torch
+        rng = np.random.default_rng(20261017)
+        n = 16384
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).split(".")[-1]
+            worst, worst_abs = 0.0, 0.0
+            for case in ("random", "permutation", "singular"):
+                A, b = self._k2_inputs(case, n, dtype, rng)
+                xk = cuda6.solve_cx(A, b)
+                xp = linalg6.solve_cx(A, b)
+                torch.cuda.synchronize()
+                diff = max(float((xk.re - xp.re).abs().max()), float((xk.im - xp.im).abs().max()))
+                scale = max(float(xp.re.abs().max()), float(xp.im.abs().max()))
+                finite = bool(torch.isfinite(xk.re).all() and torch.isfinite(xk.im).all())
+                worst, worst_abs = max(worst, diff / scale), max(worst_abs, diff)
+                self.check(finite and diff / scale <= TOL[name],
+                           f"K2 {name} {n} {case}: scale-relative diff {diff / scale:.3e} "
+                           f"(limit {TOL[name]:.0e})")
+                if case == "permutation":
+                    self.check(bool((xk.re == torch.roll(b.re, 1, dims=-1)).all()),
+                               f"K2 {name} {n} permutation solved exactly")
+                if case == "singular":
+                    self.check(float(xk.re[0, 2]) == 0.0 and float(xk.im[0, 2]) == 0.0,
+                               f"K2 {name} singular lane takes the zero-denominator guard")
+            A, b = self._k2_inputs("random", n, dtype, rng)
+            Ac = torch.complex(A.re, A.im)
+            bc = torch.complex(b.re, b.im)[..., None]
+            ms = self.time_ms(lambda: cuda6.solve_cx(A, b))
+            plain_ms = self.time_ms(lambda: linalg6.solve_cx(A, b), reps=5)
+            lib_ms = self.time_ms(lambda: torch.linalg.solve(Ac, bc), reps=5)
+            bound, by = k2_bound_ms(n, torch.finfo(dtype).bits // 8, name)
+            print(f"  K2 {name} {n} systems: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.linalg.solve ({Ac.dtype}) {lib_ms:.4f} ms, bound {bound:.5f} ms "
+                  f"({by}); max scale-rel diff {worst:.3e}, max abs diff {worst_abs:.3e}")
+            if name == "float32":               # the microbench's shape
+                self.records["plain"] = {"max_abs_err": worst_abs, "ms": ms,
+                                         "plain_ms": plain_ms, "bound_ms": bound,
+                                         "bound_by": by, "library_ms": lib_ms}
+
+    def phase_k2_microbench(self):
+        """K2's path: ``bench.py::pallas6_microbench`` on the port -- the
+        16,384 solves in float32 through ``cuda6.solve_cx`` against the plain
+        elimination, best of 5 on the host clock."""
+        from raft_tpu_torch.core import cuda6, linalg6
+
+        torch = self.torch
+        A, b = self._k2_inputs("random", 16384, torch.float32, np.random.default_rng(0))
+        best = {}
+        self.zero_counts()
+        for label, fn in (("kernel", cuda6.solve_cx), ("plain", linalg6.solve_cx)):
+            x = fn(A, b)
+            torch.cuda.synchronize()
+            t_best = float("inf")
+            for _ in range(5):
+                t0 = time.perf_counter()
+                x = fn(A, b)
+                torch.cuda.synchronize()
+                t_best = min(t_best, time.perf_counter() - t0)
+            best[label] = (t_best, x)
+        launches = self.counts()
+        self.main_launches["plain"] = launches["plain"]
+        xk, xp = best["kernel"][1], best["plain"][1]
+        err = float((xk.re - xp.re).abs().max() + (xk.im - xp.im).abs().max())
+        print(f"  microbench 16384 x 6x6 float32: kernel {1e3 * best['kernel'][0]:.4f} ms, "
+              f"plain {1e3 * best['plain'][0]:.4f} ms (best of 5, host clock), speedup "
+              f"{best['plain'][0] / best['kernel'][0]:.1f}x, max abs diff {err:.3e}; "
+              f"launches {launches}")
+        self.check(launches["plain"] == 6 and launches["fused"] == 0 and err <= 1e-4,
+                   "microbench: K2 launched 6 times, agrees with the plain solve")
+
+    def _adjoint_case(self, fn, arrays):
+        """Cotangents of the asymmetric loss sum(xr^2 + 0.7 xi^2 + 0.3 xr xi)
+        through ``fn``."""
+        torch = self.torch
+        ts = [a.clone().requires_grad_(True) for a in arrays]
+        x = fn(*ts)
+        loss = (x.re**2 + 0.7 * x.im**2 + 0.3 * x.re * x.im).sum()
+        return torch.autograd.grad(loss, ts)
+
+    def phase_adjoint(self):
+        from raft_tpu_torch.core import cuda6, linalg6
+        from raft_tpu_torch.core.cplx import Cx
+
+        torch = self.torch
+        rng = np.random.default_rng(20261018)
+        Z0, w, Bd, F = self._k1_inputs("random", 250, 200, torch.float64, rng)
+        arrays = (Z0.re, Z0.im, w, Bd, F.re, F.im)
+        self.zero_counts()
+        got = self._adjoint_case(lambda zr, zi, w, bd, fr, fi: cuda6.solve_rao_ad(
+            Cx(zr, zi), w, bd, Cx(fr, fi)), arrays)
+        n_rao = self.counts()
+        ref = self._adjoint_case(lambda zr, zi, w, bd, fr, fi: linalg6.solve_cx_fused(
+            Cx(zr, zi), w, bd, Cx(fr, fi)), arrays)
+        errs = [float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)]
+        print(f"  solve_rao_ad float64 250x200: cotangent scale-rel diffs (Z0.re, Z0.im, w, "
+              f"B_drag, F.re, F.im) {', '.join(f'{e:.2e}' for e in errs)}; launches {n_rao}")
+        self.check(max(errs) <= TOL_GRAD and n_rao["fused"] == 1 and n_rao["fused_adjoint"] == 1,
+                   f"K1 adjoint == autograd through the plain elimination ({TOL_GRAD:.0e}), "
+                   f"one forward and one adjoint launch")
+        A = Cx(Z0.re.reshape(-1, 6, 6), (Z0.im + w[:, None, None] * Bd[:, None]).reshape(-1, 6, 6))
+        b = Cx(F.re.reshape(-1, 6), F.im.reshape(-1, 6))
+        arrays = (A.re, A.im, b.re, b.im)
+        self.zero_counts()
+        got = self._adjoint_case(lambda ar, ai, br, bi: cuda6.solve_cx_ad(Cx(ar, ai), Cx(br, bi)),
+                                 arrays)
+        n_cx = self.counts()
+        ref = self._adjoint_case(lambda ar, ai, br, bi: linalg6.solve_cx(Cx(ar, ai), Cx(br, bi)),
+                                 arrays)
+        errs = [float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)]
+        print(f"  solve_cx_ad float64 50000 systems: cotangent scale-rel diffs (A.re, A.im, b.re, "
+              f"b.im) {', '.join(f'{e:.2e}' for e in errs)}; launches {n_cx}")
+        self.check(max(errs) <= TOL_GRAD and n_cx["plain"] == 1 and n_cx["plain_adjoint"] == 1,
+                   f"K2 adjoint == autograd through the plain elimination ({TOL_GRAD:.0e}), "
+                   f"one forward and one adjoint launch")
 
     def _bem_case(self, name: str, lid: bool, dtype):
         """A shipped design's panel mesh (dz_max 3, da_max 2), padded, and
@@ -513,17 +683,16 @@ class Smoke:
                                 "library_ms": None}
 
     def phase_run_raft(self):
-        from raft_tpu_torch.core import cuda6
         from raft_tpu_torch.model import run_raft
 
         torch = self.torch
         for d in ("OC3spar", "OC4semi", "VolturnUS-S"):
             path = DESIGNS / f"{d}.yaml"
-            n0 = cuda6.LAUNCHES
+            self.zero_counts()
             t0 = time.perf_counter()
             rg = run_raft(path, dtype=torch.float64, device="cuda")
             t_gpu = time.perf_counter() - t0
-            grew = cuda6.LAUNCHES - n0
+            grew = self.counts()["fused"]
             t0 = time.perf_counter()
             rc = run_raft(path, dtype=torch.float64, device="cpu")
             t_cpu = time.perf_counter() - t0
@@ -541,7 +710,7 @@ class Smoke:
                        f"run_raft {d} card == cpu (1e-9, identical iterations, kernel launched)")
 
     def phase_sweep(self):
-        from raft_tpu_torch.core import cuda6, linalg6
+        from raft_tpu_torch.core import linalg6
         from raft_tpu_torch.parallel.sweep import sweep_north_star
         from raft_tpu_torch.solve import dynamics
 
@@ -549,13 +718,13 @@ class Smoke:
         n, nw, chunk = 1000, 200, 250
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda6.LAUNCHES = 0
+        self.zero_counts()
         t0 = time.perf_counter()
         res = sweep_north_star(n_designs=n, nw=nw, chunk=chunk, n_iter=40,
                                dtype=torch.float32, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = cuda6.LAUNCHES
+        launches = self.counts()["fused"]
         self.record["launches"] = launches
         self.record["sweep_wall_ms"] = 1e3 * wall
         peak = torch.cuda.max_memory_allocated()
@@ -586,10 +755,17 @@ class Smoke:
         self.check(same_it and d <= 1e-10,
                    "16-lane subset: kernel == plain (identical iterations, std 1e-10)")
 
-    def _launches(self):
+    def counts(self) -> dict:
+        """Every kernel wrapper's launch count, by entry."""
         from raft_tpu_torch.core import cuda6, cuda_bem
 
-        return {"solve6_fused": cuda6.LAUNCHES, **dict(cuda_bem.LAUNCHES)}
+        return {**cuda6.LAUNCHES, **cuda_bem.LAUNCHES}
+
+    def zero_counts(self):
+        from raft_tpu_torch.core import cuda6, cuda_bem
+
+        for counts in (cuda6.LAUNCHES, cuda_bem.LAUNCHES):
+            counts.update(dict.fromkeys(counts, 0))
 
     def _model(self, design, dtype, full: bool = True):
         """``Model(BEM="jax")`` through run_raft's steps on the card; returns
@@ -621,7 +797,7 @@ class Smoke:
             design = load_design(DESIGNS / f"{name}.yaml")
             runs = {}
             for route in ("kernels", "plain"):
-                before = self._launches()
+                self.zero_counts()
                 orig = torch_bem.rankine_assembly, torch_bem.wave_assembly
                 if route == "plain":                 # plain assembly, same card
                     torch_bem.rankine_assembly = torch_bem.rankine_plain
@@ -633,8 +809,7 @@ class Smoke:
                     wall = time.perf_counter() - t0
                 finally:
                     torch_bem.rankine_assembly, torch_bem.wave_assembly = orig
-                after = self._launches()
-                grew = {k: after[k] - before[k] for k in after}
+                grew = {k: v for k, v in self.counts().items() if k in ("fused", "rankine", "wave")}
                 runs[route] = (m, t_bem, wall, grew)
             (mk, tk, wk, gk), (mp, tp, wp, gp) = runs["kernels"], runs["plain"]
             d_abf = max(torch_bem.parity_err(a, b) for a, b in zip(mk.bem, mp.bem))
@@ -667,7 +842,7 @@ class Smoke:
                            f"VolturnUS-S float32 panel solve within PARITY_RTOL of float64")
 
     def phase_north_star_bem(self):
-        from raft_tpu_torch.core import cuda6, cuda_bem, linalg6
+        from raft_tpu_torch.core import linalg6
         from raft_tpu_torch.parallel.sweep import stage_north_star_bem, sweep_north_star
         from raft_tpu_torch.solve import dynamics
 
@@ -675,8 +850,7 @@ class Smoke:
         n, nw, chunk = 1000, 200, 250
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda6.LAUNCHES = 0
-        cuda_bem.LAUNCHES.update(rankine=0, wave=0)
+        self.zero_counts()
         t0 = time.perf_counter()
         staged, diag = stage_north_star_bem(nw=nw, nw_bem=48, dtype=torch.float64,
                                             device="cuda", return_diagnostics=True)
@@ -687,8 +861,9 @@ class Smoke:
                                device="cuda", bem=staged)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = self._launches()
-        self.main_launches = launches
+        launches = {k: v for k, v in self.counts().items() if k in ("fused", "rankine", "wave")}
+        self.main_launches.update(rankine=launches["rankine"], wave=launches["wave"])
+        self.staged = staged
         peak = torch.cuda.max_memory_allocated()
         self.record_bem = {"stage_ms": 1e3 * t_stage, "sweep_wall_ms": 1e3 * wall}
         std, it, conv = res["std"], res["n_iter"], res["converged"]
@@ -701,7 +876,7 @@ class Smoke:
               f"{float(it.float().mean()):.2f}, launches {launches}, peak memory "
               f"{peak / 2**20:.1f} MiB")
         self.check(n_conv == n and bool(torch.isfinite(std).all())
-                   and launches["solve6_fused"] > 0 and launches["rankine"] == 1
+                   and launches["fused"] > 0 and launches["rankine"] == 1
                    and launches["wave"] == 24,
                    f"BEM-staged sweep: {n_conv}/{n} lanes converged, all finite, K1 launched, "
                    f"K3 once, K4 once per chunk of 2 w")
@@ -725,9 +900,191 @@ class Smoke:
         self.check(same_it and d <= 1e-10,
                    "BEM 16-lane subset: kernel == plain (identical iterations, std 1e-10)")
 
-    def _profile(self, label: str, fn, kernels: dict, wall_key: tuple):
+    def _staged_bem(self):
+        """The nominal hull's staged BEM of the BEM-staged north star (solved
+        here when that phase did not run)."""
+        if self.staged is None:
+            from raft_tpu_torch.parallel.sweep import stage_north_star_bem
+
+            self.staged = stage_north_star_bem(nw=self.nw, nw_bem=48, dtype=self.torch.float64,
+                                               device=self.dev)
+        return self.staged
+
+    def _codesign_setup(self, dtype):
+        """The north star's design, sea state, mooring stiffness and staged
+        BEM in ``dtype``, and its plan-radius x draft warp as ``apply_fn``."""
+        from raft_tpu_torch.core.cplx import Cx
+        from raft_tpu_torch.parallel.geometry import make_scale_plan, make_stretch_draft
+        from raft_tpu_torch.parallel.sweep import _volturnus
+
+        _design, members, rna, env, wave, C = _volturnus(self.nw, dtype, self.dev)
+        A, B, F = self._staged_bem()
+        bem = (A.to(dtype), B.to(dtype), Cx(F.re.to(dtype), F.im.to(dtype)))
+        draft, plan = make_stretch_draft(members), make_scale_plan(members)
+
+        def apply_fn(m, th):
+            return plan(draft(m, th[..., 1]), th[..., 0])
+
+        return members, rna, env, wave, C, bem, apply_fn
+
+    def phase_codesign(self):
+        """The slice's main path: d sigma_nacelle / d (plan radius, draft) of
+        every north-star variant, through the scan loop (K1 forward and K1
+        on the adjoint system in every step)."""
+        from raft_tpu_torch.core import linalg6
+        from raft_tpu_torch.parallel.optimize import (_make_loss, grad_nacelle_accel_std,
+                                                      nacelle_accel_std)
+        from raft_tpu_torch.parallel.sweep import north_star_grid
+        from raft_tpu_torch.solve import dynamics
+
+        torch = self.torch
+        n, chunk, n_iter = self.n_designs, self.chunk, 25
+        grid = north_star_grid(n)
+        members, rna, env, wave, C, bem, apply_fn = self._codesign_setup(torch.float32)
+        thetas = torch.as_tensor(grid, dtype=torch.float32, device=self.dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        grads, chunk_s = [], []
+        t_all = time.perf_counter()
+        for lo in range(0, n, chunk):
+            t0 = time.perf_counter()
+            grads.append(grad_nacelle_accel_std(members, rna, env, wave, C, thetas[lo:lo + chunk],
+                                                apply_fn=apply_fn, bem=bem, n_iter=n_iter,
+                                                dtype=torch.float32, device=self.dev))
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t0)
+        total = time.perf_counter() - t_all
+        launches = self.counts()
+        peak = torch.cuda.max_memory_allocated()
+        self.main_launches.update(fused=launches["fused"],
+                                  fused_adjoint=launches["fused_adjoint"])
+        grad = torch.cat(grads)
+        loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, apply_fn, bem, n_iter,
+                          False, dtype=torch.float32, device=self.dev)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            sigma = loss(thetas[:chunk])
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        self.record_grad = {"chunk_ms": 1e3 * float(np.mean(chunk_s[1:] or chunk_s))}
+        n_chunks = len(chunk_s)
+        print(f"  co-design gradient {n} x {wave.w.shape[0]} float32 (chunk {chunk}, scan "
+              f"{n_iter}): total {total:.3f} s, per chunk "
+              f"{', '.join(f'{t:.3f}' for t in chunk_s)} s; forward only {fwd_s:.3f} s per chunk "
+              f"(gradient / forward {np.mean(chunk_s[1:] or chunk_s) / fwd_s:.2f}); launches "
+              f"{ {k: v for k, v in launches.items() if v} }; peak memory {peak / 2**30:.2f} GiB")
+        print(f"    sigma_nacelle of the first chunk: {float(sigma.min()):.5f} .. "
+              f"{float(sigma.max()):.5f}; d sigma / d (plan, draft) lane 0: "
+              f"{grad[0].tolist()}, lane {n - 1}: {grad[-1].tolist()}")
+        self.check(bool(torch.isfinite(grad).all()) and grad.shape == (n, 2)
+                   and bool(torch.isfinite(sigma).all())
+                   and launches["fused"] == n_iter * n_chunks
+                   and launches["fused_adjoint"] == n_iter * n_chunks
+                   and launches["plain"] == launches["plain_adjoint"] == 0,
+                   f"co-design gradient: every lane finite, K1 {n_iter} forward and {n_iter} "
+                   f"adjoint launches per chunk")
+
+        lanes = np.linspace(0, n - 1, 4).astype(int).tolist()
+        members, rna, env, wave, C, bem, apply_fn = self._codesign_setup(torch.float64)
+        th = torch.as_tensor(grid[lanes], dtype=torch.float64, device=self.dev)
+        args = (members, rna, env, wave, C, th)
+        kw = dict(apply_fn=apply_fn, bem=bem, n_iter=n_iter, dtype=torch.float64, device=self.dev)
+        gk = grad_nacelle_accel_std(*args, **kw)
+        orig = dynamics.solve_rao_ad
+        dynamics.solve_rao_ad = linalg6.solve_cx_fused   # autograd through the plain solve
+        try:
+            gp = grad_nacelle_accel_std(*args, **kw)
+        finally:
+            dynamics.solve_rao_ad = orig
+        d_plain = float((gk - gp).abs().max() / gp.abs().max())
+        loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, apply_fn, bem, n_iter,
+                          False, dtype=torch.float64, device=self.dev)
+        fd = torch.zeros_like(th)
+        with torch.no_grad():
+            for j in range(2):
+                e = torch.zeros_like(th)
+                e[:, j] = FD_H
+                fd[:, j] = (loss(th + e) - loss(th - e)) / (2 * FD_H)
+        d_fd = float(((gk - fd).abs().amax(dim=1) / fd.abs().amax(dim=1)).max())
+        d32 = float((grad[lanes].double() - gk).abs().max() / gk.abs().max())
+        print(f"  4-lane float64 subset (lanes {lanes}): kernels vs plain solve {d_plain:.2e}, vs "
+              f"central differences (h {FD_H}) {d_fd:.2e} per-lane scale-relative; float32 "
+              f"gradient vs float64 {d32:.2e}")
+        print(f"    gradient {gk.tolist()}; differences {fd.tolist()}")
+        self.check(d_plain <= TOL_GRAD and d_fd <= FD_RTOL,
+                   f"4-lane float64 gradient: kernels == plain ({TOL_GRAD:.0e}), central "
+                   f"differences ({FD_RTOL:.0e})")
+
+    def _oc3(self, nw: int, dev):
+        """OC3spar's members, RNA, sea state (JONSWAP Hs 8 m / Tp 12 s on
+        ``linspace(0.05, 2.95, nw)``) and mooring system on ``dev``, float64."""
+        import yaml
+
+        torch = self.torch
+        from raft_tpu_torch.build.members import build_member_set, build_rna
+        from raft_tpu_torch.core.types import Env, WaveState
+        from raft_tpu_torch.core.waves import jonswap, wave_number
+        from raft_tpu_torch.mooring.system import parse_mooring
+
+        dtype = torch.float64
+        with open(DESIGNS / "OC3spar.yaml") as f:
+            design = yaml.safe_load(f)
+        depth = float(design["mooring"]["water_depth"])
+        w = torch.as_tensor(np.linspace(0.05, 2.95, nw), dtype=dtype, device=dev)
+        wave = WaveState(w=w, k=wave_number(w, depth), zeta=torch.sqrt(jonswap(w, 8.0, 12.0)))
+        moor = parse_mooring(design["mooring"], dev, dtype,
+                             yaw_stiffness=design["turbine"].get("yaw_stiffness", 0.0))
+        return (build_member_set(design, dev, dtype), build_rna(design),
+                Env(Hs=8.0, Tp=12.0, depth=depth), wave, moor)
+
+    def phase_optimize(self):
+        from raft_tpu_torch.mooring.system import scale_mooring
+        from raft_tpu_torch.parallel.optimize import _make_loss, nacelle_accel_std, optimize_design
+        from raft_tpu_torch.parallel.sweep import _volturnus
+
+        torch = self.torch
+        _design, members, rna, env, wave, C = _volturnus(self.nw, torch.float64, self.dev)
+        self.zero_counts()
+        t0 = time.perf_counter()
+        res = optimize_design(members, rna, env, wave, C, theta0=1.0, steps=6,
+                              learning_rate=0.02, bounds=(0.8, 1.25), bem=self._staged_bem(),
+                              n_iter=25, device=self.dev)
+        wall = time.perf_counter() - t0
+        launches = self.counts()
+        print(f"  optimize_design VolturnUS-S (scale_diameters, staged BEM, float64, 6 Adam "
+              f"steps): {wall:.2f} s; objective {np.array2string(res.history, precision=6)}; "
+              f"theta {np.array2string(res.thetas, precision=5)}; launches K1 "
+              f"{launches['fused']} / adjoint {launches['fused_adjoint']}")
+        self.check(bool(np.isfinite(res.history).all()) and res.history[-1] < res.history[0]
+                   and 0.8 <= float(res.theta) <= 1.25 and launches["fused_adjoint"] == 7 * 25,
+                   "optimize_design: the objective falls, theta stays in bounds, K1 adjoint "
+                   "launched every step")
+
+        grads = []
+        for dev in (self.dev, torch.device("cpu")):
+            members, rna, env, wave, moor = self._oc3(59, dev)
+            loss = _make_loss(members, rna, env, wave, None, nacelle_accel_std,
+                              lambda m, t: m, None, 25, False, moor=moor,
+                              moor_apply_fn=scale_mooring, device=dev)
+            th = torch.ones(3, dtype=torch.float64, device=dev, requires_grad=True)
+            t0 = time.perf_counter()
+            (g,) = torch.autograd.grad(loss(th), th)
+            grads.append((g.cpu(), time.perf_counter() - t0))
+        (gc, tc), (gh, th_s) = grads
+        d = float((gc - gh).abs().max() / gh.abs().max())
+        print(f"  OC3spar mooring knobs (L, R, EA) at ones(3), 59 w: d sigma_nacelle / d theta "
+              f"card {gc.tolist()} in {tc:.2f} s, cpu {gh.tolist()} in {th_s:.2f} s; scale-rel "
+              f"diff {d:.2e}")
+        self.check(d <= TOL_GRAD and bool(torch.isfinite(gc).all()) and bool((gc != 0).all()),
+                   f"mooring-knob gradient card == cpu ({TOL_GRAD:.0e}), every knob moves")
+
+    def _profile(self, label: str, fn, kernels: dict, wall_key: tuple, split: str | None = None):
         """Where a run's time goes: a second, warm run under torch.profiler
-        (its launches are not counted)."""
+        (its launches are not counted).  ``kernels`` maps a label to the
+        substrings of a kernel's name; with ``split``, the name of a
+        ``record_function`` range that ``fn`` opens after a synchronise, each
+        kernel's time is also split into before and after that range."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -743,6 +1100,9 @@ class Smoke:
             return getattr(e, "self_device_time_total", None) or getattr(
                 e, "self_cuda_time_total", 0.0)
 
+        def matches(name, parts):
+            return all(part in name for part in parts)
+
         # device-side events only (kernels, copies): the CPU-side aten
         # entries carry their kernels' time too and would count it twice
         rows = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
@@ -752,10 +1112,26 @@ class Smoke:
         n_dev = sum(r[1] for r in rows)
         rec, key = wall_key
         wall = sum(rec.get(k, 0.0) for k in key) or wall_ms
+        boundary = None
+        if split is not None:
+            events = prof.events()
+            boundary = min(e.time_range.start for e in events if e.name == split)
         shares = []
-        for kname, pattern in kernels.items():
-            k_ms = sum(r[0] for r in rows if pattern in r[2]) / 1e3
-            shares.append(f"{kname} {k_ms:.3f} ms ({100 * k_ms / busy_ms:.2f}% of device time)")
+        for kname, parts in kernels.items():
+            k_ms = sum(r[0] for r in rows if matches(r[2], parts)) / 1e3
+            share = f"{kname} {k_ms:.3f} ms ({100 * k_ms / busy_ms:.2f}% of device time)"
+            if boundary is not None:
+                before = after = 0.0
+                for e in events:
+                    if e.device_type == DeviceType.CUDA and matches(e.name, parts):
+                        dur = e.time_range.elapsed_us() / 1e3
+                        if e.time_range.start >= boundary:
+                            after += dur
+                        else:
+                            before += dur
+                share += (f" [before '{split}' {before:.3f} ms = {100 * before / busy_ms:.2f}%, "
+                          f"after {after:.3f} ms = {100 * after / busy_ms:.2f}%]")
+            shares.append(share)
         print(f"  profiled {label}: wall {wall_ms:.1f} ms with the profiler on, "
               f"{wall:.1f} ms without; device busy {busy_ms:.2f} ms in {n_dev} device "
               f"operations; idle share {1 - busy_ms / wall:.3f} of the unprofiled wall; "
@@ -765,9 +1141,14 @@ class Smoke:
         self.check(busy_ms > 0, f"profiler saw device time ({label})")
 
     def phase_profile(self):
-        from raft_tpu_torch.parallel.sweep import stage_north_star_bem, sweep_north_star
+        from torch.profiler import record_function
+
+        from raft_tpu_torch.parallel.optimize import _make_loss, nacelle_accel_std
+        from raft_tpu_torch.parallel.sweep import (north_star_grid, stage_north_star_bem,
+                                                   sweep_north_star)
 
         torch = self.torch
+        K1, K3, K4 = ("solve6_kernel", "true>"), ("rankine_kernel",), ("wave_kernel",)
 
         def strip():
             sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
@@ -778,13 +1159,25 @@ class Smoke:
             sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
                              dtype=torch.float32, device="cuda", bem=staged)
 
-        self._profile("strip sweep", strip, {"K1": "solve6_fused"},
-                      (self.record, ("sweep_wall_ms",)))
-        self._profile("BEM staging + BEM-staged sweep", bem,
-                      {"K1": "solve6_fused", "K3": "rankine_kernel", "K4": "wave_kernel"},
-                      (self.record_bem, ("stage_ms", "sweep_wall_ms")))
+        members, rna, env, wave, C, staged, apply_fn = self._codesign_setup(torch.float32)
+        loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, apply_fn, staged, 25,
+                          False, dtype=torch.float32, device=self.dev)
+        th = torch.as_tensor(north_star_grid(self.n_designs)[:self.chunk], dtype=torch.float32, device=self.dev)
 
-    def run(self) -> int:
+        def grad_chunk():
+            t = th.clone().requires_grad_(True)
+            val = loss(t)
+            torch.cuda.synchronize()
+            with record_function("codesign backward"):
+                torch.autograd.grad(val.sum(), t)
+
+        self._profile("strip sweep", strip, {"K1": K1}, (self.record, ("sweep_wall_ms",)))
+        self._profile("BEM staging + BEM-staged sweep", bem, {"K1": K1, "K3": K3, "K4": K4},
+                      (self.record_bem, ("stage_ms", "sweep_wall_ms")))
+        self._profile(f"co-design gradient, one chunk of {self.chunk} x {self.nw}", grad_chunk, {"K1": K1},
+                      (self.record_grad, ("chunk_ms",)), split="codesign backward")
+
+    def run(self, only=None) -> int:
         torch = self.torch
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -792,11 +1185,22 @@ class Smoke:
         self.check(torch.backends.cuda.matmul.allow_tf32 is False,
                    "TF32 matmul is off (PyTorch's default; the port never turns it on)")
         phases = [("build", self.phase_build), ("K1 vs plain", self.phase_k1),
+                  ("K2 vs plain", self.phase_k2), ("K2 microbench", self.phase_k2_microbench),
+                  ("adjoints", self.phase_adjoint),
                   ("K3 vs plain", self.phase_k3), ("K4 vs plain", self.phase_k4),
                   ("run_raft", self.phase_run_raft), ("sweep", self.phase_sweep),
                   ("Model(BEM='jax')", self.phase_model_bem),
                   ("BEM-staged north star", self.phase_north_star_bem),
+                  ("co-design gradient", self.phase_codesign),
+                  ("optimize_design", self.phase_optimize),
                   ("profile", self.phase_profile)]
+        if only is not None:
+            unknown = set(only) - {name for name, _ in phases}
+            if unknown:
+                print(f"unknown phases {sorted(unknown)}", file=sys.stderr)
+                return 2
+            phases = [(name, fn) for name, fn in phases if name in only]
+        t_run = time.perf_counter()
         for name, fn in phases:
             print(f"== {name}", flush=True)
             t0 = time.perf_counter()
@@ -806,15 +1210,25 @@ class Smoke:
                 traceback.print_exc()
                 self.failures.append(f"phase {name} raised")
             print(f"   ({time.perf_counter() - t0:.1f} s)", flush=True)
+        print(f"all phases: {time.perf_counter() - t_run:.1f} s", flush=True)
         if self.failures:
             print("FAILED: " + "; ".join(self.failures), file=sys.stderr)
             return 1
+        if only is not None:
+            print("subset of phases run: no result line", file=sys.stderr)
+            return 4
         fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels = [
             {"name": "solve6_fused", "route": "cuda", "source": "raft_tpu_torch/csrc/solve6.cu",
              "replaces": "raft_tpu/core/pallas6.py:213",
-             "launches": self.main_launches["solve6_fused"],
+             "launches": self.main_launches["fused"] + self.main_launches["fused_adjoint"],
+             "launches_forward": self.main_launches["fused"],
+             "launches_adjoint": self.main_launches["fused_adjoint"],
              **{k: self.record[k] for k in fields}},
+            {"name": "solve6_plain", "route": "cuda", "source": "raft_tpu_torch/csrc/solve6.cu",
+             "replaces": "raft_tpu/core/pallas6.py:202",
+             "launches": self.main_launches["plain"],
+             **{k: self.records["plain"][k] for k in fields}},
             {"name": "bem_rankine", "route": "cuda",
              "source": "raft_tpu_torch/csrc/bem_rankine.cu",
              "replaces": "raft_tpu/core/pallas_bem.py:103",
@@ -843,7 +1257,13 @@ def main() -> int:
         print("CUDA is not available: chip_smoke.py runs on the card only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    return Smoke().run()
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
+        only = [name.strip() for name in sys.argv[2].split(",")]
+    elif len(sys.argv) != 1:
+        print("usage: python3 chip_smoke.py [--phases name,name,...]", file=sys.stderr)
+        return 2
+    return Smoke().run(only)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,29 @@ with the TPU kernels of the JAX package rewritten by hand for NVIDIA
 Hopper.  It imports neither JAX nor anything of ``raft_tpu``; the JAX
 package stays the reference the port is held against.  Entry points run on
 the card unless the caller passes ``device="cpu"``.
+
+The entry points below load on first use, so ``import raft_tpu_torch``
+stays light: ``Model``, ``run_raft``, ``sweep_north_star``,
+``forward_response``, ``grad_response_std``, ``grad_nacelle_accel_std`` and
+``optimize_design``.
 """
 
 __version__ = "0.1.0"
+
+_EXPORTS = {
+    "Model": "raft_tpu_torch.model",
+    "run_raft": "raft_tpu_torch.model",
+    "sweep_north_star": "raft_tpu_torch.parallel.sweep",
+    "forward_response": "raft_tpu_torch.parallel.sweep",
+    "grad_response_std": "raft_tpu_torch.parallel.sweep",
+    "grad_nacelle_accel_std": "raft_tpu_torch.parallel.optimize",
+    "optimize_design": "raft_tpu_torch.parallel.optimize",
+}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

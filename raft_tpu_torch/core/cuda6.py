@@ -1,19 +1,34 @@
-"""Kernel K1 on the card: the fused RAO assemble + 6x6 complex solve.
+"""Kernels K1 and K2 on the card: the 6x6 complex solve, fused with the RAO
+impedance assembly (K1) or plain (K2), and their adjoints.
 
-Replaces the TPU kernel ``raft_tpu/core/pallas6.py::_fused_kernel``
-(reached through ``solve_rao_pallas``).  The CUDA C++ source is
-``raft_tpu_torch/csrc/solve6.cu``: one thread per (design, frequency)
-system, the elimination unrolled in registers, with the TPU kernel's pivot
-rule and zero-denominator guard.  On an H100 it is bound by bytes: per
-call it reads Z0 and F and writes x (72 + 12 + 12 values per lane), about
-46 us in f64 and 23 us in f32 at 1,000 x 200 lanes and 3.35 TB/s.
+K1 replaces the TPU kernel ``raft_tpu/core/pallas6.py::_fused_kernel``
+(reached through ``solve_rao_pallas``), K2 replaces ``pallas6.py::_kernel``
+(reached through ``solve_cx_pallas``).  Both are one CUDA C++ template in
+``raft_tpu_torch/csrc/solve6.cu``: one thread per system, the elimination
+unrolled in registers, with the TPU kernels' pivot rule and zero-denominator
+guard.  On an H100 both are bound by bytes: per system they read the matrix
+and the right-hand side and write x (72 + 12 + 12 values), about 46 us in
+f64 and 23 us in f32 for K1 at 1,000 x 200 lanes, and 1.9 us for K2 at
+16,384 systems in f32 (3.35 TB/s).
 
 The shared library is built with ``nvcc`` at first use into
 ``raft_tpu_torch/_build/`` (:mod:`raft_tpu_torch.core.nvcc`, keyed by a
-hash of the source and flags) and bound with ``ctypes``.
-:func:`solve_rao` dispatches on the tensors' device: CPU tensors take the
-plain version (:func:`raft_tpu_torch.core.linalg6.solve_cx_fused`), CUDA
-tensors launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+hash of the source and flags) and bound with ``ctypes``.  :func:`solve_rao`
+and :func:`solve_cx` dispatch on the tensors' device: CPU tensors take the
+plain versions (:func:`raft_tpu_torch.core.linalg6.solve_cx_fused` and
+:func:`~raft_tpu_torch.core.linalg6.solve_cx`), CUDA tensors launch the
+kernel or raise.
+
+:func:`solve_rao_ad` and :func:`solve_cx_ad` are the reverse-differentiable
+entries (the counterparts of ``solve_rao_pallas_ad`` and
+``solve_cx_pallas_ad``): their backward solves the adjoint system
+``A^H lam = xbar`` with one more call of the same entry, then forms the
+cotangents from ``lam`` and ``x``; the elimination itself is never
+differentiated.
+
+``LAUNCHES`` counts kernel launches per entry: ``fused`` and ``plain`` in
+the forward solves, ``fused_adjoint`` and ``plain_adjoint`` in the backward
+ones.
 """
 from __future__ import annotations
 
@@ -24,11 +39,13 @@ import torch
 from raft_tpu_torch.core import linalg6, nvcc
 from raft_tpu_torch.core.cplx import Cx
 
-#: number of times :func:`solve_rao` launched the kernel (never the plain path)
-LAUNCHES = 0
+#: kernel launches per entry (the plain PyTorch path is never counted)
+LAUNCHES = {"fused": 0, "plain": 0, "fused_adjoint": 0, "plain_adjoint": 0}
 
 SPEC = nvcc.Spec("solve6", "solve6.cu")
-_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+_FUSED_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong,
+                                            ctypes.c_void_p]
+_PLAIN_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
 _lib = None
 
 
@@ -36,9 +53,27 @@ def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     if _lib is None:
-        _lib = nvcc.load(SPEC, {"solve6_fused_f32": _SIGNATURE,
-                                "solve6_fused_f64": _SIGNATURE})
+        _lib = nvcc.load(SPEC, {"solve6_fused_f32": _FUSED_SIGNATURE,
+                                "solve6_fused_f64": _FUSED_SIGNATURE,
+                                "solve6_plain_f32": _PLAIN_SIGNATURE,
+                                "solve6_plain_f64": _PLAIN_SIGNATURE})
     return _lib
+
+
+def _check_tensors(tensors, names: str):
+    """One device and dtype, float32/float64, contiguous."""
+    if len({(t.device, t.dtype) for t in tensors}) != 1:
+        raise ValueError(f"{names} must share one device and dtype")
+    if tensors[0].dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {tensors[0].dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{names} must be contiguous")
+
+
+def _check_shapes(want: dict):
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
 
 
 def _check(Z0: Cx, w, B_drag, F: Cx):
@@ -47,36 +82,40 @@ def _check(Z0: Cx, w, B_drag, F: Cx):
         raise ValueError(f"Z0 must be (..., nw, 6, 6), got {tuple(Z0.re.shape)}")
     lead = tuple(Z0.re.shape[:-2])
     nw = lead[-1]
-    want = {"Z0.im": (Z0.im, lead + (6, 6)), "w": (w, (nw,)),
-            "B_drag": (B_drag, lead[:-1] + (6, 6)),
-            "F.re": (F.re, lead + (6,)), "F.im": (F.im, lead + (6,))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    tensors = (Z0.re, Z0.im, w, B_drag, F.re, F.im)
-    if len({(t.device, t.dtype) for t in tensors}) != 1:
-        raise ValueError("Z0, w, B_drag and F must share one device and dtype")
-    if Z0.re.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"dtype must be float32 or float64, got {Z0.re.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("Z0, w, B_drag and F must be contiguous")
+    _check_shapes({"Z0.im": (Z0.im, lead + (6, 6)), "w": (w, (nw,)),
+                   "B_drag": (B_drag, lead[:-1] + (6, 6)),
+                   "F.re": (F.re, lead + (6,)), "F.im": (F.im, lead + (6,))})
+    _check_tensors((Z0.re, Z0.im, w, B_drag, F.re, F.im), "Z0, w, B_drag and F")
     return lead, nw
 
 
-def solve_rao(Z0: Cx, w: torch.Tensor, B_drag: torch.Tensor, F: Cx) -> Cx:
-    """``x = (Z0 + i w B_drag)^-1 F``, same arguments as
-    :func:`raft_tpu_torch.core.linalg6.solve_cx_fused`.
+def _check_plain(A: Cx, b: Cx):
+    """Validate the plain-solve arguments; returns the lead shape."""
+    if A.re.ndim < 2 or A.re.shape[-2:] != (6, 6):
+        raise ValueError(f"A must be (..., 6, 6), got {tuple(A.re.shape)}")
+    lead = tuple(A.re.shape[:-2])
+    _check_shapes({"A.im": (A.im, lead + (6, 6)), "b.re": (b.re, lead + (6,)),
+                   "b.im": (b.im, lead + (6,))})
+    _check_tensors((A.re, A.im, b.re, b.im), "A and b")
+    return lead
 
-    ``Z0``: (..., nw, 6, 6); ``w``: (nw,) shared by every design;
-    ``B_drag``: (..., 6, 6), one per design; ``F``: (..., nw, 6).
-    """
-    global LAUNCHES
-    lead, nw = _check(Z0, w, B_drag, F)
-    dev = Z0.re.device
+
+def _cuda_device(t: torch.Tensor) -> torch.device | None:
+    """None for a CPU tensor (take the plain version), the device for a CUDA
+    one; any other device is refused."""
+    dev = t.device
     if dev.type == "cpu":
-        return linalg6.solve_cx_fused(Z0, w, B_drag, F)
+        return None
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    return dev
+
+
+def _solve_rao(Z0: Cx, w, B_drag, F: Cx, count: str) -> Cx:
+    lead, nw = _check(Z0, w, B_drag, F)
+    dev = _cuda_device(Z0.re)
+    if dev is None:
+        return linalg6.solve_cx_fused(Z0, w, B_drag, F)
     xr = torch.empty(lead + (6,), dtype=Z0.re.dtype, device=dev)
     xi = torch.empty_like(xr)
     n = xr.numel() // 6
@@ -88,5 +127,139 @@ def solve_rao(Z0: Cx, w: torch.Tensor, B_drag: torch.Tensor, F: Cx) -> Cx:
              F.re.data_ptr(), F.im.data_ptr(), xr.data_ptr(), xi.data_ptr(),
              n, nw, nvcc.stream_of(dev))
     nvcc.check(err, "solve6_fused")
-    LAUNCHES += 1
+    LAUNCHES[count] += 1
+    return Cx(xr, xi)
+
+
+def _solve_cx(A: Cx, b: Cx, count: str) -> Cx:
+    lead = _check_plain(A, b)
+    dev = _cuda_device(A.re)
+    if dev is None:
+        return linalg6.solve_cx(A, b)
+    xr = torch.empty(lead + (6,), dtype=A.re.dtype, device=dev)
+    xi = torch.empty_like(xr)
+    n = xr.numel() // 6
+    if n == 0:
+        return Cx(xr, xi)
+    lib = build()
+    fn = lib.solve6_plain_f64 if A.re.dtype == torch.float64 else lib.solve6_plain_f32
+    err = fn(A.re.data_ptr(), A.im.data_ptr(), b.re.data_ptr(), b.im.data_ptr(),
+             xr.data_ptr(), xi.data_ptr(), n, nvcc.stream_of(dev))
+    nvcc.check(err, "solve6_plain")
+    LAUNCHES[count] += 1
+    return Cx(xr, xi)
+
+
+def solve_rao(Z0: Cx, w: torch.Tensor, B_drag: torch.Tensor, F: Cx) -> Cx:
+    """``x = (Z0 + i w B_drag)^-1 F`` (kernel K1), same arguments as
+    :func:`raft_tpu_torch.core.linalg6.solve_cx_fused`.
+
+    ``Z0``: (..., nw, 6, 6); ``w``: (nw,) shared by every design;
+    ``B_drag``: (..., 6, 6), one per design; ``F``: (..., nw, 6).
+    """
+    return _solve_rao(Z0, w, B_drag, F, "fused")
+
+
+def solve_cx(A: Cx, b: Cx) -> Cx:
+    """``x = A^-1 b`` (kernel K2), the vector-right-hand-side case of
+    :func:`raft_tpu_torch.core.linalg6.solve_cx`.
+
+    ``A``: (..., 6, 6); ``b``: (..., 6) with the same leading axes.
+    """
+    return _solve_cx(A, b, "plain")
+
+
+def _materialize(g, like: torch.Tensor) -> torch.Tensor:
+    """A cotangent half as a contiguous tensor (zeros for None)."""
+    return torch.zeros_like(like) if g is None else g.contiguous()
+
+
+def _outer_cotangent(lam: Cx, x: Cx) -> Cx:
+    """``Abar = -conj(lam) x^T`` in the (re, im) pair algebra
+    (``pallas6.py::_solve_ad_bwd``): ``(-(lr xr + li xi), lr xi - li xr)``."""
+    lr, li = lam.re[..., :, None], lam.im[..., :, None]
+    xr, xi = x.re[..., None, :], x.im[..., None, :]
+    return Cx(-(lr * xr + li * xi), lr * xi - li * xr)
+
+
+class _SolveRaoAD(torch.autograd.Function):
+    """K1 with its analytic reverse-mode rule (``solve_rao_pallas_ad``).
+
+    ``A = Z0 + i w B_drag`` gives ``A^H = Z0^H + i w (-B_drag^T)``, so the
+    adjoint solve is the same fused entry on ``(Z0^H, w, -B_drag^T, xbar)``.
+    With ``Abar = -conj(lam) x^T``: ``Z0bar = Abar``,
+    ``wbar[f] = sum over designs, j, k of B_drag Abar.im`` and
+    ``B_dragbar = sum over frequencies of w Abar.im``; ``Fbar = lam``.
+    """
+
+    @staticmethod
+    def forward(ctx, z0r, z0i, w, b_drag, fr, fi):
+        x = _solve_rao(Cx(z0r, z0i), w, b_drag, Cx(fr, fi), "fused")
+        ctx.save_for_backward(z0r, z0i, w, b_drag, x.re, x.im)
+        return x.re, x.im
+
+    @staticmethod
+    def backward(ctx, gxr, gxi):
+        z0r, z0i, w, b_drag, xr, xi = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if not any(need):
+            return (None,) * 6
+        Z0H = Cx(z0r.transpose(-1, -2).contiguous(), (-z0i.transpose(-1, -2)).contiguous())
+        lam = _solve_rao(Z0H, w, (-b_drag.transpose(-1, -2)).contiguous(),
+                         Cx(_materialize(gxr, xr), _materialize(gxi, xi)), "fused_adjoint")
+        g_z0r = g_z0i = g_w = g_bd = None
+        if any(need[:4]):
+            Abar = _outer_cotangent(lam, Cx(xr, xi))
+            if need[0]:
+                g_z0r = Abar.re
+            if need[1]:
+                g_z0i = Abar.im
+            if need[2]:
+                # (..., nw, 6, 6) against (..., 6, 6): every axis but nw reduces
+                g_w = (b_drag[..., None, :, :] * Abar.im).sum(dim=(-2, -1))
+                g_w = g_w.reshape(-1, w.shape[0]).sum(dim=0)
+            if need[3]:
+                g_bd = (w[:, None, None] * Abar.im).sum(dim=-3)
+        return (g_z0r, g_z0i, g_w, g_bd,
+                lam.re if need[4] else None, lam.im if need[5] else None)
+
+
+class _SolveCxAD(torch.autograd.Function):
+    """K2 with its analytic reverse-mode rule (``solve_cx_pallas_ad``):
+    ``lam = (A^H)^-1 xbar`` by the same entry, ``Abar = -conj(lam) x^T``,
+    ``bbar = lam``."""
+
+    @staticmethod
+    def forward(ctx, ar, ai, br, bi):
+        x = _solve_cx(Cx(ar, ai), Cx(br, bi), "plain")
+        ctx.save_for_backward(ar, ai, x.re, x.im)
+        return x.re, x.im
+
+    @staticmethod
+    def backward(ctx, gxr, gxi):
+        ar, ai, xr, xi = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if not any(need):
+            return (None,) * 4
+        AH = Cx(ar.transpose(-1, -2).contiguous(), (-ai.transpose(-1, -2)).contiguous())
+        lam = _solve_cx(AH, Cx(_materialize(gxr, xr), _materialize(gxi, xi)), "plain_adjoint")
+        g_ar = g_ai = None
+        if need[0] or need[1]:
+            Abar = _outer_cotangent(lam, Cx(xr, xi))
+            g_ar = Abar.re if need[0] else None
+            g_ai = Abar.im if need[1] else None
+        return g_ar, g_ai, lam.re if need[2] else None, lam.im if need[3] else None
+
+
+def solve_rao_ad(Z0: Cx, w: torch.Tensor, B_drag: torch.Tensor, F: Cx) -> Cx:
+    """:func:`solve_rao` with the analytic reverse-mode rule: the backward
+    launches K1 once more, on the adjoint system."""
+    xr, xi = _SolveRaoAD.apply(Z0.re, Z0.im, w, B_drag, F.re, F.im)
+    return Cx(xr, xi)
+
+
+def solve_cx_ad(A: Cx, b: Cx) -> Cx:
+    """:func:`solve_cx` with the analytic reverse-mode rule: the backward
+    launches K2 once more, on the adjoint system."""
+    xr, xi = _SolveCxAD.apply(A.re, A.im, b.re, b.im)
     return Cx(xr, xi)

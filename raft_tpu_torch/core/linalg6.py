@@ -68,21 +68,25 @@ def solve_cx(A: Cx, b: Cx, n: int = 6) -> Cx:
             br - (fr[..., None] * br[..., k:k + 1, :] - fi[..., None] * bi[..., k:k + 1, :]),
             bi - (fr[..., None] * bi[..., k:k + 1, :] + fi[..., None] * br[..., k:k + 1, :]),
         )
-    xr = torch.zeros_like(br)
-    xi = torch.zeros_like(bi)
+    # back substitution row by row, without writing into a tensor, so that
+    # autograd can differentiate the plain elimination
+    rows_r = [None] * n
+    rows_i = [None] * n
     for k in range(n - 1, -1, -1):
-        sr = br[..., k, :] - (
-            torch.einsum("...j,...jm->...m", Ar[..., k, k + 1:], xr[..., k + 1:, :])
-            - torch.einsum("...j,...jm->...m", Ai[..., k, k + 1:], xi[..., k + 1:, :])
-        )
-        si = bi[..., k, :] - (
-            torch.einsum("...j,...jm->...m", Ar[..., k, k + 1:], xi[..., k + 1:, :])
-            + torch.einsum("...j,...jm->...m", Ai[..., k, k + 1:], xr[..., k + 1:, :])
-        )
+        sr, si = br[..., k, :], bi[..., k, :]
+        if k + 1 < n:
+            xr_t = torch.stack(rows_r[k + 1:], dim=-2)
+            xi_t = torch.stack(rows_i[k + 1:], dim=-2)
+            sr = sr - (torch.einsum("...j,...jm->...m", Ar[..., k, k + 1:], xr_t)
+                       - torch.einsum("...j,...jm->...m", Ai[..., k, k + 1:], xi_t))
+            si = si - (torch.einsum("...j,...jm->...m", Ar[..., k, k + 1:], xi_t)
+                       + torch.einsum("...j,...jm->...m", Ai[..., k, k + 1:], xr_t))
         den = Ar[..., k, k] ** 2 + Ai[..., k, k] ** 2
         den = torch.where(den != 0, den, torch.ones_like(den))[..., None]
-        xr[..., k, :] = (sr * Ar[..., k, k][..., None] + si * Ai[..., k, k][..., None]) / den
-        xi[..., k, :] = (si * Ar[..., k, k][..., None] - sr * Ai[..., k, k][..., None]) / den
+        rows_r[k] = (sr * Ar[..., k, k][..., None] + si * Ai[..., k, k][..., None]) / den
+        rows_i[k] = (si * Ar[..., k, k][..., None] - sr * Ai[..., k, k][..., None]) / den
+    xr = torch.stack(rows_r, dim=-2)
+    xi = torch.stack(rows_i, dim=-2)
     if vec:
         return Cx(xr[..., 0], xi[..., 0])
     return Cx(xr, xi)

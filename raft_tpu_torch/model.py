@@ -300,16 +300,13 @@ class Model:
 
     def solveDynamics(self, nIter: int = 40, tol: float = 0.01, method="while",
                       history: bool = False):
-        """RAO fixed-point solve (the ``while`` driver)."""
-        if method != "while":
-            raise NotImplementedError(
-                f"method={method!r}: the scan driver comes with the gradient "
-                "slice (ROADMAP.md, queue 1)")
+        """RAO fixed-point solve: the ``while`` loop (early exit) or the
+        ``scan`` loop (exactly ``nIter`` steps, reverse-differentiable)."""
         if self.statics is None or self.kin is None:
             self.calcSystemProps()
         self.rao = solve_dynamics(self.members, self.kin, self.wave, self.env,
                                   self._linear_coeffs(), n_iter=nIter, tol=tol,
-                                  history=history)
+                                  method=method, history=history)
         Xi = self.rao.Xi
         w = _np(self.w)
         zeta = np.maximum(_np(self.wave.zeta), 1e-12)

@@ -31,6 +31,16 @@ class MooringSystem:
     yaw_stiffness: Tensor  # () additive C[5, 5]
 
 
+def scale_mooring(sys: MooringSystem, theta) -> MooringSystem:
+    """Differentiable mooring design knobs, ``theta = (L, R, EA)`` scales:
+    unstretched line length, anchor radius (horizontal anchor distance from
+    the platform centreline; depth unchanged) and axial stiffness EA."""
+    props = dataclasses.replace(sys.props, L=sys.props.L * theta[0],
+                                EA=sys.props.EA * theta[2])
+    r_anchor = torch.cat([sys.r_anchor[:, :2] * theta[1], sys.r_anchor[:, 2:]], dim=1)
+    return dataclasses.replace(sys, props=props, r_anchor=r_anchor)
+
+
 def parse_mooring(mooring: dict, device, dtype=torch.float64, rho: float = 1025.0,
                   g: float = 9.81, yaw_stiffness: float = 0.0) -> MooringSystem:
     """Build a :class:`MooringSystem` from the design-YAML ``mooring`` dict

@@ -1,6 +1,6 @@
 """Design-batch forward pipeline and the north-star variant sweep (port of
 ``raft_tpu.parallel.sweep``: ``scale_diameters``, ``forward_response``,
-``response_std``, ``stage_bem``).
+``response_std``, ``stage_bem``, ``grad_response_std``).
 
 A design batch is a MemberSet with a leading axis; ``forward_response``
 runs statics, strip hydrodynamics and the batched drag-linearized fixed
@@ -72,20 +72,19 @@ def stage_bem(bem, wave: WaveState):
 
 def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
                      C_moor: Tensor, bem=None, n_iter: int = 25,
-                     method: str = "while", relax: float = 0.8, tik: float = 0.0,
-                     dtype=torch.float64, device=None) -> RAOResult:
+                     method: str = "while", remat: bool = False, relax: float = 0.8,
+                     tik: float = 0.0, dtype=torch.float64, device=None) -> RAOResult:
     """Design (batch) -> RAO solve: statics, strip hydro, drag fixed point.
 
     ``members`` may carry a leading design axis; ``wave`` (and its grid) is
     shared by every lane.  ``bem``: optional pre-staged ``(A, B, F)`` with
     A, B (..., nw, 6, 6) and F a Cx (..., nw, 6) on the spectral-amplitude
     basis; the potMod members then leave the Morison added mass and
-    excitation.  Inputs must already lie on ``device`` in ``dtype``.
+    excitation.  ``method="scan"`` (with ``remat``) is the
+    reverse-differentiable loop: it always runs ``n_iter`` steps, so keep
+    the cap tight for gradient work.  Inputs must already lie on ``device``
+    in ``dtype``.
     """
-    if method != "while":
-        raise NotImplementedError(
-            f"method={method!r}: the scan driver comes with the gradient slice "
-            "(ROADMAP.md, queue 1)")
     dev = resolve_device(device)
     require_on(dev, dtype, node_r=members.node_r, w=wave.w, zeta=wave.zeta, C_moor=C_moor)
     if wave.beta is not None:
@@ -105,8 +104,8 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
         B = B + B_bem
         F = F + F_bem
     lin = LinearCoeffs(M=M, B=B, C=stat.C_struc + stat.C_hydro + C_moor, F=F)
-    return solve_dynamics(members, kin, wave, env, lin, n_iter=n_iter,
-                          relax=relax, tik=tik)
+    return solve_dynamics(members, kin, wave, env, lin, n_iter=n_iter, relax=relax,
+                          method=method, remat=remat, tik=tik)
 
 
 def response_std(Xi_abs2: Tensor, w: Tensor) -> Tensor:
@@ -117,6 +116,21 @@ def response_std(Xi_abs2: Tensor, w: Tensor) -> Tensor:
     pos = s > 0
     return torch.where(pos, torch.sqrt(torch.where(pos, s, torch.ones_like(s))),
                        torch.zeros_like(s))
+
+
+def grad_response_std(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
+                      C_moor: Tensor, theta, dof: int = 0, apply_fn=scale_diameters,
+                      n_iter: int = 25, dtype=torch.float64, device=None) -> Tensor:
+    """d sigma_dof / d theta: the exact co-design gradient through the whole
+    pipeline (statics, Morison, drag-linearized fixed point, scan loop).
+    A ``theta`` with a leading lane axis (one design per lane through
+    ``apply_fn``) gives each lane's own gradient."""
+    dev = resolve_device(device)
+    th = torch.as_tensor(theta, dtype=dtype, device=dev).detach().requires_grad_(True)
+    out = forward_response(apply_fn(members, th), rna, env, wave, C_moor, n_iter=n_iter,
+                           method="scan", dtype=dtype, device=dev)
+    sigma = response_std(out.Xi.abs2(), wave.w)[..., dof]
+    return torch.autograd.grad(sigma.sum(), th)[0]
 
 
 def north_star_grid(n_designs: int) -> np.ndarray:
@@ -188,7 +202,7 @@ def sweep_north_star(n_designs: int = 1000, nw: int = 200, chunk: int = 250,
     ``nw`` frequencies (``bench.py::north_star``).
 
     JONSWAP Hs 8 m / Tp 12 s on ``linspace(0.05, 2.95, nw)``, undisplaced
-    mooring stiffness, the ``while`` driver at ``n_iter``; each chunk of
+    mooring stiffness, the ``while`` loop at ``n_iter``; each chunk of
     lanes is one batched :func:`forward_response` with the std dev reduced
     on the device.  ``bem``: a staged (A, B, F) tuple, as
     :func:`stage_north_star_bem` returns for the nominal hull, added to

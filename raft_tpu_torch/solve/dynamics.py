@@ -1,15 +1,24 @@
 """Frequency-domain RAO solve by drag-linearized fixed point (port of
-``raft_tpu.solve.dynamics``, the ``while`` driver).
+``raft_tpu.solve.dynamics``).
 
 The JAX package solves one lane and batches with ``jax.vmap``; here the
 batch is an explicit leading axis of the linear coefficients (``()`` for a
-single design, ``(B,)`` for a design batch), and the ``while_loop`` is a
-host loop that runs while any lane is live.  Every lane keeps its own
-convergence state: a lane is updated only while it is not done and under
-the iteration cap, exactly the select that ``vmap`` of ``while_loop``
-applies.  Each iteration's solve is kernel K1
-(:func:`raft_tpu_torch.core.cuda6.solve_rao`) on CUDA tensors and its plain
-version on CPU tensors.
+single design, ``(B,)`` for a design batch).  Two loops share one step:
+
+* ``method="while"``: a host loop that runs while any lane is live (one
+  host sync per iteration).  A lane is updated only while it is not done
+  and under the iteration cap, exactly the select that ``vmap`` of
+  ``while_loop`` applies.  Each solve is kernel K1
+  (:func:`raft_tpu_torch.core.cuda6.solve_rao`).
+* ``method="scan"``: exactly ``n_iter`` steps with no host sync, each
+  lane's updates frozen once it has converged -- the same results on
+  converged lanes, and reverse-differentiable: each solve is
+  :func:`~raft_tpu_torch.core.cuda6.solve_rao_ad`, whose backward launches
+  K1 again on the adjoint system.  ``remat=True`` recomputes each step in
+  the backward pass (``torch.utils.checkpoint``, the counterpart of
+  ``jax.checkpoint``) instead of keeping its intermediates.
+
+On CPU tensors both take K1's plain version.
 """
 from __future__ import annotations
 
@@ -17,10 +26,11 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from raft_tpu_torch.core import cplx
 from raft_tpu_torch.core.cplx import Cx
-from raft_tpu_torch.core.cuda6 import solve_rao
+from raft_tpu_torch.core.cuda6 import solve_rao, solve_rao_ad
 from raft_tpu_torch.core.types import Env, MemberSet, WaveState
 from raft_tpu_torch.hydro.strip import StripKin, linearized_drag
 
@@ -65,18 +75,23 @@ def _error(Xi: Cx, Xi_last: Cx, tol: float) -> Tensor:
 
 def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
                    lin: LinearCoeffs, n_iter: int = 15, tol: float = 0.01,
-                   relax: float = 0.8, history: bool = False,
-                   tik: float = 0.0) -> RAOResult:
-    """Solve Xi(w) by fixed-point drag linearization with early exit.
+                   relax: float = 0.8, method: str = "while", remat: bool = False,
+                   history: bool = False, tik: float = 0.0) -> RAOResult:
+    """Solve Xi(w) by fixed-point drag linearization.
 
     Per iteration: linearize the drag about the current iterate, solve all
-    frequencies of all live lanes at once, test the relative change against
+    frequencies of all lanes at once, test the relative change against
     ``tol``, under-relax ``Xi_last <- (1-relax) Xi_last + relax Xi``.  The
-    result is the last raw solve of each lane.  ``history`` records each
-    lane's convergence error per iteration (NaN past its exit); ``tik`` > 0
-    lifts each frequency's impedance diagonal by ``tik`` times its largest
-    diagonal magnitude (sign-following), as in the JAX package.
+    result is the last raw solve of each lane.  ``method`` picks the loop
+    (``"while"``: early exit; ``"scan"``: exactly ``n_iter`` steps with
+    frozen lanes, reverse-differentiable; ``remat`` applies to it only).
+    ``history`` records each lane's convergence error per iteration (NaN
+    past its exit); ``tik`` > 0 lifts each frequency's impedance diagonal
+    by ``tik`` times its largest diagonal magnitude (sign-following), as in
+    the JAX package.
     """
+    if method not in ("while", "scan"):
+        raise ValueError(f"unknown method {method!r}")
     nw = wave.w.shape[-1]
     dtype, dev = lin.C.dtype, lin.C.device
     lead = tuple(lin.F.re.shape[:-2])
@@ -97,23 +112,56 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
     count = torch.zeros(lead, dtype=torch.int32, device=dev)
     hist = (torch.full(lead + (n_iter,), float("nan"), dtype=dtype, device=dev)
             if history else None)
-    Xi_last, Xi_out = Xi0, Xi0
-    while True:
-        active = ~done & (count < n_iter)
-        if not bool(active.any()):
-            break
-        B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env)
-        Xi = solve_rao(Z0, wave.w, B_drag, lin.F + F_drag)
-        err = _error(Xi, Xi_last, tol)
-        a = active[..., None, None]
-        Xi_out = cplx.where(a, Xi, Xi_out)
-        Xi_last = cplx.where(a, Xi_last * (1.0 - relax) + Xi * relax, Xi_last)
-        if hist is not None:
-            idx = torch.clamp(count, max=n_iter - 1).long()[..., None]
-            cur = hist.gather(-1, idx)
-            hist = hist.scatter(-1, idx, torch.where(active[..., None], err[..., None], cur))
-        count = count + active.to(count.dtype)
-        done = done | (active & (err < tol))
+
+    def log_error(hist, err, live, count):
+        """Write each live lane's error at its own iteration index."""
+        idx = torch.clamp(count, max=n_iter - 1).long()[..., None]
+        cur = hist.gather(-1, idx)
+        return hist.scatter(-1, idx, torch.where(live[..., None], err[..., None], cur))
+
+    if method == "while":
+        Xi_last, Xi_out = Xi0, Xi0
+        while True:
+            active = ~done & (count < n_iter)
+            if not bool(active.any()):
+                break
+            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env)
+            Xi = solve_rao(Z0, wave.w, B_drag, lin.F + F_drag)
+            err = _error(Xi, Xi_last, tol)
+            a = active[..., None, None]
+            Xi_out = cplx.where(a, Xi, Xi_out)
+            Xi_last = cplx.where(a, Xi_last * (1.0 - relax) + Xi * relax, Xi_last)
+            if hist is not None:
+                hist = log_error(hist, err, active, count)
+            count = count + active.to(count.dtype)
+            done = done | (active & (err < tol))
+    else:
+        def advance(last_re, last_im, out_re, out_im, done):
+            """One step with the post-convergence freeze, in the JAX
+            loop's order of selects (Xi_out, then Xi_next)."""
+            Xi_last = Cx(last_re, last_im)
+            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env)
+            Xi = solve_rao_ad(Z0, wave.w, B_drag, lin.F + F_drag)
+            # only decides convergence: |.| at an exact zero would put NaN
+            # into the backward pass
+            err = _error(Cx(Xi.re.detach(), Xi.im.detach()),
+                         Cx(last_re.detach(), last_im.detach()), tol)
+            d = done[..., None, None]
+            Xi_out = cplx.where(d, Cx(out_re, out_im), Xi)
+            Xi_next = cplx.where(d, Xi_last, Xi_last * (1.0 - relax) + Xi * relax)
+            return Xi_next.re, Xi_next.im, Xi_out.re, Xi_out.im, err
+
+        state = (Xi0.re, Xi0.im, Xi0.re, Xi0.im)
+        for _ in range(n_iter):
+            if remat:
+                *state, err = checkpoint(advance, *state, done, use_reentrant=False)
+            else:
+                *state, err = advance(*state, done)
+            if hist is not None:
+                hist = log_error(hist, err, ~done, count)
+            count = count + (~done).to(count.dtype)
+            done = done | (err < tol)
+        Xi_out = Cx(state[2], state[3])
 
     B_drag, F_drag = linearized_drag(m, kin, Xi_out, wave, env)
     return RAOResult(Xi=Xi_out, n_iter=count, converged=done, B_drag=B_drag,

@@ -51,6 +51,10 @@ def test_bem_modules_import_nothing_of_jax():
         "import raft_tpu_torch.hydro.mesh, raft_tpu_torch.hydro.wavetable\n"
         "import raft_tpu_torch.hydro.bem_io, raft_tpu_torch.core.bessel\n"
         "import raft_tpu_torch.solve.eigen, raft_tpu_torch.parallel.sweep\n"
+        "import raft_tpu_torch.parallel.optimize, raft_tpu_torch.core.cuda6\n"
+        "import raft_tpu_torch.solve.dynamics, raft_tpu_torch.mooring.system\n"
+        "import raft_tpu_torch as rt\n"
+        "assert rt.optimize_design.__module__ == 'raft_tpu_torch.parallel.optimize'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print('FORBIDDEN', bad)\n"
@@ -63,7 +67,8 @@ def test_bem_modules_import_nothing_of_jax():
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
     names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"hydro/torch_bem.py", "hydro/mesh.py", "hydro/wavetable.py", "hydro/bem_io.py",
-            "core/bessel.py", "core/cuda_bem.py", "core/nvcc.py"} <= names
+            "core/bessel.py", "core/cuda_bem.py", "core/nvcc.py", "parallel/optimize.py",
+            "core/cuda6.py"} <= names
 
 
 def test_no_forbidden_import_in_source():
@@ -107,9 +112,42 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         solve_bem_any(np.zeros((1, 4, 3)), [1.0])
     m = Model(design, device="cpu")
     m.calcSystemProps()
+    args = (m.members, m.rna, m.env, m.wave, m.C_moor0)
     with pytest.raises(RuntimeError, match="CUDA"):
-        forward_response(m.members, m.rna, m.env, m.wave, m.C_moor0)
+        forward_response(*args)
+    from raft_tpu_torch.parallel.optimize import grad_nacelle_accel_std, optimize_design
+    from raft_tpu_torch.parallel.sweep import grad_response_std
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        grad_nacelle_accel_std(*args, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimize_design(*args, theta0=1.0, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        grad_response_std(*args, 1.0)
+    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.core.cplx import Cx
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        # a kernel argument made on an entry point's default device
+        cuda6.solve_cx(Cx(torch.eye(6, device=resolve_device()), torch.zeros(6, 6)),
+                       Cx(torch.ones(6), torch.zeros(6)))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A tensor on another device than CPU or CUDA finds no kernel in the
+    solve wrappers (no silent fallback to the plain version)."""
+    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.core.cplx import Cx
+
+    meta = {"device": "meta", "dtype": torch.float64}
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda6.solve_cx(Cx(torch.empty(2, 6, 6, **meta), torch.empty(2, 6, 6, **meta)),
+                       Cx(torch.empty(2, 6, **meta), torch.empty(2, 6, **meta)))
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda6.solve_rao(Cx(torch.empty(1, 3, 6, 6, **meta), torch.empty(1, 3, 6, 6, **meta)),
+                        torch.empty(3, **meta), torch.empty(1, 6, 6, **meta),
+                        Cx(torch.empty(1, 3, 6, **meta), torch.empty(1, 3, 6, **meta)))
 
 
 def test_chip_smoke_refuses_without_card():
