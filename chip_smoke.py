@@ -18,12 +18,15 @@ result line):
 3. K1 against its plain PyTorch version on the card, numpy-seeded inputs at
    the sweep's call shape (250 designs x 200 frequencies) and at 1,000 x 200,
    in float64 and float32: random systems, a permutation matrix with w = 0
-   (forces pivoting) and one singular lane (zero-denominator guard); with
-   kernel, plain-version and ``torch.linalg.solve`` times beside the bound;
+   (forces pivoting, solved exactly), one singular lane (zero-denominator
+   guard) and a pivot-tie batch (equal |.|^2 in the pivot column; float64
+   bit for bit); the adjoint mode against the forward mode on materialized
+   transposes (bit for bit); with kernel, plain-version and
+   ``torch.linalg.solve`` times beside the bound;
 4. K2 against its plain version at ``bench.py::pallas6_microbench``'s shape
-   (16,384 diagonally dominant systems) in float64 and float32, with a
-   permutation batch and a singular lane; then the microbench itself, K2's
-   path, with its launches counted;
+   (16,384 diagonally dominant systems) in float64 and float32, with the
+   same permutation, singular, pivot-tie and adjoint-mode cases; then the
+   microbench itself, K2's path, with its launches counted;
 5. the adjoints of K1 and K2 (``solve_rao_ad``, ``solve_cx_ad``) against
    autograd through the plain elimination on the card, float64, at the
    sweep's call shape;
@@ -32,8 +35,11 @@ result line):
    (2,048 class), float64 and float32, with the pairs per subdivision level;
 7. K4 (wave part) against its plain version on the same meshes, on a deep
    (1.5 rad/s) and a finite-depth (0.4 rad/s, 200 m) frequency chunk, and on
-   every chunk of the north star's 48-frequency staging grid; then K3 and
-   K4 at a panel count off the 64-panel classes (850, the hull unpadded);
+   every chunk of the north star's 48-frequency staging grid (one line per
+   chunk: frequencies, deep or finite depth, the image evaluations per
+   region of the wave integrals, kernel time against the bound); then K3
+   and K4 at a panel count off the 64-panel classes (850, the hull
+   unpadded);
 8. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
    against the same run on the CPU (plain path);
 9. the strip-theory north-star sweep at full size (1,000 VolturnUS-S
@@ -56,11 +62,17 @@ result line):
 13. ``optimize_design`` (6 Adam steps) on VolturnUS-S with the staged BEM,
    and the OC3spar mooring-knob gradient on the card against the CPU;
 14. the sweeps and one gradient chunk again under ``torch.profiler``: device
-   busy time, idle share and the operations that take the device time.
+   busy time, idle share and the operations that take the device time; the
+   gradient chunk must run at least 75 device operations fewer than with
+   the adjoint's transposed copies (18,346).
 
 ``--phases a,b`` runs only the named phases (for debugging; the names are
-those printed after ``==``).  The last lines are the kernels JSON record,
-the nvidia-smi line and ``{"ok": true, "device": {...}}``.
+those printed after ``==``).  ``--compare-with DIR`` adds the phase "old vs
+new" after the build: the K4 and K1/K2 sources of an older checkout in DIR
+(``DIR/raft_tpu_torch/csrc``, e.g. unpacked by ``git archive``) are built
+beside this checkout's and timed against them in turns on the same inputs.
+The last lines are the kernels JSON record, the nvidia-smi line and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -76,6 +88,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 DESIGNS = ROOT / "raft_tpu" / "designs"
 
+# device clock cycles of the spin queued before each timed call (about 1 ms)
+SPIN_CYCLES = 2_000_000
 # H100 SXM peaks: HBM3 bytes/s and non-tensor-core FLOP/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -84,6 +98,10 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 # through the plain elimination (float64): the JAX package's bound between
 # its adjoint rule and its differentiated elimination (tests/test_pallas6.py)
 TOL_GRAD = 1e-9
+# device operations of one profiled co-design gradient chunk (250 x 200,
+# scan 25) when the backward materialized the adjoint system (PERF.md,
+# PR 3's profile)
+GRAD_CHUNK_OPS_BEFORE = 18346
 # central differences of the scan objective, h = 1e-4 (tests/test_optimize.py)
 FD_H, FD_RTOL = 1e-4, 2e-3
 # K3 / K4 against their plain versions, scale-relative per output: f64 to
@@ -95,13 +113,24 @@ TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
 # weight), per contribution (one point source, potential + normal
 # derivative), and the masked store
 K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB = 24, 28, 22
-# counted from bem_wave.cu, per pair and frequency: the wave integrals by
-# region (near quadrature: 16 nodes x the 12-term series; table;
-# far-field Bessel; deep tail), the deep-water Green function around them,
-# the finite-depth one (its 4 images' pole parts call the integrals again,
-# plus 46 fit terms x 4 images), and the combine
-K4_FLOPS_REGION = {"near": 3475, "table": 60, "far": 110, "deep": 17}
-K4_FLOPS_DEEP, K4_FLOPS_FD, K4_FLOPS_COMBINE = 95, 300 + 46 * 55, 16
+# counted from bem_wave.cu: each add, subtract and multiply is one
+# operation (a fused multiply-add two), and so is each division, sqrt,
+# rsqrt and transcendental call (exp, log, log1p, atan2; sin and cos one
+# each, a sincos pair one); clamps, selects and shuffles are not counted,
+# and a sum over the 16 nodes counts its 15 adds.  Per image evaluation of
+# the wave integrals by region: near = 16 nodes x 105 (Horner series,
+# log, atan2, 1/|zeta|^2, the two weighted node terms) + the two node
+# sums + the finish; table, far (Bessel Y0/Y1 asymptotics), deep tail.
+# K4_FLOPS_NEAR_PAIR: the 16 nodes' X sin(theta_q) and sincos, once per
+# pair and frequency with any near image.  K4_FLOPS_DEEP: the deep-water
+# Green function around its one image (region test, e^Y, J0, J1);
+# K4_FLOPS_FD: the finite-depth one around its four images (per image 28:
+# region test, e^Y, pole part), 46 fit terms x 52, the "1" parts, the
+# radiated part and the seabed image; K4_FLOPS_COMBINE: the four outputs;
+# K4_FLOPS_PAIR: R, R_eff, once per pair and launch
+K4_FLOPS_REGION = {"near": 16 * 105 + 30 + 12, "table": 39, "far": 60, "deep": 11}
+K4_FLOPS_NEAR_PAIR = 32
+K4_FLOPS_DEEP, K4_FLOPS_FD, K4_FLOPS_COMBINE, K4_FLOPS_PAIR = 90, 277 + 46 * 52, 20, 8
 
 
 def k1_flops_per_system() -> int:
@@ -157,10 +186,11 @@ def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name: str):
+def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name: str) -> dict:
     """Operations and bytes of one K4 call on these inputs (each pair's
-    region of the wave integrals, per frequency), and its bound (ms, what
-    binds, the operations' and the bytes' times)."""
+    region of the wave integrals, per image and frequency), and its bound:
+    ``bound_ms``, ``bound_by``, ``ops_ms``, ``bytes_ms`` and ``regions``,
+    the image evaluations per region."""
     import torch
 
     from raft_tpu_torch.hydro import wavetable
@@ -172,33 +202,84 @@ def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name
     diag_lid = torch.eye(n, dtype=torch.bool, device=c.device) & lid_surface[None, :]
     R_use = torch.where(diag_lid, 0.4 * torch.sqrt(torch.clamp(area, min=1e-14))[None, :], R)
     zP, zQ = c[:, 2][:, None], c[:, 2][None, :]
+    regions = dict.fromkeys(("near", "table", "far", "deep"), 0)
 
-    def region_flops(X, Y):
-        rho = torch.sqrt(X * X + Y * Y + 1e-18)
-        near = rho < 0.6
-        far = ~near & (X >= wavetable.XMAX * (1.0 - 1e-7))
-        deep = ~near & ~far & (torch.log1p(-Y) >= wavetable.SMAX * (1.0 - 1e-7))
-        table = ~near & ~far & ~deep
-        f = K4_FLOPS_REGION
-        return (f["near"] * int(near.sum()) + f["far"] * int(far.sum())
-                + f["deep"] * int(deep.sum()) + f["table"] * int(table.sum()))
+    def split(X, Ys):
+        """Region counts of the images Ys at X; pairs with any near image."""
+        any_near = torch.zeros_like(X, dtype=torch.bool)
+        for Y in Ys:
+            rho = torch.sqrt(X * X + Y * Y + 1e-18)
+            near = rho < 0.6
+            far = ~near & (X >= wavetable.XMAX * (1.0 - 1e-7))
+            deep = ~near & ~far & (torch.log1p(-Y) >= wavetable.SMAX * (1.0 - 1e-7))
+            for key, sel in (("near", near), ("far", far), ("deep", deep),
+                             ("table", ~near & ~far & ~deep)):
+                regions[key] += int(sel.sum())
+            any_near |= near
+        return int(any_near.sum())
 
-    flops = 0
+    flops = K4_FLOPS_PAIR * n * n
     for i in range(nf):
         if fd is not None and float(fd["active"][i]) > 0.5:
             k0 = float(fd["k0"][i])
             d4 = (-(zP + zQ), 2 * depth - (zP - zQ), 2 * depth + (zP - zQ), 4 * depth + (zP + zQ))
-            flops += K4_FLOPS_FD * n * n + sum(region_flops(k0 * R_use, -k0 * d.expand(n, n))
-                                               for d in d4)
+            near_pairs = split(k0 * R_use, [-k0 * d.expand(n, n) for d in d4])
+            flops += K4_FLOPS_FD * n * n
         else:
             kk = float(k[i])
-            flops += K4_FLOPS_DEEP * n * n + region_flops(kk * R_use, kk * (zP + zQ))
-        flops += K4_FLOPS_COMBINE * n * n
-    nbytes = itemsize * (2 * n * n + 9 * n + 2 * wavetable.NX * wavetable.NS + 32
+            near_pairs = split(kk * R_use, [kk * (zP + zQ)])
+            flops += K4_FLOPS_DEEP * n * n
+        flops += K4_FLOPS_COMBINE * n * n + K4_FLOPS_NEAR_PAIR * near_pairs
+    flops += sum(K4_FLOPS_REGION[key] * cnt for key, cnt in regions.items())
+    nbytes = itemsize * (2 * n * n + 9 * n + 2 * wavetable.NX * wavetable.NS + 44
                          + nf * (4 + 2 * 46) + 4 * nf * n * n)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            1e3 * t_ops, 1e3 * t_bytes)
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes, "regions": regions}
+
+
+def tie_systems(n: int, rng) -> np.ndarray:
+    """(n, 6, 6) complex systems whose pivot search ties: at column 0 rows 0
+    and 1 (the pivot row itself in the tie), at column 2 rows 3 and 5
+    (above row 2's smaller entry), each pair with equal |.|^2 in any
+    rounding (one entry is the other with re and im swapped).  Every row
+    of the eliminated U keeps at most one entry right of its diagonal, so
+    the back substitution's sums are exact in any order: the kernel must
+    equal the plain version bit for bit, and a tie broken to the other
+    row changes the bits of nearly every lane."""
+    def cx():
+        return rng.normal(size=n) + 1j * rng.normal(size=n)
+
+    def swap(z):
+        return z.imag + 1j * z.real
+
+    A = np.zeros((n, 6, 6), complex)
+    p, P = cx(), 2.0 * cx()
+    A[:, 0, 0], A[:, 0, 1] = p, cx()
+    A[:, 1, 0], A[:, 1, 1] = swap(p), cx()
+    A[:, 2, 2], A[:, 2, 3] = 0.3 * P, cx()
+    A[:, 3, 2], A[:, 3, 4] = P, cx()
+    A[:, 4, 3] = 4.0 * (np.abs(A[:, 2, 3]) + 1.0) * np.exp(1j * rng.uniform(0.0, 2 * np.pi, n))
+    A[:, 5, 2], A[:, 5, 5] = swap(P), cx()
+    return A
+
+
+def print_ptxas(name: str, log: str):
+    """Registers and spills per kernel entry from a build's ptxas output,
+    each entry labelled by its template arguments: the type, and for
+    solve6 fused or plain and forward or adjoint."""
+    import re
+
+    kind = ""
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"_kernelI([df])(?:Lb([01])ELb([01])E)?", line)
+            kind = "" if m is None else ("f64" if m[1] == "d" else "f32")
+            if m is not None and m[2] is not None:
+                kind += (" fused" if m[2] == "1" else " plain") + (" adjoint" if m[3] == "1" else "")
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {name} {kind}: {line.split(':', 1)[-1].strip()}")
 
 
 def nvidia_smi() -> str:
@@ -212,10 +293,11 @@ class Smoke:
     # the north star's full width: the co-design phases run at these sizes
     n_designs, nw, chunk = 1000, 200, 250
 
-    def __init__(self):
+    def __init__(self, compare_dir=None):
         import torch
 
         self.torch = torch
+        self.compare_dir = compare_dir
         self.failures: list[str] = []
         self.record: dict = {}
         self.records: dict = {}
@@ -235,13 +317,17 @@ class Smoke:
             self.failures.append(what)
 
     def time_ms(self, fn, reps: int = 20) -> float:
-        """Mean device time of fn(), each call after an L2 flush (64 MB)."""
+        """Mean device time of fn(), each call after an L2 flush (64 MB) and
+        a device spin of SPIN_CYCLES queued ahead of the start event, so the
+        host's time to enqueue fn() (its wrapper's checks, small setup ops)
+        is not inside the interval and a short kernel is timed alone."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(reps):
             self._flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -264,17 +350,11 @@ class Smoke:
         print(f"  K1/K2, K3, K4 built in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
               f"parallel)")
         for spec in (cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE):
-            name, log = spec.name, nvcc.build_log(spec)
+            log = nvcc.build_log(spec)
             if log is None:
-                print(f"  ptxas {name}: no log beside {spec.path().name}")
-                continue
-            kind = ""
-            for line in log.splitlines():
-                if "Compiling entry" in line:
-                    kind = "f64" if "Id" in line else ("f32" if "If" in line else "")
-                    kind += " fused" if "Lb1E" in line else (" plain" if "Lb0E" in line else "")
-                elif "registers" in line or "spill" in line:
-                    print(f"  ptxas {name} {kind}: {line.split(':', 1)[-1].strip()}")
+                print(f"  ptxas {spec.name}: no log beside {spec.path().name}")
+            else:
+                print_ptxas(spec.name, log)
         t0 = time.perf_counter()
         tab = wavetable.load_tables()
         print(f"  wave tables {tab['I0'].shape} ready in {time.perf_counter() - t0:.2f} s "
@@ -296,6 +376,11 @@ class Smoke:
             Zi = np.zeros((B, nw, 6, 6))
             Bd = rng.normal(size=(B, 6, 6))
             w = np.zeros(nw)
+        elif case == "pivot-tie":
+            Z = tie_systems(B * nw, rng).reshape(B, nw, 6, 6)
+            Zr, Zi = Z.real, Z.imag
+            Bd = rng.normal(size=(B, 6, 6))
+            w = np.zeros(nw)
         else:  # singular: lane (0, 0) is diag(1, 1, 0, 1, 1, 1) at w = 0
             Zr = rng.normal(size=(B, nw, 6, 6)) + 6.0 * np.eye(6)
             Zi = rng.normal(size=(B, nw, 6, 6))
@@ -313,6 +398,7 @@ class Smoke:
 
     def phase_k1(self):
         from raft_tpu_torch.core import cuda6, linalg6
+        from raft_tpu_torch.core.cplx import Cx
 
         torch = self.torch
         rng = np.random.default_rng(20261016)
@@ -322,7 +408,7 @@ class Smoke:
                 nw = 200
                 worst = 0.0
                 worst_abs = 0.0
-                for case in ("random", "permutation", "singular"):
+                for case in ("random", "permutation", "singular", "pivot-tie"):
                     Z0, w, Bd, F = self._k1_inputs(case, B, nw, dtype, rng)
                     xk = cuda6.solve_rao(Z0, w, Bd, F)
                     xp = linalg6.solve_cx_fused(Z0, w, Bd, F)
@@ -341,6 +427,27 @@ class Smoke:
                         want_r = torch.roll(F.re, 1, dims=-1)
                         self.check(bool((xk.re == want_r).all()),
                                    f"K1 {name} {B}x{nw} permutation solved exactly")
+                    if case == "singular":
+                        self.check(float(xk.re[0, 0, 2]) == 0.0 and float(xk.im[0, 0, 2]) == 0.0,
+                                   f"K1 {name} {B}x{nw} singular lane takes the "
+                                   f"zero-denominator guard")
+                    if case == "pivot-tie":
+                        same = bool(torch.equal(xk.re, xp.re) and torch.equal(xk.im, xp.im))
+                        if name == "float64":
+                            self.check(same, f"K1 float64 {B}x{nw} pivot-tie batch: kernel == "
+                                       f"plain bit for bit (the lowest row wins the tie)")
+                        else:
+                            print(f"  K1 float32 {B}x{nw} pivot-tie batch bit for bit: {same}")
+                    # the adjoint mode reads Z0^H and -B_drag^T in place: the
+                    # same bits as the forward mode on materialized transposes
+                    lam = cuda6.solve_rao_adjoint(Z0, w, Bd, F)
+                    ZH = Cx(Z0.re.transpose(-1, -2).contiguous(),
+                            (-Z0.im.transpose(-1, -2)).contiguous())
+                    lam_m = cuda6.solve_rao(ZH, w, (-Bd.transpose(-1, -2)).contiguous(), F)
+                    torch.cuda.synchronize()
+                    self.check(bool(torch.equal(lam.re, lam_m.re) and torch.equal(lam.im, lam_m.im)),
+                               f"K1 {name} {B}x{nw} {case}: adjoint mode == forward mode on the "
+                               f"materialized Z0^H, -B_drag^T (bit for bit)")
                 Z0, w, Bd, F = self._k1_inputs("random", B, nw, dtype, rng)
                 Zc = torch.complex(Z0.re, Z0.im + w[:, None, None] * Bd[:, None])
                 Fc = torch.complex(F.re, F.im)[..., None]
@@ -367,6 +474,9 @@ class Smoke:
             P[np.arange(6), (np.arange(6) + 1) % 6] = 1.0
             Ar = np.broadcast_to(P, (n, 6, 6)).copy()
             Ai = np.zeros((n, 6, 6))
+        elif case == "pivot-tie":
+            A = tie_systems(n, rng)
+            Ar, Ai = A.real, A.imag
         else:
             Ar = rng.normal(size=(n, 6, 6)) + 8.0 * np.eye(6)
             Ai = 0.3 * rng.normal(size=(n, 6, 6))
@@ -381,6 +491,7 @@ class Smoke:
 
     def phase_k2(self):
         from raft_tpu_torch.core import cuda6, linalg6
+        from raft_tpu_torch.core.cplx import Cx
 
         torch = self.torch
         rng = np.random.default_rng(20261017)
@@ -388,7 +499,7 @@ class Smoke:
         for dtype in (torch.float64, torch.float32):
             name = str(dtype).split(".")[-1]
             worst, worst_abs = 0.0, 0.0
-            for case in ("random", "permutation", "singular"):
+            for case in ("random", "permutation", "singular", "pivot-tie"):
                 A, b = self._k2_inputs(case, n, dtype, rng)
                 xk = cuda6.solve_cx(A, b)
                 xp = linalg6.solve_cx(A, b)
@@ -406,6 +517,20 @@ class Smoke:
                 if case == "singular":
                     self.check(float(xk.re[0, 2]) == 0.0 and float(xk.im[0, 2]) == 0.0,
                                f"K2 {name} singular lane takes the zero-denominator guard")
+                if case == "pivot-tie":
+                    same = bool(torch.equal(xk.re, xp.re) and torch.equal(xk.im, xp.im))
+                    if name == "float64":
+                        self.check(same, f"K2 float64 {n} pivot-tie batch: kernel == plain bit "
+                                   f"for bit (the lowest row wins the tie)")
+                    else:
+                        print(f"  K2 float32 {n} pivot-tie batch bit for bit: {same}")
+                lam = cuda6.solve_cx_adjoint(A, b)
+                AH = Cx(A.re.transpose(-1, -2).contiguous(), (-A.im.transpose(-1, -2)).contiguous())
+                lam_m = cuda6.solve_cx(AH, b)
+                torch.cuda.synchronize()
+                self.check(bool(torch.equal(lam.re, lam_m.re) and torch.equal(lam.im, lam_m.im)),
+                           f"K2 {name} {n} {case}: adjoint mode == forward mode on the "
+                           f"materialized A^H (bit for bit)")
             A, b = self._k2_inputs("random", n, dtype, rng)
             Ac = torch.complex(A.re, A.im)
             bc = torch.complex(b.re, b.im)[..., None]
@@ -598,13 +723,12 @@ class Smoke:
                                f"{nf} x w: scale-relative diff {rel:.3e} (limit {lim:.0e})")
                     ms = self.time_ms(lambda: cuda_bem.wave_assembly(*wargs, **kw))
                     plain_ms = self.time_ms(lambda: torch_bem.wave_plain(*wargs, **kw), reps=2)
-                    bound, by, t_ops, t_bytes = k4_work(c, area, ls, k, fd, depth,
-                                                        torch.finfo(dtype).bits // 8, dn)
+                    wk = k4_work(c, area, ls, k, fd, depth, torch.finfo(dtype).bits // 8, dn)
                     print(f"  K4 {dn} n={case['n']} {label} ({nf} x w from {w0}): kernel "
-                          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms ({by}; "
-                          f"operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms); max abs diff "
-                          f"{ab:.3e}")
-        self._k4_main_path(tab)
+                          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {wk['bound_ms']:.4f} ms "
+                          f"({wk['bound_by']}; operations {wk['ops_ms']:.4f} ms, bytes "
+                          f"{wk['bytes_ms']:.4f} ms); max abs diff {ab:.3e}")
+        self._k4_main_path()
         self._unaligned(tab)
 
     def _unaligned(self, tab):
@@ -636,51 +760,172 @@ class Smoke:
                    f"K3/K4 float64 at an unaligned count n={n}: scale-relative diff "
                    f"{rel_r:.3e} / {rel_w:.3e}")
 
-    def _k4_main_path(self, tab):
-        """K4 at the main path's calls: every chunk of the north star's
-        staging (VolturnUS-S, 1,024 class, 48 w, 200 m, float64)."""
+    def _staging_chunks(self, dtype):
+        """The north star's staging calls of K4 (VolturnUS-S, 1,024 class,
+        48 w in 200 m): (inputs, keywords, w of the chunk) per chunk."""
         from raft_tpu_torch.core import cuda_bem
         from raft_tpu_torch.hydro import torch_bem, wavetable
 
         torch = self.torch
-        dtype = torch.float64
         case = self._bem_case("VolturnUS-S", False, dtype)
         P, c, nrm, area, diag, pm, ls, spot = case["args"]
         R_pot, R_dn = cuda_bem.rankine_assembly(*case["args"])
-        tabd = torch_bem.stage_tables(tab, dtype, self.dev)
+        tabd = torch_bem.stage_tables(wavetable.load_tables(), dtype, self.dev)
         w = np.linspace(0.05, 2.95, 48)
         nf = torch_bem.freq_chunk(case["n"], len(w))
         fd_all = wavetable.fd_fit_grid(w, case["depth"], 9.81)
-        ms, plain_ms, bound, t_ops, t_bytes, rel, ab = [], [], [], 0.0, 0.0, 0.0, 0.0
+        kw = {"finite_depth": True, "depth": case["depth"]}
+        chunks = []
         for lo in range(0, len(w), nf):
             sl = slice(lo, lo + nf)
             fd = {k: torch.as_tensor(v[sl], device=self.dev).to(dtype) for k, v in fd_all.items()}
             k = torch.as_tensor(w[sl] ** 2 / 9.81, device=self.dev).to(dtype)
-            wargs = (R_pot, R_dn, c, nrm, area, pm, ls, tabd, k, fd)
-            kw = {"finite_depth": True, "depth": case["depth"]}
+            chunks.append(((R_pot, R_dn, c, nrm, area, pm, ls, tabd, k, fd), kw, w[sl]))
+        return chunks
+
+    def _k4_main_path(self):
+        """K4 at the main path's calls: every chunk of the north star's
+        staging (VolturnUS-S, 1,024 class, 48 w, 200 m, float64), one line
+        per chunk with its pairs' regions."""
+        from raft_tpu_torch.core import cuda_bem
+        from raft_tpu_torch.hydro import torch_bem
+
+        dtype = self.torch.float64
+        depth = self._bem_case("VolturnUS-S", False, dtype)["depth"]
+        ms, plain_ms, bound, t_ops, t_bytes, rel, ab, n_fd = [], [], [], 0.0, 0.0, 0.0, 0.0, 0
+        for idx, (wargs, kw, wc) in enumerate(self._staging_chunks(dtype)):
             got = cuda_bem.wave_assembly(*wargs, **kw)
             ref = torch_bem.wave_plain(*wargs, **kw)
             r, a = self._errs(got, ref)
             rel, ab = max(rel, r), max(ab, a)
             ms.append(self.time_ms(lambda: cuda_bem.wave_assembly(*wargs, **kw), reps=5))
             plain_ms.append(self.time_ms(lambda: torch_bem.wave_plain(*wargs, **kw), reps=1))
-            b, _by, to, tb = k4_work(c, area, ls, k, fd, case["depth"], 8, "float64")
-            bound.append(b)
-            t_ops, t_bytes = t_ops + to, t_bytes + tb
+            c, area, ls, k, fd = wargs[2], wargs[4], wargs[6], wargs[8], wargs[9]
+            wk = k4_work(c, area, ls, k, fd, depth, 8, "float64")
+            bound.append(wk["bound_ms"])
+            t_ops, t_bytes = t_ops + wk["ops_ms"], t_bytes + wk["bytes_ms"]
+            act = fd["active"].cpu().numpy()
+            n_fd += int(act.sum())
+            kind = "finite depth" if act.all() else ("deep" if not act.any() else "mixed")
+            tot = sum(wk["regions"].values())
+            shares = ", ".join(f"{key} {v / tot:.3f}" for key, v in wk["regions"].items())
+            print(f"  K4 staging chunk {idx:2d}: w {wc[0]:.4f}-{wc[-1]:.4f} rad/s, {kind}; image "
+                  f"evaluations {tot} ({shares}); kernel {ms[-1]:.4f} ms, bound "
+                  f"{wk['bound_ms']:.4f} ms ({wk['bound_by']}), {ms[-1] / wk['bound_ms']:.1f}x; "
+                  f"scale-rel diff {r:.2e}")
         lim = TOL_BEM["float64"]["wave"]
         self.check(rel <= lim, f"K4 float64 on all {len(ms)} staging chunks: scale-relative "
                    f"diff {rel:.3e} (limit {lim:.0e})")
-        n_fd = int(fd_all["active"].sum())
-        print(f"  K4 float64 staging grid ({len(ms)} chunks of {nf} w, {n_fd} of 48 w finite "
-              f"depth): kernel {np.mean(ms):.4f} ms per chunk (min {min(ms):.4f}, max "
-              f"{max(ms):.4f}), plain {np.mean(plain_ms):.2f} ms, bound {np.mean(bound):.4f} ms "
-              f"(operations {t_ops / len(ms):.4f}, bytes {t_bytes / len(ms):.4f}); max abs "
-              f"diff {ab:.3e}")
+        print(f"  K4 float64 staging grid ({len(ms)} chunks, {n_fd} of 48 w finite depth): "
+              f"kernel {np.mean(ms):.4f} ms per chunk (min {min(ms):.4f}, max {max(ms):.4f}), "
+              f"plain {np.mean(plain_ms):.2f} ms, bound {np.mean(bound):.4f} ms (operations "
+              f"{t_ops / len(ms):.4f}, bytes {t_bytes / len(ms):.4f}); max abs diff {ab:.3e}")
         self.records["wave"] = {"max_abs_err": ab, "ms": float(np.mean(ms)),
                                 "plain_ms": float(np.mean(plain_ms)),
                                 "bound_ms": float(np.mean(bound)),
                                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                                 "library_ms": None}
+
+    def phase_old_vs_new(self):
+        """The kernel sources of an older checkout (``--compare-with DIR``)
+        built beside this checkout's and timed in turns (old, new, new, old)
+        on the same inputs: K4 on every chunk of the staging grid, K1 at
+        250 x 200 and 1,000 x 200 in float32 and float64, and K1's adjoint
+        solve (before: the materialized transposes and the forward kernel)."""
+        import ctypes
+
+        from raft_tpu_torch.core import cuda6, cuda_bem, nvcc
+        from raft_tpu_torch.core.cplx import Cx
+
+        torch = self.torch
+        src = Path(self.compare_dir).resolve() / "raft_tpu_torch" / "csrc"
+        out = nvcc.BUILD_DIR / "compare"
+        out.mkdir(parents=True, exist_ok=True)
+        # the older sources, with the flags their wrappers built them with
+        builds = {"bem_wave": ("bem_wave.cu", ("-fmad=false",)), "solve6": ("solve6.cu", ())}
+        procs = {name: subprocess.Popen([nvcc._nvcc(), *nvcc.NVCC_FLAGS, *flags, "-o",
+                                         str(out / f"lib{name}_old.so"), str(src / f)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for name, (f, flags) in builds.items()}
+        for name, proc in procs.items():
+            _o, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc of the older {name}: {err[-2000:]}")
+            print_ptxas(f"{name} (old)", err)
+        P, I, D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
+        wave = ctypes.CDLL(str(out / "libbem_wave_old.so"))
+        solve = ctypes.CDLL(str(out / "libsolve6_old.so"))
+        for fn, sig in ((wave.bem_wave_f64, [P] * 11 + [I, I, D, D] + [P] * 6 + [I] * 4 + [D]
+                         + [P] * 5),
+                        (solve.solve6_fused_f32, [P] * 8 + [I, I, P]),
+                        (solve.solve6_fused_f64, [P] * 8 + [I, I, P])):
+            fn.argtypes, fn.restype = sig, ctypes.c_int
+        stream = nvcc.stream_of(self.dev)
+
+        def old_k4(wargs, kw):
+            from raft_tpu_torch.hydro import wavetable
+
+            R_pot, R_dn, c, nrm, area, pm, ls, tab, k, fd = wargs
+            n, nf = c.shape[0], k.shape[0]
+            outs = [torch.empty((nf, n, n), dtype=c.dtype, device=self.dev) for _ in range(4)]
+            lids = ls.to(c.dtype)
+            glx, glw = tab["nodes"]
+            err = wave.bem_wave_f64(
+                *(t.data_ptr() for t in (R_pot, R_dn, c, nrm, area, pm, lids, tab["I0"],
+                                         tab["I1"], glx, glw)),
+                wavetable.NX, wavetable.NS, float(wavetable.XMAX), float(wavetable.SMAX),
+                *(t.data_ptr() for t in (k, fd["k0"], fd["A0"], fd["active"], fd["lam"],
+                                         fd["a"])),
+                fd["lam"].shape[-1], n, nf, 1, float(kw["depth"]),
+                *(o.data_ptr() for o in outs), stream)
+            nvcc.check(err, "bem_wave (old)")
+            return outs
+
+        def old_k1(Z0, w, Bd, F):
+            xr, xi = torch.empty_like(F.re), torch.empty_like(F.im)
+            fn = solve.solve6_fused_f64 if F.re.dtype == torch.float64 else solve.solve6_fused_f32
+            nvcc.check(fn(Z0.re.data_ptr(), Z0.im.data_ptr(), w.data_ptr(), Bd.data_ptr(),
+                          F.re.data_ptr(), F.im.data_ptr(), xr.data_ptr(), xi.data_ptr(),
+                          xr.numel() // 6, w.shape[0], stream), "solve6 (old)")
+            return Cx(xr, xi)
+
+        def old_k1_adjoint(Z0, w, Bd, G):
+            ZH = Cx(Z0.re.transpose(-1, -2).contiguous(), (-Z0.im.transpose(-1, -2)).contiguous())
+            return old_k1(ZH, w, (-Bd.transpose(-1, -2)).contiguous(), G)
+
+        def turns(old, new, reps):
+            t = [self.time_ms(f, reps=reps) for f in (old, new, new, old)]
+            return 0.5 * (t[0] + t[3]), 0.5 * (t[1] + t[2])
+
+        old_ms, new_ms = [], []
+        for idx, (wargs, kw, wc) in enumerate(self._staging_chunks(torch.float64)):
+            rel, _ = self._errs(cuda_bem.wave_assembly(*wargs, **kw), old_k4(wargs, kw))
+            o, nw_ = turns(lambda: old_k4(wargs, kw), lambda: cuda_bem.wave_assembly(*wargs, **kw),
+                           reps=5)
+            old_ms.append(o)
+            new_ms.append(nw_)
+            print(f"  K4 staging chunk {idx:2d} (w {wc[0]:.4f}-{wc[-1]:.4f}): old {o:.4f} ms, "
+                  f"new {nw_:.4f} ms, {o / nw_:.2f}x; new vs old scale-rel diff {rel:.2e}")
+        print(f"  K4 staging grid, mean per chunk: old {np.mean(old_ms):.4f} ms, new "
+              f"{np.mean(new_ms):.4f} ms ({np.mean(old_ms) / np.mean(new_ms):.2f}x); sum over 24 "
+              f"chunks old {np.sum(old_ms):.3f} ms, new {np.sum(new_ms):.3f} ms")
+        rng = np.random.default_rng(20261019)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            for B in (250, 1000):
+                Z0, w, Bd, F = self._k1_inputs("random", B, 200, dtype, rng)
+                xo, xn = old_k1(Z0, w, Bd, F), cuda6.solve_rao(Z0, w, Bd, F)
+                rel = float(max((xo.re - xn.re).abs().max(), (xo.im - xn.im).abs().max())
+                            / xn.re.abs().max())
+                o, nw_ = turns(lambda: old_k1(Z0, w, Bd, F), lambda: cuda6.solve_rao(Z0, w, Bd, F),
+                               reps=20)
+                oa, na = turns(lambda: old_k1_adjoint(Z0, w, Bd, F),
+                               lambda: cuda6.solve_rao_adjoint(Z0, w, Bd, F), reps=20)
+                bound, by = k1_bound_ms(B, 200, torch.finfo(dtype).bits // 8, name)
+                print(f"  K1 {name} {B}x200: old {o:.4f} ms, new {nw_:.4f} ms ({o / nw_:.2f}x), "
+                      f"bound {bound:.5f} ms ({by}); adjoint solve old (copies + kernel) "
+                      f"{oa:.4f} ms, new (in place) {na:.4f} ms; new vs old scale-rel diff "
+                      f"{rel:.2e}")
 
     def phase_run_raft(self):
         from raft_tpu_torch.model import run_raft
@@ -1139,6 +1384,7 @@ class Smoke:
         for us, count, name in rows[:10]:
             print(f"    {us / 1e3:9.3f} ms  {count:6d}x  {name[:90]}")
         self.check(busy_ms > 0, f"profiler saw device time ({label})")
+        return n_dev
 
     def phase_profile(self):
         from torch.profiler import record_function
@@ -1148,7 +1394,8 @@ class Smoke:
                                                    sweep_north_star)
 
         torch = self.torch
-        K1, K3, K4 = ("solve6_kernel", "true>"), ("rankine_kernel",), ("wave_kernel",)
+        # solve6_kernel<T, FUSED, ADJOINT>: K1 is FUSED, forward and adjoint
+        K1, K3, K4 = ("solve6_kernel", ", true, "), ("rankine_kernel",), ("wave_kernel",)
 
         def strip():
             sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
@@ -1174,8 +1421,14 @@ class Smoke:
         self._profile("strip sweep", strip, {"K1": K1}, (self.record, ("sweep_wall_ms",)))
         self._profile("BEM staging + BEM-staged sweep", bem, {"K1": K1, "K3": K3, "K4": K4},
                       (self.record_bem, ("stage_ms", "sweep_wall_ms")))
-        self._profile(f"co-design gradient, one chunk of {self.chunk} x {self.nw}", grad_chunk, {"K1": K1},
-                      (self.record_grad, ("chunk_ms",)), split="codesign backward")
+        n_dev = self._profile(f"co-design gradient, one chunk of {self.chunk} x {self.nw}",
+                              grad_chunk, {"K1": K1}, (self.record_grad, ("chunk_ms",)),
+                              split="codesign backward")
+        # PR 3's backward copied Z0^T, -Z0.im^T and -B_drag^T before each of
+        # the 25 adjoint launches; K1's adjoint mode reads them in place
+        self.check(n_dev <= GRAD_CHUNK_OPS_BEFORE - 75,
+                   f"gradient chunk: {n_dev} device operations, at least 75 fewer than the "
+                   f"{GRAD_CHUNK_OPS_BEFORE} with the transposed copies")
 
     def run(self, only=None) -> int:
         torch = self.torch
@@ -1184,7 +1437,10 @@ class Smoke:
         print("card:", nvidia_smi(), flush=True)
         self.check(torch.backends.cuda.matmul.allow_tf32 is False,
                    "TF32 matmul is off (PyTorch's default; the port never turns it on)")
-        phases = [("build", self.phase_build), ("K1 vs plain", self.phase_k1),
+        phases = [("build", self.phase_build)]
+        if self.compare_dir is not None:
+            phases.append(("old vs new", self.phase_old_vs_new))
+        phases += [("K1 vs plain", self.phase_k1),
                   ("K2 vs plain", self.phase_k2), ("K2 microbench", self.phase_k2_microbench),
                   ("adjoints", self.phase_adjoint),
                   ("K3 vs plain", self.phase_k3), ("K4 vs plain", self.phase_k4),
@@ -1257,13 +1513,18 @@ def main() -> int:
         print("CUDA is not available: chip_smoke.py runs on the card only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    only = None
-    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
-        only = [name.strip() for name in sys.argv[2].split(",")]
-    elif len(sys.argv) != 1:
-        print("usage: python3 chip_smoke.py [--phases name,name,...]", file=sys.stderr)
-        return 2
-    return Smoke().run(only)
+    args, only, compare_dir = sys.argv[1:], None, None
+    while args:
+        if len(args) >= 2 and args[0] == "--phases":
+            only = [name.strip() for name in args[1].split(",")]
+        elif len(args) >= 2 and args[0] == "--compare-with":
+            compare_dir = args[1]
+        else:
+            print("usage: python3 chip_smoke.py [--phases name,name,...] [--compare-with DIR]",
+                  file=sys.stderr)
+            return 2
+        args = args[2:]
+    return Smoke(compare_dir).run(only)
 
 
 if __name__ == "__main__":

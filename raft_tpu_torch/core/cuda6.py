@@ -4,12 +4,15 @@ impedance assembly (K1) or plain (K2), and their adjoints.
 K1 replaces the TPU kernel ``raft_tpu/core/pallas6.py::_fused_kernel``
 (reached through ``solve_rao_pallas``), K2 replaces ``pallas6.py::_kernel``
 (reached through ``solve_cx_pallas``).  Both are one CUDA C++ template in
-``raft_tpu_torch/csrc/solve6.cu``: one thread per system, the elimination
-unrolled in registers, with the TPU kernels' pivot rule and zero-denominator
-guard.  On an H100 both are bound by bytes: per system they read the matrix
-and the right-hand side and write x (72 + 12 + 12 values), about 46 us in
-f64 and 23 us in f32 for K1 at 1,000 x 200 lanes, and 1.9 us for K2 at
-16,384 systems in f32 (3.35 TB/s).
+``raft_tpu_torch/csrc/solve6.cu``.  On an H100 both are bound by bytes: per
+system they read the matrix and the right-hand side and write x (72 + 12 +
+12 values), 5.7 us for K1 at the sweep's 250 x 200 systems in f32 and
+1.9 us for K2 at 16,384 systems in f32 (3.35 TB/s).  The kernel gives
+each system eight lanes, one row a lane: the pivot is a shuffle reduction
+that keeps the TPU kernels' rule (strict maximum of ``|.|^2``, the lowest
+row on a tie), the swap and the pivot row are shuffles, and the block's
+systems are staged through shared memory with coalesced loads.  Built with
+``-fmad=false`` so it rounds as the plain versions do.
 
 The shared library is built with ``nvcc`` at first use into
 ``raft_tpu_torch/_build/`` (:mod:`raft_tpu_torch.core.nvcc`, keyed by a
@@ -19,15 +22,18 @@ plain versions (:func:`raft_tpu_torch.core.linalg6.solve_cx_fused` and
 :func:`~raft_tpu_torch.core.linalg6.solve_cx`), CUDA tensors launch the
 kernel or raise.
 
-:func:`solve_rao_ad` and :func:`solve_cx_ad` are the reverse-differentiable
-entries (the counterparts of ``solve_rao_pallas_ad`` and
-``solve_cx_pallas_ad``): their backward solves the adjoint system
-``A^H lam = xbar`` with one more call of the same entry, then forms the
-cotangents from ``lam`` and ``x``; the elimination itself is never
-differentiated.
+:func:`solve_rao_adjoint` and :func:`solve_cx_adjoint` solve with the
+conjugate transpose, ``(Z0 + i w B_drag)^H lam = g`` and ``A^H lam = g``.
+On the card the kernel's adjoint mode reads the transpose in place; on
+CPU tensors the wrapper builds the transposed system (``Z0^H``,
+``-B_drag^T``) for the plain version.  :func:`solve_rao_ad` and
+:func:`solve_cx_ad` are the reverse-differentiable entries (the
+counterparts of ``solve_rao_pallas_ad`` and ``solve_cx_pallas_ad``): their
+backward is one adjoint solve, then the cotangents from ``lam`` and ``x``;
+the elimination itself is never differentiated.
 
 ``LAUNCHES`` counts kernel launches per entry: ``fused`` and ``plain`` in
-the forward solves, ``fused_adjoint`` and ``plain_adjoint`` in the backward
+the forward solves, ``fused_adjoint`` and ``plain_adjoint`` in the adjoint
 ones.
 """
 from __future__ import annotations
@@ -42,10 +48,9 @@ from raft_tpu_torch.core.cplx import Cx
 #: kernel launches per entry (the plain PyTorch path is never counted)
 LAUNCHES = {"fused": 0, "plain": 0, "fused_adjoint": 0, "plain_adjoint": 0}
 
-SPEC = nvcc.Spec("solve6", "solve6.cu")
-_FUSED_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong,
-                                            ctypes.c_void_p]
-_PLAIN_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+SPEC = nvcc.Spec("solve6", "solve6.cu", ("-fmad=false",))
+_FUSED_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+_PLAIN_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 _lib = None
 
 
@@ -111,10 +116,17 @@ def _cuda_device(t: torch.Tensor) -> torch.device | None:
     return dev
 
 
-def _solve_rao(Z0: Cx, w, B_drag, F: Cx, count: str) -> Cx:
+def _conj_transpose(A: Cx) -> Cx:
+    """``A^H`` of (..., 6, 6) pairs, materialized (the plain versions' input)."""
+    return Cx(A.re.transpose(-1, -2).contiguous(), (-A.im.transpose(-1, -2)).contiguous())
+
+
+def _solve_rao(Z0: Cx, w, B_drag, F: Cx, adjoint: bool = False) -> Cx:
     lead, nw = _check(Z0, w, B_drag, F)
     dev = _cuda_device(Z0.re)
     if dev is None:
+        if adjoint:
+            Z0, B_drag = _conj_transpose(Z0), (-B_drag.transpose(-1, -2)).contiguous()
         return linalg6.solve_cx_fused(Z0, w, B_drag, F)
     xr = torch.empty(lead + (6,), dtype=Z0.re.dtype, device=dev)
     xi = torch.empty_like(xr)
@@ -125,17 +137,17 @@ def _solve_rao(Z0: Cx, w, B_drag, F: Cx, count: str) -> Cx:
     fn = lib.solve6_fused_f64 if Z0.re.dtype == torch.float64 else lib.solve6_fused_f32
     err = fn(Z0.re.data_ptr(), Z0.im.data_ptr(), w.data_ptr(), B_drag.data_ptr(),
              F.re.data_ptr(), F.im.data_ptr(), xr.data_ptr(), xi.data_ptr(),
-             n, nw, nvcc.stream_of(dev))
+             n, nw, int(adjoint), nvcc.stream_of(dev))
     nvcc.check(err, "solve6_fused")
-    LAUNCHES[count] += 1
+    LAUNCHES["fused_adjoint" if adjoint else "fused"] += 1
     return Cx(xr, xi)
 
 
-def _solve_cx(A: Cx, b: Cx, count: str) -> Cx:
+def _solve_cx(A: Cx, b: Cx, adjoint: bool = False) -> Cx:
     lead = _check_plain(A, b)
     dev = _cuda_device(A.re)
     if dev is None:
-        return linalg6.solve_cx(A, b)
+        return linalg6.solve_cx(_conj_transpose(A) if adjoint else A, b)
     xr = torch.empty(lead + (6,), dtype=A.re.dtype, device=dev)
     xi = torch.empty_like(xr)
     n = xr.numel() // 6
@@ -144,9 +156,9 @@ def _solve_cx(A: Cx, b: Cx, count: str) -> Cx:
     lib = build()
     fn = lib.solve6_plain_f64 if A.re.dtype == torch.float64 else lib.solve6_plain_f32
     err = fn(A.re.data_ptr(), A.im.data_ptr(), b.re.data_ptr(), b.im.data_ptr(),
-             xr.data_ptr(), xi.data_ptr(), n, nvcc.stream_of(dev))
+             xr.data_ptr(), xi.data_ptr(), n, int(adjoint), nvcc.stream_of(dev))
     nvcc.check(err, "solve6_plain")
-    LAUNCHES[count] += 1
+    LAUNCHES["plain_adjoint" if adjoint else "plain"] += 1
     return Cx(xr, xi)
 
 
@@ -157,7 +169,15 @@ def solve_rao(Z0: Cx, w: torch.Tensor, B_drag: torch.Tensor, F: Cx) -> Cx:
     ``Z0``: (..., nw, 6, 6); ``w``: (nw,) shared by every design;
     ``B_drag``: (..., 6, 6), one per design; ``F``: (..., nw, 6).
     """
-    return _solve_rao(Z0, w, B_drag, F, "fused")
+    return _solve_rao(Z0, w, B_drag, F)
+
+
+def solve_rao_adjoint(Z0: Cx, w: torch.Tensor, B_drag: torch.Tensor, G: Cx) -> Cx:
+    """``lam = ((Z0 + i w B_drag)^H)^-1 G`` (kernel K1 in its adjoint mode),
+    the arguments of :func:`solve_rao`.  The card reads ``Z0^H`` and
+    ``-B_drag^T`` in place; CPU tensors take the plain version on the
+    materialized transposes."""
+    return _solve_rao(Z0, w, B_drag, G, adjoint=True)
 
 
 def solve_cx(A: Cx, b: Cx) -> Cx:
@@ -166,7 +186,13 @@ def solve_cx(A: Cx, b: Cx) -> Cx:
 
     ``A``: (..., 6, 6); ``b``: (..., 6) with the same leading axes.
     """
-    return _solve_cx(A, b, "plain")
+    return _solve_cx(A, b)
+
+
+def solve_cx_adjoint(A: Cx, b: Cx) -> Cx:
+    """``x = (A^H)^-1 b`` (kernel K2 in its adjoint mode), the arguments of
+    :func:`solve_cx`; CPU tensors take the plain version on ``A^H``."""
+    return _solve_cx(A, b, adjoint=True)
 
 
 def _materialize(g, like: torch.Tensor) -> torch.Tensor:
@@ -185,8 +211,8 @@ def _outer_cotangent(lam: Cx, x: Cx) -> Cx:
 class _SolveRaoAD(torch.autograd.Function):
     """K1 with its analytic reverse-mode rule (``solve_rao_pallas_ad``).
 
-    ``A = Z0 + i w B_drag`` gives ``A^H = Z0^H + i w (-B_drag^T)``, so the
-    adjoint solve is the same fused entry on ``(Z0^H, w, -B_drag^T, xbar)``.
+    The adjoint solve ``A^H lam = xbar`` is the same fused kernel in its
+    adjoint mode (:func:`solve_rao_adjoint`), on the forward's inputs.
     With ``Abar = -conj(lam) x^T``: ``Z0bar = Abar``,
     ``wbar[f] = sum over designs, j, k of B_drag Abar.im`` and
     ``B_dragbar = sum over frequencies of w Abar.im``; ``Fbar = lam``.
@@ -194,7 +220,7 @@ class _SolveRaoAD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z0r, z0i, w, b_drag, fr, fi):
-        x = _solve_rao(Cx(z0r, z0i), w, b_drag, Cx(fr, fi), "fused")
+        x = _solve_rao(Cx(z0r, z0i), w, b_drag, Cx(fr, fi))
         ctx.save_for_backward(z0r, z0i, w, b_drag, x.re, x.im)
         return x.re, x.im
 
@@ -204,9 +230,8 @@ class _SolveRaoAD(torch.autograd.Function):
         need = ctx.needs_input_grad
         if not any(need):
             return (None,) * 6
-        Z0H = Cx(z0r.transpose(-1, -2).contiguous(), (-z0i.transpose(-1, -2)).contiguous())
-        lam = _solve_rao(Z0H, w, (-b_drag.transpose(-1, -2)).contiguous(),
-                         Cx(_materialize(gxr, xr), _materialize(gxi, xi)), "fused_adjoint")
+        lam = solve_rao_adjoint(Cx(z0r, z0i), w, b_drag,
+                                Cx(_materialize(gxr, xr), _materialize(gxi, xi)))
         g_z0r = g_z0i = g_w = g_bd = None
         if any(need[:4]):
             Abar = _outer_cotangent(lam, Cx(xr, xi))
@@ -226,12 +251,12 @@ class _SolveRaoAD(torch.autograd.Function):
 
 class _SolveCxAD(torch.autograd.Function):
     """K2 with its analytic reverse-mode rule (``solve_cx_pallas_ad``):
-    ``lam = (A^H)^-1 xbar`` by the same entry, ``Abar = -conj(lam) x^T``,
+    ``lam = (A^H)^-1 xbar`` by K2's adjoint mode, ``Abar = -conj(lam) x^T``,
     ``bbar = lam``."""
 
     @staticmethod
     def forward(ctx, ar, ai, br, bi):
-        x = _solve_cx(Cx(ar, ai), Cx(br, bi), "plain")
+        x = _solve_cx(Cx(ar, ai), Cx(br, bi))
         ctx.save_for_backward(ar, ai, x.re, x.im)
         return x.re, x.im
 
@@ -241,8 +266,7 @@ class _SolveCxAD(torch.autograd.Function):
         need = ctx.needs_input_grad
         if not any(need):
             return (None,) * 4
-        AH = Cx(ar.transpose(-1, -2).contiguous(), (-ai.transpose(-1, -2)).contiguous())
-        lam = _solve_cx(AH, Cx(_materialize(gxr, xr), _materialize(gxi, xi)), "plain_adjoint")
+        lam = solve_cx_adjoint(Cx(ar, ai), Cx(_materialize(gxr, xr), _materialize(gxi, xi)))
         g_ar = g_ai = None
         if need[0] or need[1]:
             Abar = _outer_cotangent(lam, Cx(xr, xi))
@@ -253,13 +277,13 @@ class _SolveCxAD(torch.autograd.Function):
 
 def solve_rao_ad(Z0: Cx, w: torch.Tensor, B_drag: torch.Tensor, F: Cx) -> Cx:
     """:func:`solve_rao` with the analytic reverse-mode rule: the backward
-    launches K1 once more, on the adjoint system."""
+    launches K1 once more, in its adjoint mode."""
     xr, xi = _SolveRaoAD.apply(Z0.re, Z0.im, w, B_drag, F.re, F.im)
     return Cx(xr, xi)
 
 
 def solve_cx_ad(A: Cx, b: Cx) -> Cx:
     """:func:`solve_cx` with the analytic reverse-mode rule: the backward
-    launches K2 once more, on the adjoint system."""
+    launches K2 once more, in its adjoint mode."""
     xr, xi = _SolveCxAD.apply(A.re, A.im, b.re, b.im)
     return Cx(xr, xi)

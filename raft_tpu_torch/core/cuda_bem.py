@@ -10,21 +10,27 @@
 * K4 :func:`wave_assembly` replaces ``pallas_bem.py::_wave_kernel``: the
   wave part of the Green function for a chunk of frequencies, combined
   into ``(S_re, S_im, Dn_re, Dn_im)`` (nf, n, n).  Source
-  ``raft_tpu_torch/csrc/bem_wave.cu``: one thread per pair and frequency,
-  one region branch per pair, the 900 x 200 tables read through L2.
-  Deep-water frequencies are near the byte bound, finite-depth ones bound
-  by operations.
+  ``raft_tpu_torch/csrc/bem_wave.cu``.  Bound by f64 operations, most of
+  them in the near quadrature of the wave integrals (the low-frequency
+  finite-depth chunks send nearly every image there) and in the 46-term
+  exponential fit.  The kernel evaluates the near quadrature's E1 series
+  as a Horner polynomial (no divisions) with the node tables this wrapper
+  stages (:func:`near_tables`), shares each node's sincos between the four
+  images, works through the near pairs a warp at a time (one node per
+  lane), builds the fit terms from one rsqrt, and loops each thread over
+  the chunk's frequencies.
 
 Both wrappers dispatch on the tensors' device: CPU tensors take the plain
 versions (:func:`raft_tpu_torch.hydro.torch_bem.rankine_plain`,
 ``wave_plain``), CUDA tensors launch the kernel or raise.  Each has the
 signature of its plain version.  ``LAUNCHES`` counts kernel launches; the
-libraries are built by ``nvcc`` at first use (:mod:`raft_tpu_torch.core.nvcc`,
-with ``-fmad=false`` so the f64 kernels round as the plain versions do).
+libraries are built by ``nvcc`` at first use (:mod:`raft_tpu_torch.core.nvcc`;
+K3 with ``-fmad=false``, so it rounds as its plain version does).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -36,13 +42,15 @@ Tensor = torch.Tensor
 LAUNCHES = {"rankine": 0, "wave": 0}
 
 RANKINE = nvcc.Spec("bem_rankine", "bem_rankine.cu", ("-fmad=false",))
-WAVE = nvcc.Spec("bem_wave", "bem_wave.cu", ("-fmad=false",))
+WAVE = nvcc.Spec("bem_wave", "bem_wave.cu")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
 _RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P]
-_WAVE_SIG = ([_P] * 11 + [_I, _I, _D, _D] + [_P] * 6 + [_I, _I, _I, _I, _D]
+_WAVE_SIG = ([_P] * 12 + [_I, _I, _D, _D] + [_P] * 6 + [_I, _I, _I, _I, _D]
              + [_P] * 4 + [_P])
 _libs: dict = {}
+#: the near quadrature's Horner coefficients, per (dtype, device)
+_coef: dict = {}
 
 
 def build() -> dict:
@@ -113,6 +121,24 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
     return R_pot, R_dn
 
 
+def near_tables(nodes) -> tuple:
+    """What K4 stages for its near quadrature, from the Gauss-Legendre
+    ``nodes`` ``(x_q, w_q)`` on (-1, 1): ``sin(theta_q)`` at ``theta_q =
+    pi/2 + pi/2 x_q``, the weights ``w_q pi/2``, and the E1 series'
+    Horner coefficients ``(-1)^(m+1) / (m m!)``, m = 1..12, all on the
+    nodes' device in their dtype."""
+    from raft_tpu_torch.hydro import torch_bem
+
+    glx, glw = nodes
+    half_pi = 0.5 * torch_bem._PI
+    key = (glx.dtype, glx.device)
+    if key not in _coef:
+        _coef[key] = torch.tensor([(-1.0) ** (m + 1) / (m * math.factorial(m))
+                                   for m in range(1, torch_bem.N_SERIES + 1)],
+                                  dtype=glx.dtype, device=glx.device)
+    return torch.sin(half_pi + half_pi * glx), glw * half_pi, _coef[key]
+
+
 def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor,
                   panel_mask: Tensor, lid_surface: Tensor, tab: dict, k: Tensor,
                   fd: dict | None, *, finite_depth: bool, depth: float):
@@ -136,6 +162,8 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
         raise ValueError("the near quadrature takes 16 nodes")
     if finite_depth:
         nl = fd["lam"].shape[-1]
+        if nl > 64:
+            raise ValueError(f"the kernel takes at most 64 fit terms, got {nl}")
         fit = {key: fd[key] for key in ("k0", "A0", "active", "lam", "a")}
         if any(fit[key].shape != (nf,) for key in ("k0", "A0", "active")) or \
                 fit["lam"].shape != (nf, nl) or fit["a"].shape != (nf, nl):
@@ -144,8 +172,10 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
         nl = 1
         z = torch.zeros(nf, dtype=dtype, device=dev)
         fit = {"k0": z, "A0": z, "active": z, "lam": z[:, None], "a": z[:, None]}
+    node_s, node_w, coef = near_tables((glx, glw))
     a = _checked(dev, dtype, Rp=R_pot, Rdn=R_dn, c=c, nrm=nrm, area=area, mask=panel_mask,
-                 lids=lid_surface, I0=tab["I0"], I1=tab["I1"], glx=glx, glw=glw, k=k, **fit)
+                 lids=lid_surface, I0=tab["I0"], I1=tab["I1"], node_s=node_s, node_w=node_w,
+                 coef=coef, k=k, **fit)
     outs = [torch.empty((nf, n, n), dtype=dtype, device=dev) for _ in range(4)]
     if nf == 0:
         return tuple(outs)
@@ -153,7 +183,7 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
     fn = lib.bem_wave_f64 if dtype == torch.float64 else lib.bem_wave_f32
     ptr = {key: t.data_ptr() for key, t in a.items()}
     err = fn(ptr["Rp"], ptr["Rdn"], ptr["c"], ptr["nrm"], ptr["area"], ptr["mask"],
-             ptr["lids"], ptr["I0"], ptr["I1"], ptr["glx"], ptr["glw"],
+             ptr["lids"], ptr["I0"], ptr["I1"], ptr["node_s"], ptr["node_w"], ptr["coef"],
              wavetable.NX, wavetable.NS, float(wavetable.XMAX), float(wavetable.SMAX),
              ptr["k"], ptr["k0"], ptr["A0"], ptr["active"], ptr["lam"], ptr["a"],
              nl, n, nf, int(bool(finite_depth)), float(depth),

@@ -18,28 +18,46 @@
 //     exponential fit, the radiated part and a seabed image.
 // A lid self pair evaluates at R_eff = 0.4 sqrt(area).  The -2 pi diagonal
 // shift, the lid-row swap and the solve stay outside, as in the JAX package.
+// The plain version is raft_tpu_torch/hydro/torch_bem.py::wave_plain.
 //
-// Design.  One thread per (i, j) pair, blockIdx.z the frequency of the
-// chunk; j is the fastest thread index, so loads of R_pot/R_dn and the four
-// stores of a warp are contiguous.  The TPU kernel evaluates every region
-// densely and selects with `where`; here each pair takes exactly one
-// region branch, and the deep / finite-depth choice is uniform across the
-// block (it depends on the frequency only).  The two 900 x 200 tables
-// (1.44 MB each in f64) do not fit the 227 KB of shared memory a block may
-// use; they are read through L2 with __ldg.  The Bessel functions are the
-// same polynomial approximations as raft_tpu_torch/core/bessel.py (not
-// CUDA's j0/y0, which use other approximations).
+// What bounds it on an H100.  Deep-water frequencies read two and write
+// four n x n planes per frequency and do a few hundred operations per pair,
+// except the near pairs; finite-depth frequencies do four images' wave
+// integrals and 46 x 4 fit terms per pair.  The chunks are bound by
+// operations, in f64 at 34 TFLOP/s.  The first version (one thread per
+// pair) ran 0.34-9.2 ms per staging chunk, 16x its bound on the mean: at
+// low frequency in 200 m almost every image is near, and each of its 16
+// nodes paid 44 f64 divisions in the series, an exp, a cos and a sin; the
+// fit paid a sqrt and two divisions per term and image; and a warp whose
+// 32 pairs took different regions waited for its slowest lane.
 //
-// Bound.  Deep-water frequencies read two and write four n x n planes (6 n^2
-// values) and do a few hundred operations per pair: near the byte bound.
-// Finite-depth frequencies do 4 images x (wave integrals + 46 fit terms)
-// per pair and are bound by operations.  Later work (not done here): stage
-// field and source panels in shared memory, split near pairs into their
-// own pass so warps do not diverge on the 16-node quadrature.
-//
-// Built with -fmad=false, so products and sums round as PyTorch's
-// elementwise kernels round them in the plain version
-// (raft_tpu_torch/hydro/torch_bem.py::wave_plain).
+// Design.
+//   * Near quadrature: the E1 series is a degree-12 complex Horner
+//     polynomial in zeta with coefficients (-1)^(m+1) / (m m!), staged by
+//     the wrapper with sin(theta_q) and w_q pi / 2 of the 16 nodes; no
+//     division but one 1/|zeta|^2 per node and image.  e^Y is taken once
+//     per image (and is the radiated part's e^(-k0 d_i) too), and
+//     sincos(X sin(theta_q)) once per node for all four images, which
+//     share X = k0 R.
+//   * Warp-uniform near work: each lane marks its pair's near images, and
+//     the warp then works through the pairs that have any, two at a time,
+//     a half-warp each, one node per lane; a shuffle sum over the 16 lanes
+//     gives the pair's two node sums, which its own lane picks up from
+//     shared memory.  Images in the other regions take their branch per
+//     lane (a few dozen operations).
+//   * Exponential fit: one rsqrt per term and image gives a/r and a/r^3;
+//     lam and a of the block's frequencies sit in shared memory.
+//   * Frequencies: each thread loops over up to 8 frequencies of the chunk,
+//     so the geometry, normals, R_pot and R_dn are read once.  A warp is 32
+//     consecutive source panels j of one field panel i, so loads and the
+//     four stores per frequency are contiguous.
+//   * The two 900 x 200 tables (1.44 MB each in f64) do not fit shared
+//     memory; they are read through L2 with __ldg.  The Bessel functions
+//     are the polynomial approximations of raft_tpu_torch/core/bessel.py.
+// Built without -fmad=false (the first version had it): the compiler may
+// fuse products and sums, except where the region of a pair is decided
+// (R, rho), which rounds each operation as the plain version does, so
+// every pair takes the plain version's region.
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,8 +67,12 @@ constexpr double kTwoPi = 6.283185307179586;
 constexpr double kEuler = 0.5772156649015329;
 constexpr double k2OverPi = 0.636619772367581343;
 constexpr double kRNear = 0.6;
-constexpr int kNSeries = 12;
-constexpr int kNodes = 16;
+constexpr int kNSeries = 12;                // E1 series terms
+constexpr int kNodes = 16;                  // near-quadrature nodes
+constexpr int kWarps = 4;                   // warps per block: field panels of a tile
+constexpr int kFreqBlock = 8;               // frequencies per block
+constexpr int kMaxNL = 64;                  // exponential-fit terms, at most
+constexpr unsigned kFull = 0xffffffffu;
 
 __constant__ double kJ0sNum[6] = {57568490574.0, -13362590354.0, 651619640.7,
                                   -11214424.18, 77392.33017, -184.9052456};
@@ -142,58 +164,117 @@ __device__ T bessel_y1(T x) {
   return bessel_large(x, 2.356194491, kP1, kQ1, true);
 }
 
+// products and sums rounded one at a time, as PyTorch's elementwise
+// operations round them: the quantities that choose a pair's region
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ void sin_cos(double x, double& s, double& c) { sincos(x, &s, &c); }
+__device__ __forceinline__ void sin_cos(float x, float& s, float& c) { sincosf(x, &s, &c); }
+__device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
+__device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
+
 template <typename T>
 struct Table {
   const T* I0;
   const T* I1;
-  const T* glx;
-  const T* glw;
   int nx, ns;
   T xmax, smax, fx_div, fs_div, far_thr, deep_thr;
 };
 
-// Re Phi(zeta) and Im dPhi(zeta) of the short E1 series, zeta = zr + i zi
+// rho = |(X, Y)| as the plain version rounds it: rho < R_NEAR is the near region
 template <typename T>
-__device__ __forceinline__ void phi_near(T zr, T zi, T& phr, T& dphi) {
+__device__ __forceinline__ bool is_near(T X, T Y) {
+  return sqrt(add_rn(add_rn(mul_rn(X, X), mul_rn(Y, Y)), T(1e-18))) < T(kRNear);
+}
+
+// One node of the near quadrature at zeta = zr + i zi, without the e^zr
+// factor: (E1(zeta) + i pi) e^(i zi) as (phr, phi), and 1 / |zeta|^2.
+// cr, ci = cos(zi), sin(zi); coef: the series' Horner coefficients.
+template <typename T>
+__device__ __forceinline__ void near_node(T zr, T zi, T cr, T ci, const T* coef, T& phr,
+                                          T& phi, T& inv) {
   T az2 = zr * zr + zi * zi;
   az2 = fmax(az2, T(1e-14));
   const T log_re = T(0.5) * log(az2);
   const T log_im = atan2(zi, zr);
-  T tr = -zr, ti = -zi;
-  T sr = -tr, si = -ti;
+  T pr = coef[kNSeries - 1], pim = T(0);
 #pragma unroll
-  for (int m = 2; m <= kNSeries; ++m) {
-    const T nr = (tr * (-zr) - ti * (-zi)) / T(m);
-    const T ni = (tr * (-zi) + ti * (-zr)) / T(m);
-    tr = nr;
-    ti = ni;
-    sr = sr - tr / T(m);
-    si = si - ti / T(m);
+  for (int m = kNSeries - 2; m >= 0; --m) {
+    const T tr = pr * zr - pim * zi + coef[m];
+    const T ti = pr * zi + pim * zr;
+    pr = tr;
+    pim = ti;
   }
+  const T sr = pr * zr - pim * zi;
+  const T si = pr * zi + pim * zr;
   const T e1r = T(-kEuler) - log_re + sr;
   const T e1i = -log_im + si;
-  const T ez = exp(zr);
-  const T cr = cos(zi), ci = sin(zi);
-  phr = ez * (cr * e1r - ci * (e1i + T(kPi)));
-  const T phi = ez * (cr * (e1i + T(kPi)) + ci * e1r);
-  dphi = phi + zi * (T(1) / az2);
+  phr = cr * e1r - ci * (e1i + T(kPi));
+  phi = cr * (e1i + T(kPi)) + ci * e1r;
+  inv = T(1) / az2;
 }
 
-template <typename T>
-__device__ void near_integrals(T X, T Y, const Table<T>& tab, T& i0, T& i1) {
-  T acc0 = T(0), accX = T(0);
-#pragma unroll 1
-  for (int q = 0; q < kNodes; ++q) {
-    const T th = T(0.5 * kPi) + T(0.5 * kPi) * tab.glx[q];
-    const T s = sin(th);
-    const T w = tab.glw[q] * T(0.5) * T(kPi);
-    T phr, dphi;
-    phi_near(Y, X * s, phr, dphi);
-    acc0 = acc0 + w * phr;
-    accX = accX - w * s * dphi;
+// The near quadrature of up to NI images of every lane's pair, by the whole
+// warp: bit m of `mask` marks image m of this lane's pair as near (X, Y[m])
+// with ez[m] = e^Y[m].  Pairs with any near image are taken two at a time,
+// a half-warp each, lane q of the half on node q; the node sums
+// sum_q w_q phr_q (without e^Y) and sum_q w_q s_q dPhi_q go to acc[lane][m].
+template <typename T, int NI>
+__device__ void near_pass(T X, const T (&Y)[NI], const T (&ez)[NI], unsigned mask, T s_q, T w_q,
+                          T ws_q, const T* coef, T (*acc)[4][2]) {
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  unsigned todo = __ballot_sync(kFull, mask != 0u);
+  while (todo) {
+    const int L0 = __ffs(todo) - 1;
+    todo &= todo - 1;
+    int L1 = -1;
+    if (todo) {
+      L1 = __ffs(todo) - 1;
+      todo &= todo - 1;
+    }
+    const int L = half ? L1 : L0;
+    const int src = L < 0 ? L0 : L;
+    const T Xl = __shfl_sync(kFull, X, src);
+    unsigned ml = __shfl_sync(kFull, mask, src);
+    if (L < 0) ml = 0u;
+    const unsigned both = ml | __shfl_xor_sync(kFull, ml, 16);
+    const T zi = Xl * s_q;
+    T sn, cs;
+    sin_cos(zi, sn, cs);
+#pragma unroll
+    for (int m = 0; m < NI; ++m) {
+      const T Yl = __shfl_sync(kFull, Y[m], src);
+      const T el = __shfl_sync(kFull, ez[m], src);
+      if (!(both & (1u << m))) continue;     // the same on every lane
+      T a0 = T(0), aX = T(0);
+      if (ml & (1u << m)) {
+        T phr, phi, inv;
+        near_node(Yl, zi, cs, sn, coef, phr, phi, inv);
+        a0 = w_q * phr;
+        aX = ws_q * (el * phi + zi * inv);
+      }
+#pragma unroll
+      for (int off = kNodes / 2; off > 0; off >>= 1) {
+        a0 = a0 + __shfl_xor_sync(kFull, a0, off);
+        aX = aX + __shfl_xor_sync(kFull, aX, off);
+      }
+      if ((lane & (kNodes - 1)) == 0 && (ml & (1u << m))) {
+        acc[L][m][0] = a0;
+        acc[L][m][1] = aX;
+      }
+    }
   }
-  i0 = acc0 / T(kPi);
-  const T dI0_dX = accX / T(kPi);
+  __syncwarp();
+}
+
+// (I0, I1) of a near image from its node sums
+template <typename T>
+__device__ __forceinline__ void near_finish(T X, T Y, T ez, const T (&a)[2], T& i0, T& i1) {
+  i0 = (ez * a[0]) / T(kPi);
+  const T dI0_dX = -a[1] / T(kPi);
   const T rr = sqrt(fmax(X * X + Y * Y, T(1e-14)));
   const bool pos = X > T(1e-9);
   const T xs = pos ? X : T(1);
@@ -201,14 +282,9 @@ __device__ void near_integrals(T X, T Y, const Table<T>& tab, T& i0, T& i1) {
   i1 = pos ? -C1 - dI0_dX : T(0);
 }
 
-// (I0, I1) at X >= 0, Y <= 0: exactly one region of the JAX package's split
+// (I0, I1) at X >= 0, Y <= 0 outside the near region: table, far or deep
 template <typename T>
-__device__ void wave_integrals(T X, T Y, const Table<T>& tab, T& i0, T& i1) {
-  const T rho = sqrt(X * X + Y * Y + T(1e-18));
-  if (rho < T(kRNear)) {
-    near_integrals(X, Y, tab, i0, i1);
-    return;
-  }
+__device__ void region_integrals(T X, T Y, const Table<T>& tab, T& i0, T& i1) {
   const T s = log1p(-Y);
   if (X >= tab.far_thr) {
     const T eY = exp(Y);
@@ -220,7 +296,7 @@ __device__ void wave_integrals(T X, T Y, const Table<T>& tab, T& i0, T& i1) {
   const bool pos = X > T(1e-9);
   const T xs = pos ? X : T(1);
   if (s >= tab.deep_thr) {
-    const T rr = fmax(rho, T(1e-30));
+    const T rr = fmax(sqrt(X * X + Y * Y + T(1e-18)), T(1e-30));
     i0 = -T(1) / rr;
     i1 = pos ? -(T(1) / xs) * (T(1) - (-Y) / rr) : T(0);
     return;
@@ -250,34 +326,49 @@ struct Cplx {
   T re, im;
 };
 
+// What a lane needs of its pair and its near-quadrature node
 template <typename T>
-__device__ void wave_deep(T k, T R, T dx, T dy, T v, T area_j, bool diag_lid,
-                          const Table<T>& tab, Cplx<T>& G, Cplx<T>& gx, Cplx<T>& gy,
-                          Cplx<T>& gz) {
-  const T R_eff = T(0.4) * sqrt(fmax(area_j, T(1e-14)));
-  const T R_use = diag_lid ? R_eff : R;
+struct Pair {
+  T R, R_use, dx, dy, zP, zQ;
+  bool diag_lid, live;
+  T s_q, w_q, ws_q;           // node q = lane % 16: sin(theta_q), w_q pi / 2, product
+  const T* coef;              // Horner coefficients (shared memory)
+  T (*acc)[4][2];             // this warp's node sums (shared memory)
+};
+
+template <typename T>
+__device__ void wave_deep(T k, const Pair<T>& p, const Table<T>& tab, Cplx<T>& G, Cplx<T>& gx,
+                          Cplx<T>& gy, Cplx<T>& gz) {
+  const T R_use = p.R_use;
+  const T v = p.zP + p.zQ;
   const T X = k * R_use;
-  const T Y = k * v;
+  const T Y[1] = {k * v};
+  const T eY[1] = {exp(Y[0])};
+  const bool near = p.live && is_near(X, Y[0]);
+  near_pass<T, 1>(X, Y, eY, near ? 1u : 0u, p.s_q, p.w_q, p.ws_q, p.coef, p.acc);
   T i0, i1;
-  wave_integrals(X, Y, tab, i0, i1);
-  const T eY = exp(Y);
+  if (near) {
+    near_finish(X, Y[0], eY[0], p.acc[threadIdx.x & 31][0], i0, i1);
+  } else {
+    region_integrals(X, Y[0], tab, i0, i1);
+  }
   const T J0 = bessel_j0(X);
   const T J1 = bessel_j1(X);
   const T k2 = T(2) * k;
   G.re = k2 * i0;
-  G.im = k2 * (T(-kPi) * eY * J0);
+  G.im = k2 * (T(-kPi) * eY[0] * J0);
   const T rr = sqrt(R_use * R_use + v * v + T(1e-20));
   gz.re = k2 * (T(1) / rr + k * i0);
-  gz.im = k2 * (T(-kPi) * k * eY * J0);
+  gz.im = k2 * (T(-kPi) * k * eY[0] * J0);
   const bool pos = R_use > T(1e-12);
   const T Rs = pos ? R_use : T(1);
   const T C1 = pos ? (T(1) / Rs) * (T(1) - (-v) / rr) : T(0);
   const T dR_re = k2 * (-(C1 + k * i1));
-  const T dR_im = k2 * (T(kPi) * k * eY * J1);
-  const bool posR = R > T(1e-12);
-  const T R0 = posR ? R : T(1);
-  const T ux = diag_lid ? T(1) : (posR ? dx / R0 : T(0));
-  const T uy = diag_lid ? T(0) : (posR ? dy / R0 : T(0));
+  const T dR_im = k2 * (T(kPi) * k * eY[0] * J1);
+  const bool posR = p.R > T(1e-12);
+  const T R0 = posR ? p.R : T(1);
+  const T ux = p.diag_lid ? T(1) : (posR ? p.dx / R0 : T(0));
+  const T uy = p.diag_lid ? T(0) : (posR ? p.dy / R0 : T(0));
   gx.re = dR_re * ux;
   gx.im = dR_im * ux;
   gy.re = dR_re * uy;
@@ -285,15 +376,23 @@ __device__ void wave_deep(T k, T R, T dx, T dy, T v, T area_j, bool diag_lid,
 }
 
 template <typename T>
-__device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double h, T R,
-                        T dx, T dy, T zP, T zQ, T area_j, bool diag_lid, const Table<T>& tab,
-                        Cplx<T>& G, Cplx<T>& gx, Cplx<T>& gy, Cplx<T>& gz) {
-  const T R_eff = T(0.4) * sqrt(fmax(area_j, T(1e-14)));
-  const T R_use = diag_lid ? R_eff : R;
+__device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double h,
+                        const Pair<T>& p, const Table<T>& tab, Cplx<T>& G, Cplx<T>& gx,
+                        Cplx<T>& gy, Cplx<T>& gz) {
+  const T R_use = p.R_use, zP = p.zP, zQ = p.zQ;
   const T h2 = T(2.0 * h), h4 = T(4.0 * h);
   const T d4[4] = {-(zP + zQ), h2 - (zP - zQ), h2 + (zP - zQ), h4 + (zP + zQ)};
   const T sgn[4] = {T(-1), T(-1), T(1), T(1)};
   const T X = k0 * R_use;
+  T Y4[4], e4[4];
+  unsigned near = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    Y4[i] = (-k0) * d4[i];
+    e4[i] = exp(Y4[i]);                 // e^Y: the near quadrature and the radiated part
+    if (p.live && is_near(X, Y4[i])) near |= 1u << i;
+  }
+  near_pass<T, 4>(X, Y4, e4, near, p.s_q, p.w_q, p.ws_q, p.coef, p.acc);
   const T J0 = bessel_j0(X);
   const T J1 = bessel_j1(X);
   const T R2 = R_use * R_use;
@@ -310,15 +409,18 @@ __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double 
   }
   const T A2 = T(2) * A0;
   T p0 = T(0), pR = T(0), pz = T(0);
-#pragma unroll 1
+#pragma unroll
   for (int i = 0; i < 4; ++i) {             // pole parts: 2 A0 I0(k0 R, -k0 d_i)
-    const T Y4 = (-k0) * d4[i];
     T i0, i1;
-    wave_integrals(X, Y4, tab, i0, i1);
-    const T rxy = sqrt(X * X + Y4 * Y4 + T(1e-20));
+    if (near & (1u << i)) {
+      near_finish(X, Y4[i], e4[i], p.acc[threadIdx.x & 31][i], i0, i1);
+    } else {
+      region_integrals(X, Y4[i], tab, i0, i1);
+    }
+    const T rxy = sqrt(X * X + Y4[i] * Y4[i] + T(1e-20));
     const bool pos = X > T(1e-12);
     const T Xs = pos ? X : T(1);
-    const T C1 = pos ? (T(1) / Xs) * (T(1) - (-Y4) / rxy) : T(0);
+    const T C1 = pos ? (T(1) / Xs) * (T(1) - (-Y4[i]) / rxy) : T(0);
     const T a0 = A2 * i0;
     const T aR = A2 * k0 * (-(C1 + i1));
     const T az = A2 * ((-k0) * sgn[i]) * (T(1) / rxy + i0);
@@ -330,17 +432,17 @@ __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double 
   gre_R = gre_R + pR;
   gre_z = gre_z + pz;
   T g0 = T(0), gR = T(0), gzz = T(0);
-#pragma unroll 1
+#pragma unroll 2
   for (int m = 0; m < nl; ++m) {            // exponential-fit part
     const T lam_m = lam[m], a_m = afit[m];
     T s0 = T(0), sR = T(0), sz = T(0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const T cc = d4[i] + lam_m;
-      const T rr2 = fmax(R2 + cc * cc, T(1e-12));
-      const T rr = sqrt(rr2);
-      const T t3 = a_m / (rr2 * rr);
-      const T t0 = a_m / rr, tR = -R_use * t3, tz = -cc * t3 * sgn[i];
+      const T ri = rsqrt_(fmax(R2 + cc * cc, T(1e-12)));
+      const T t0 = a_m * ri;                // a / r
+      const T t3 = t0 * (ri * ri);          // a / r^3
+      const T tR = -R_use * t3, tz = -cc * t3 * sgn[i];
       s0 = i == 0 ? t0 : s0 + t0;
       sR = i == 0 ? tR : sR + tR;
       sz = i == 0 ? tz : sz + tz;
@@ -355,7 +457,7 @@ __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double 
   T gim = T(0), gim_R = T(0), gim_z = T(0);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {             // radiated-wave (imaginary) part
-    const T e = exp((-k0) * d4[i]);
+    const T e = e4[i];
     const T t0 = T(-kTwoPi) * A0 * e * J0;
     const T tR = T(kTwoPi) * A0 * k0 * e * J1;
     const T tz = T(kTwoPi) * A0 * k0 * sgn[i] * e * J0;
@@ -372,8 +474,8 @@ __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double 
   gre_z = gre_z - v2 * t3;
   const bool pos = R_use > T(1e-12);
   const T Rs = pos ? R_use : T(1);
-  const T ux = pos ? dx / Rs : T(0);
-  const T uy = pos ? dy / Rs : T(0);
+  const T ux = pos ? p.dx / Rs : T(0);
+  const T uy = pos ? p.dy / Rs : T(0);
   G.re = gre;
   G.im = gim;
   gx.re = gre_R * ux;
@@ -385,58 +487,95 @@ __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double 
 }
 
 template <typename T>
-__global__ void wave_kernel(const T* __restrict__ Rp, const T* __restrict__ Rdn,
-                            const T* __restrict__ c, const T* __restrict__ nrm,
-                            const T* __restrict__ area, const T* __restrict__ mask,
-                            const T* __restrict__ lids, Table<T> tab,
-                            const T* __restrict__ ks, const T* __restrict__ k0s,
-                            const T* __restrict__ A0s, const T* __restrict__ active,
-                            const T* __restrict__ lam, const T* __restrict__ afit, int nl,
-                            int n, int finite_depth, double depth, T* __restrict__ Sre,
-                            T* __restrict__ Sim, T* __restrict__ Dre, T* __restrict__ Dim) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int f = blockIdx.z;
-  if (i >= n || j >= n) return;
-  const T cix = c[3 * i], ciy = c[3 * i + 1], ciz = c[3 * i + 2];
-  const T cjx = c[3 * j], cjy = c[3 * j + 1], cjz = c[3 * j + 2];
-  const T area_j = area[j];
-  const T dx = cix - cjx, dy = ciy - cjy;
-  const T R = sqrt(dx * dx + dy * dy + T(1e-20));
-  const bool diag_lid = i == j && lids[j] > T(0.5);
-  Cplx<T> G, gx, gy, gz;
-  if (finite_depth && active[f] > T(0.5)) {
-    wave_fd(k0s[f], A0s[f], lam + static_cast<size_t>(f) * nl,
-            afit + static_cast<size_t>(f) * nl, nl, depth, R, dx, dy, ciz, cjz, area_j,
-            diag_lid, tab, G, gx, gy, gz);
-  } else {
-    wave_deep(ks[f], R, dx, dy, ciz + cjz, area_j, diag_lid, tab, G, gx, gy, gz);
+__global__ void __launch_bounds__(32 * kWarps)
+wave_kernel(const T* __restrict__ Rp, const T* __restrict__ Rdn, const T* __restrict__ c,
+            const T* __restrict__ nrm, const T* __restrict__ area, const T* __restrict__ mask,
+            const T* __restrict__ lids, Table<T> tab, const T* __restrict__ node_s,
+            const T* __restrict__ node_w, const T* __restrict__ coef,
+            const T* __restrict__ ks, const T* __restrict__ k0s, const T* __restrict__ A0s,
+            const T* __restrict__ active, const T* __restrict__ lam,
+            const T* __restrict__ afit, int nl, int n, int nf, int finite_depth,
+            double depth, T* __restrict__ Sre, T* __restrict__ Sim, T* __restrict__ Dre,
+            T* __restrict__ Dim) {
+  __shared__ T s_coef[kNSeries];
+  __shared__ T s_lam[kFreqBlock * kMaxNL];
+  __shared__ T s_afit[kFreqBlock * kMaxNL];
+  __shared__ T s_acc[kWarps][32][4][2];
+  const int f0 = blockIdx.z * kFreqBlock;
+  const int nfb = min(kFreqBlock, nf - f0);
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  if (tid < kNSeries) s_coef[tid] = coef[tid];
+  if (finite_depth) {
+    for (int e = tid; e < nfb * nl; e += 32 * kWarps) {
+      const int f = e / nl, m = e % nl;
+      s_lam[f * kMaxNL + m] = lam[static_cast<size_t>(f0 + f) * nl + m];
+      s_afit[f * kMaxNL + m] = afit[static_cast<size_t>(f0 + f) * nl + m];
+    }
   }
-  const T m = mask[j];
-  const T n0 = nrm[3 * i], n1 = nrm[3 * i + 1], n2 = nrm[3 * i + 2];
-  const size_t ij = static_cast<size_t>(i) * n + j;
-  const size_t o = static_cast<size_t>(f) * n * n + ij;
-  Sre[o] = (Rp[ij] + G.re * area_j) * m;
-  Sim[o] = (G.im * area_j) * m;
-  const T proj_re = gx.re * n0 + gy.re * n1 + gz.re * n2;
-  const T proj_im = gx.im * n0 + gy.im * n1 + gz.im * n2;
-  Dre[o] = (Rdn[ij] + proj_re * area_j) * m;
-  Dim[o] = (proj_im * area_j) * m;
+  __syncthreads();
+
+  // every lane stays to the end (the near pass is warp-wide): lanes off
+  // the pair grid compute a clamped pair, mark nothing near, store nothing
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  const int i = blockIdx.y * kWarps + threadIdx.y;
+  const int ic = min(i, n - 1), jc = min(j, n - 1);
+  Pair<T> p;
+  p.live = i < n && j < n;
+  const T cix = c[3 * ic], ciy = c[3 * ic + 1];
+  const T cjx = c[3 * jc], cjy = c[3 * jc + 1];
+  p.zP = c[3 * ic + 2];
+  p.zQ = c[3 * jc + 2];
+  const T area_j = area[jc];
+  p.dx = cix - cjx;
+  p.dy = ciy - cjy;
+  p.R = sqrt(add_rn(add_rn(mul_rn(p.dx, p.dx), mul_rn(p.dy, p.dy)), T(1e-20)));
+  p.diag_lid = ic == jc && lids[jc] > T(0.5);
+  const T R_eff = T(0.4) * sqrt(fmax(area_j, T(1e-14)));
+  p.R_use = p.diag_lid ? R_eff : p.R;
+  const int q = threadIdx.x & (kNodes - 1);
+  p.s_q = node_s[q];
+  p.w_q = node_w[q];
+  p.ws_q = p.w_q * p.s_q;
+  p.coef = s_coef;
+  p.acc = s_acc[threadIdx.y];
+  const T m = mask[jc];
+  const T n0 = nrm[3 * ic], n1 = nrm[3 * ic + 1], n2 = nrm[3 * ic + 2];
+  const size_t ij = static_cast<size_t>(ic) * n + jc;
+  const T rp = Rp[ij], rdn = Rdn[ij];
+#pragma unroll 1
+  for (int fl = 0; fl < nfb; ++fl) {
+    const int f = f0 + fl;
+    Cplx<T> G, gx, gy, gz;
+    if (finite_depth && active[f] > T(0.5)) {
+      wave_fd(k0s[f], A0s[f], s_lam + fl * kMaxNL, s_afit + fl * kMaxNL, nl, depth, p, tab,
+              G, gx, gy, gz);
+    } else {
+      wave_deep(ks[f], p, tab, G, gx, gy, gz);
+    }
+    if (p.live) {
+      const size_t o = static_cast<size_t>(f) * n * n + ij;
+      Sre[o] = (rp + G.re * area_j) * m;
+      Sim[o] = (G.im * area_j) * m;
+      const T proj_re = gx.re * n0 + gy.re * n1 + gz.re * n2;
+      const T proj_im = gx.im * n0 + gy.im * n1 + gz.im * n2;
+      Dre[o] = (rdn + proj_re * area_j) * m;
+      Dim[o] = (proj_im * area_j) * m;
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* Rp, const void* Rdn, const void* c, const void* nrm, const void* area,
            const void* mask, const void* lids, const void* I0, const void* I1,
-           const void* glx, const void* glw, long long nx, long long ns, double xmax,
-           double smax, const void* ks, const void* k0s, const void* A0s, const void* active,
-           const void* lam, const void* afit, long long nl, long long n, long long nf,
-           long long finite_depth, double depth, void* Sre, void* Sim, void* Dre, void* Dim,
-           void* stream) {
+           const void* node_s, const void* node_w, const void* coef, long long nx,
+           long long ns, double xmax, double smax, const void* ks, const void* k0s,
+           const void* A0s, const void* active, const void* lam, const void* afit, long long nl,
+           long long n, long long nf, long long finite_depth, double depth, void* Sre,
+           void* Sim, void* Dre, void* Dim, void* stream) {
+  if (nl > kMaxNL) return static_cast<int>(cudaErrorInvalidValue);
   Table<T> tab;
   tab.I0 = static_cast<const T*>(I0);
   tab.I1 = static_cast<const T*>(I1);
-  tab.glx = static_cast<const T*>(glx);
-  tab.glw = static_cast<const T*>(glw);
   tab.nx = static_cast<int>(nx);
   tab.ns = static_cast<int>(ns);
   tab.xmax = T(xmax);
@@ -445,17 +584,19 @@ int launch(const void* Rp, const void* Rdn, const void* c, const void* nrm, cons
   tab.fs_div = T(smax / static_cast<double>(ns - 1));
   tab.far_thr = T(xmax * (1.0 - 1e-7));
   tab.deep_thr = T(smax * (1.0 - 1e-7));
-  const dim3 block(64, 4);
-  const dim3 grid(static_cast<unsigned>((n + 63) / 64), static_cast<unsigned>((n + 3) / 4),
-                  static_cast<unsigned>(nf));
+  const dim3 block(32, kWarps);
+  const dim3 grid(static_cast<unsigned>((n + 31) / 32),
+                  static_cast<unsigned>((n + kWarps - 1) / kWarps),
+                  static_cast<unsigned>((nf + kFreqBlock - 1) / kFreqBlock));
   wave_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(Rp), static_cast<const T*>(Rdn), static_cast<const T*>(c),
       static_cast<const T*>(nrm), static_cast<const T*>(area), static_cast<const T*>(mask),
-      static_cast<const T*>(lids), tab, static_cast<const T*>(ks), static_cast<const T*>(k0s),
-      static_cast<const T*>(A0s), static_cast<const T*>(active), static_cast<const T*>(lam),
-      static_cast<const T*>(afit), static_cast<int>(nl), static_cast<int>(n),
-      static_cast<int>(finite_depth), depth, static_cast<T*>(Sre), static_cast<T*>(Sim),
-      static_cast<T*>(Dre), static_cast<T*>(Dim));
+      static_cast<const T*>(lids), tab, static_cast<const T*>(node_s),
+      static_cast<const T*>(node_w), static_cast<const T*>(coef), static_cast<const T*>(ks),
+      static_cast<const T*>(k0s), static_cast<const T*>(A0s), static_cast<const T*>(active),
+      static_cast<const T*>(lam), static_cast<const T*>(afit), static_cast<int>(nl),
+      static_cast<int>(n), static_cast<int>(nf), static_cast<int>(finite_depth), depth,
+      static_cast<T*>(Sre), static_cast<T*>(Sim), static_cast<T*>(Dre), static_cast<T*>(Dim));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,16 +604,17 @@ int launch(const void* Rp, const void* Rdn, const void* c, const void* nrm, cons
 
 extern "C" {
 
-#define BEM_WAVE_ARGS                                                                        \
-  const void *Rp, const void *Rdn, const void *c, const void *nrm, const void *area,        \
-      const void *mask, const void *lids, const void *I0, const void *I1, const void *glx,  \
-      const void *glw, long long nx, long long ns, double xmax, double smax, const void *ks, \
-      const void *k0s, const void *A0s, const void *active, const void *lam,                 \
-      const void *afit, long long nl, long long n, long long nf, long long finite_depth,     \
-      double depth, void *Sre, void *Sim, void *Dre, void *Dim, void *stream
-#define BEM_WAVE_PASS                                                                    \
-  Rp, Rdn, c, nrm, area, mask, lids, I0, I1, glx, glw, nx, ns, xmax, smax, ks, k0s, A0s, \
-      active, lam, afit, nl, n, nf, finite_depth, depth, Sre, Sim, Dre, Dim, stream
+#define BEM_WAVE_ARGS                                                                         \
+  const void *Rp, const void *Rdn, const void *c, const void *nrm, const void *area,         \
+      const void *mask, const void *lids, const void *I0, const void *I1,                    \
+      const void *node_s, const void *node_w, const void *coef, long long nx, long long ns,  \
+      double xmax, double smax, const void *ks, const void *k0s, const void *A0s,            \
+      const void *active, const void *lam, const void *afit, long long nl, long long n,      \
+      long long nf, long long finite_depth, double depth, void *Sre, void *Sim, void *Dre,   \
+      void *Dim, void *stream
+#define BEM_WAVE_PASS                                                                      \
+  Rp, Rdn, c, nrm, area, mask, lids, I0, I1, node_s, node_w, coef, nx, ns, xmax, smax, ks, \
+      k0s, A0s, active, lam, afit, nl, n, nf, finite_depth, depth, Sre, Sim, Dre, Dim, stream
 
 int bem_wave_f32(BEM_WAVE_ARGS) { return launch<float>(BEM_WAVE_PASS); }
 int bem_wave_f64(BEM_WAVE_ARGS) { return launch<double>(BEM_WAVE_PASS); }

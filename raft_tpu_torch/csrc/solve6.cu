@@ -1,5 +1,5 @@
 // Kernels K1 and K2: the 6x6 complex solve for Hopper, fused with the RAO
-// impedance assembly (K1) or plain (K2).
+// impedance assembly (K1) or plain (K2), each with an adjoint mode.
 //
 // K1 replaces the TPU kernel raft_tpu/core/pallas6.py::_fused_kernel
 // (reached through _solve_rao_blocked / solve_rao_pallas and, for the
@@ -7,186 +7,251 @@
 // Per lane (one design x one frequency) it forms Z = Z0 + i*w*B_drag and
 // solves Z x = F.  K2 replaces raft_tpu/core/pallas6.py::_kernel (reached
 // through _solve_blocked / solve_cx_pallas and solve_cx_pallas_ad): it
-// solves A x = b as given.  Both are one template, solve6_kernel<T, FUSED>,
-// with the drag assembly compiled out when FUSED is false; the elimination
-// is the TPU kernels' shared body (pallas6.py::_eliminate), unrolled
-// complex Gaussian elimination with partial pivoting:
+// solves A x = b as given.  Both are one template, solve6_kernel<T, FUSED,
+// ADJOINT>; the elimination is the TPU kernels' shared body
+// (pallas6.py::_eliminate), complex Gaussian elimination with partial
+// pivoting:
 //   * the pivot is the strict maximum of |.|^2 over rows >= k, so a tie
 //     keeps the lowest row (the one-hot rule of the TPU kernel);
 //   * a zero denominator is replaced by 1 (pivot and back substitution);
-//   * rows and columns are swapped only from column k on, as on the TPU.
+//   * rows are swapped only from column k on, as on the TPU.
+// ADJOINT solves with the conjugate transpose in place: element (r, c) of
+// the system is conj(Z0[c, r]) + i*w*(-B_drag[c, r]) (K1) or conj(A[c, r])
+// (K2), read from the caller's arrays, so the backward of the
+// differentiable solve makes no transposed copies.
 //
 // Layout.  Z0 (or A) re/im: (N, 36) row-major systems; F (or b) re/im and
 // x re/im: (N, 6).  K1 only: w (nw,) shared by every design, read as
 // w[lane % nw]; B_drag (N / nw, 36), one drag matrix per design, read as
-// B_drag[lane / nw].  The broadcast (N, 36) B_drag that the TPU wrapper
-// materializes never exists.  The ragged edge is an `if (lane < n)` guard,
-// not identity padding.
+// B_drag[lane / nw].
 //
-// Bound on an H100.  Per lane K1 reads Z0 (72 values) and F (12) and
-// writes x (12); w and B_drag are amortized over nw.  At the north star's
-// 1,000 x 200 lanes that is 77 MB in f32 / 154 MB in f64, i.e. about
-// 23 us / 46 us at 3.35 TB/s.  K2 moves the same 96 values per system: at
-// its microbench's 16,384 systems in f32, 6.3 MB or 1.9 us.  The
-// arithmetic (about 2k flops per system) is far below the compute limit,
-// so both are bound by bytes.
+// What bounds it on an H100.  Per system K1 reads Z0 (72 values) and F
+// (12) and writes x (12); w and B_drag are amortized over nw.  At the
+// sweep's and the gradient's call of 250 x 200 systems that is 19 MB in f32
+// (5.7 us at 3.35 TB/s), and about 2k operations per system are far below
+// the compute limit: the bound is bytes.  The first version (one thread
+// per system) missed it by 13-18x: 391 blocks of 128 threads, 128-226
+// registers a thread, a six-step serial chain of divisions that too few
+// warps could hide, and loads strided by 36 values between neighbours.
 //
-// Design: one thread per system, everything in registers (every loop is
-// fully unrolled with compile-time indices, and the pivot swap is a
-// predicated select, so no array is indexed dynamically and nothing goes
-// to local memory).  This first version reads each system's 36 entries
-// from consecutive addresses, so a warp's loads are strided by 36 values
-// (not coalesced); lane-major (36, N) planes, shared-memory staging and
-// the register pressure (about 100 live values per thread in f64) are
-// left for later work.  Launch: 128 threads per block on the caller's
-// stream, no synchronization; the C entry returns cudaGetLastError().
+// Design.  Eight lanes per system, one matrix row per lane (lanes 6 and 7
+// idle), four systems per warp, 16 per block of 128 threads: 8x the
+// threads, about 50 live values a thread.  The block's 16 systems are
+// contiguous, so Z0 (or A) is staged through shared memory by consecutive
+// threads reading consecutive addresses, then each lane takes its row (or,
+// in ADJOINT mode, its column).  Per column k: the pivot is a shuffle
+// reduction over the system's 8 lanes on (|.|^2, row), the larger
+// magnitude winning and the lower row breaking a tie -- exactly the
+// sequential strict '>' scan; the swap and the pivot row's broadcast are
+// shuffles; each lane below k eliminates its own row.  Back substitution
+// runs k = 5..0, each x_k computed by lane k and broadcast.  F, b and x
+// are read and written by the row lanes at consecutive addresses.  Every
+// lane of the warp stays to the end (the shuffles need all of them); the
+// ragged edge is a guard on loads and stores.
+//
+// Built with -fmad=false: each product and sum rounds as the plain
+// version's elementwise operations do (raft_tpu_torch/core/linalg6.py), so
+// |.|^2 of two rows that tie in exact arithmetic also ties here.
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kLanes = 8;                  // lanes per system
+constexpr int kThreads = 128;
+constexpr int kSys = kThreads / kLanes;    // systems per block
+constexpr unsigned kFull = 0xffffffffu;
+
 template <typename T>
-__device__ __forceinline__ void swap_if(bool c, T& a, T& b) {
-  const T ta = a;
-  a = c ? b : a;
-  b = c ? ta : b;
+__device__ __forceinline__ T shfl(T v, int src) {
+  return __shfl_sync(kFull, v, src, kLanes);
 }
 
-template <typename T, bool FUSED>
-__global__ void __launch_bounds__(128)
+template <typename T, bool FUSED, bool ADJOINT>
+__global__ void __launch_bounds__(kThreads)
 solve6_kernel(const T* __restrict__ z0r, const T* __restrict__ z0i,
-                    const T* __restrict__ w, const T* __restrict__ bd,
-                    const T* __restrict__ fr, const T* __restrict__ fi,
-                    T* __restrict__ xr, T* __restrict__ xi,
-                    long long n, long long nw) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+              const T* __restrict__ w, const T* __restrict__ bd,
+              const T* __restrict__ fr, const T* __restrict__ fi,
+              T* __restrict__ xr, T* __restrict__ xi, long long n, long long nw) {
+  __shared__ T s_re[kSys * 36];
+  __shared__ T s_im[kSys * 36];
+  const long long first = static_cast<long long>(blockIdx.x) * kSys;
+  const int nsys = static_cast<int>(min(static_cast<long long>(kSys), n - first));
+  for (int e = threadIdx.x; e < nsys * 36; e += kThreads) {
+    s_re[e] = z0r[first * 36 + e];
+    s_im[e] = z0i[first * 36 + e];
+  }
+  __syncthreads();
 
-  T ar[36], ai[36], br[6], bi[6];
-  const T* __restrict__ zr = z0r + lane * 36;
-  const T* __restrict__ zi = z0i + lane * 36;
+  const int slot = threadIdx.x / kLanes;
+  const int r = threadIdx.x % kLanes;      // this lane's row
+  const long long sys = first + slot;
+  const bool live = slot < nsys && r < 6;
+  const int row = r < 6 ? r : 0;
+  const T* __restrict__ sr_ = s_re + slot * 36;
+  const T* __restrict__ si_ = s_im + slot * 36;
+
+  T ar[6], ai[6], br = T(0), bi = T(0);
+  T wl = T(0);
+  const T* __restrict__ bdl = nullptr;
   if constexpr (FUSED) {
-    const T wl = w[lane % nw];
-    const T* __restrict__ bdl = bd + (lane / nw) * 36;
-#pragma unroll
-    for (int e = 0; e < 36; ++e) {
-      ar[e] = zr[e];
-      ai[e] = zi[e] + wl * bdl[e];
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 36; ++e) {
-      ar[e] = zr[e];
-      ai[e] = zi[e];
+    if (live) {
+      wl = w[sys % nw];
+      bdl = bd + (sys / nw) * 36;
     }
   }
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    br[i] = fr[lane * 6 + i];
-    bi[i] = fi[lane * 6 + i];
+  for (int c = 0; c < 6; ++c) {
+    if (!live) {
+      ar[c] = T(0);
+      ai[c] = T(0);
+      continue;
+    }
+    const int e = ADJOINT ? c * 6 + row : row * 6 + c;
+    ar[c] = sr_[e];
+    if constexpr (ADJOINT) {
+      if constexpr (FUSED) {
+        ai[c] = -si_[e] + wl * (-bdl[e]);
+      } else {
+        ai[c] = -si_[e];
+      }
+    } else {
+      if constexpr (FUSED) {
+        ai[c] = si_[e] + wl * bdl[e];
+      } else {
+        ai[c] = si_[e];
+      }
+    }
+  }
+  if (live) {
+    br = fr[sys * 6 + r];
+    bi = fi[sys * 6 + r];
   }
 
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    // partial pivot: strict '>' so the lowest row wins a tie
-    int p = k;
-    T best = ar[k * 6 + k] * ar[k * 6 + k] + ai[k * 6 + k] * ai[k * 6 + k];
+    // pivot: largest |.|^2 over rows >= k, the lowest row on a tie
+    T m = ar[k] * ar[k] + ai[k] * ai[k];
+    int p = r;
+    if (r < k || r >= 6) m = T(-1);
 #pragma unroll
-    for (int j = k + 1; j < 6; ++j) {
-      const T m = ar[j * 6 + k] * ar[j * 6 + k] + ai[j * 6 + k] * ai[j * 6 + k];
-      if (m > best) {
-        best = m;
-        p = j;
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      const T om = __shfl_xor_sync(kFull, m, off, kLanes);
+      const int op = __shfl_xor_sync(kFull, p, off, kLanes);
+      if (om > m || (om == m && op < p)) {
+        m = om;
+        p = op;
       }
     }
+    // swap rows k and p from column k on
+    const int src = r == k ? p : (r == p ? k : r);
 #pragma unroll
-    for (int j = k + 1; j < 6; ++j) {
-      const bool s = (p == j);
-#pragma unroll
-      for (int c = k; c < 6; ++c) {
-        swap_if(s, ar[k * 6 + c], ar[j * 6 + c]);
-        swap_if(s, ai[k * 6 + c], ai[j * 6 + c]);
-      }
-      swap_if(s, br[k], br[j]);
-      swap_if(s, bi[k], bi[j]);
+    for (int c = k; c < 6; ++c) {
+      ar[c] = shfl(ar[c], src);
+      ai[c] = shfl(ai[c], src);
     }
-
-    T den = ar[k * 6 + k] * ar[k * 6 + k] + ai[k * 6 + k] * ai[k * 6 + k];
+    br = shfl(br, src);
+    bi = shfl(bi, src);
+    // the pivot row, to every lane of the system
+    T pr[6], pi[6];
+#pragma unroll
+    for (int c = k; c < 6; ++c) {
+      pr[c] = shfl(ar[c], k);
+      pi[c] = shfl(ai[c], k);
+    }
+    const T pbr = shfl(br, k), pbi = shfl(bi, k);
+    T den = pr[k] * pr[k] + pi[k] * pi[k];
     den = (den != T(0)) ? den : T(1);
-#pragma unroll
-    for (int j = k + 1; j < 6; ++j) {
-      const T f_r = (ar[j * 6 + k] * ar[k * 6 + k] + ai[j * 6 + k] * ai[k * 6 + k]) / den;
-      const T f_i = (ai[j * 6 + k] * ar[k * 6 + k] - ar[j * 6 + k] * ai[k * 6 + k]) / den;
+    if (r > k && r < 6) {
+      const T f_r = (ar[k] * pr[k] + ai[k] * pi[k]) / den;
+      const T f_i = (ai[k] * pr[k] - ar[k] * pi[k]) / den;
 #pragma unroll
       for (int c = k; c < 6; ++c) {
-        const T nr = ar[j * 6 + c] - (f_r * ar[k * 6 + c] - f_i * ai[k * 6 + c]);
-        const T ni = ai[j * 6 + c] - (f_r * ai[k * 6 + c] + f_i * ar[k * 6 + c]);
-        ar[j * 6 + c] = nr;
-        ai[j * 6 + c] = ni;
+        const T nr = ar[c] - (f_r * pr[c] - f_i * pi[c]);
+        const T ni = ai[c] - (f_r * pi[c] + f_i * pr[c]);
+        ar[c] = nr;
+        ai[c] = ni;
       }
-      const T nbr = br[j] - (f_r * br[k] - f_i * bi[k]);
-      const T nbi = bi[j] - (f_r * bi[k] + f_i * br[k]);
-      br[j] = nbr;
-      bi[j] = nbi;
+      const T nbr = br - (f_r * pbr - f_i * pbi);
+      const T nbi = bi - (f_r * pbi + f_i * pbr);
+      br = nbr;
+      bi = nbi;
     }
   }
 
+  // back substitution: lane k holds row k of U and computes x_k
   T sol_r[6], sol_i[6];
+  T mine_r = T(0), mine_i = T(0);
 #pragma unroll
   for (int k = 5; k >= 0; --k) {
-    T sr = br[k], si = bi[k];
+    T sr = br, si = bi;
 #pragma unroll
     for (int j = k + 1; j < 6; ++j) {
-      sr = sr - (ar[k * 6 + j] * sol_r[j] - ai[k * 6 + j] * sol_i[j]);
-      si = si - (ar[k * 6 + j] * sol_i[j] + ai[k * 6 + j] * sol_r[j]);
+      sr = sr - (ar[j] * sol_r[j] - ai[j] * sol_i[j]);
+      si = si - (ar[j] * sol_i[j] + ai[j] * sol_r[j]);
     }
-    T den = ar[k * 6 + k] * ar[k * 6 + k] + ai[k * 6 + k] * ai[k * 6 + k];
+    T den = ar[k] * ar[k] + ai[k] * ai[k];
     den = (den != T(0)) ? den : T(1);
-    sol_r[k] = (sr * ar[k * 6 + k] + si * ai[k * 6 + k]) / den;
-    sol_i[k] = (si * ar[k * 6 + k] - sr * ai[k * 6 + k]) / den;
+    const T vr = (sr * ar[k] + si * ai[k]) / den;
+    const T vi = (si * ar[k] - sr * ai[k]) / den;
+    sol_r[k] = shfl(vr, k);
+    sol_i[k] = shfl(vi, k);
+    if (r == k) {
+      mine_r = vr;
+      mine_i = vi;
+    }
   }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    xr[lane * 6 + i] = sol_r[i];
-    xi[lane * 6 + i] = sol_i[i];
+  if (live) {
+    xr[sys * 6 + r] = mine_r;
+    xi[sys * 6 + r] = mine_i;
   }
 }
 
 template <typename T, bool FUSED>
-int launch(const void* z0r, const void* z0i, const void* w, const void* bd,
-           const void* fr, const void* fi, void* xr, void* xi,
-           long long n, long long nw, void* stream) {
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  solve6_kernel<T, FUSED><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)z0r, (const T*)z0i, (const T*)w, (const T*)bd,
-      (const T*)fr, (const T*)fi, (T*)xr, (T*)xi, n, nw);
-  return (int)cudaGetLastError();
+int launch(const void* z0r, const void* z0i, const void* w, const void* bd, const void* fr,
+           const void* fi, void* xr, void* xi, long long n, long long nw, long long adjoint,
+           void* stream) {
+  const long long blocks = (n + kSys - 1) / kSys;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (adjoint) {
+    solve6_kernel<T, FUSED, true><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(z0r), static_cast<const T*>(z0i), static_cast<const T*>(w),
+        static_cast<const T*>(bd), static_cast<const T*>(fr), static_cast<const T*>(fi),
+        static_cast<T*>(xr), static_cast<T*>(xi), n, nw);
+  } else {
+    solve6_kernel<T, FUSED, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(z0r), static_cast<const T*>(z0i), static_cast<const T*>(w),
+        static_cast<const T*>(bd), static_cast<const T*>(fr), static_cast<const T*>(fi),
+        static_cast<T*>(xr), static_cast<T*>(xi), n, nw);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int solve6_fused_f32(const void* z0r, const void* z0i, const void* w,
-                                const void* bd, const void* fr, const void* fi,
-                                void* xr, void* xi, long long n, long long nw,
-                                void* stream) {
-  return launch<float, true>(z0r, z0i, w, bd, fr, fi, xr, xi, n, nw, stream);
+extern "C" {
+
+int solve6_fused_f32(const void* z0r, const void* z0i, const void* w, const void* bd,
+                     const void* fr, const void* fi, void* xr, void* xi, long long n,
+                     long long nw, long long adjoint, void* stream) {
+  return launch<float, true>(z0r, z0i, w, bd, fr, fi, xr, xi, n, nw, adjoint, stream);
 }
 
-extern "C" int solve6_fused_f64(const void* z0r, const void* z0i, const void* w,
-                                const void* bd, const void* fr, const void* fi,
-                                void* xr, void* xi, long long n, long long nw,
-                                void* stream) {
-  return launch<double, true>(z0r, z0i, w, bd, fr, fi, xr, xi, n, nw, stream);
+int solve6_fused_f64(const void* z0r, const void* z0i, const void* w, const void* bd,
+                     const void* fr, const void* fi, void* xr, void* xi, long long n,
+                     long long nw, long long adjoint, void* stream) {
+  return launch<double, true>(z0r, z0i, w, bd, fr, fi, xr, xi, n, nw, adjoint, stream);
 }
 
-extern "C" int solve6_plain_f32(const void* ar, const void* ai, const void* br,
-                                const void* bi, void* xr, void* xi, long long n,
-                                void* stream) {
-  return launch<float, false>(ar, ai, nullptr, nullptr, br, bi, xr, xi, n, 1, stream);
+int solve6_plain_f32(const void* ar, const void* ai, const void* br, const void* bi,
+                     void* xr, void* xi, long long n, long long adjoint, void* stream) {
+  return launch<float, false>(ar, ai, nullptr, nullptr, br, bi, xr, xi, n, 1, adjoint, stream);
 }
 
-extern "C" int solve6_plain_f64(const void* ar, const void* ai, const void* br,
-                                const void* bi, void* xr, void* xi, long long n,
-                                void* stream) {
-  return launch<double, false>(ar, ai, nullptr, nullptr, br, bi, xr, xi, n, 1, stream);
+int solve6_plain_f64(const void* ar, const void* ai, const void* br, const void* bi,
+                     void* xr, void* xi, long long n, long long adjoint, void* stream) {
+  return launch<double, false>(ar, ai, nullptr, nullptr, br, bi, xr, xi, n, 1, adjoint,
+                               stream);
 }
+
+}  // extern "C"
