@@ -48,7 +48,8 @@
 //   * Exponential fit: one rsqrt per term and image gives a/r and a/r^3;
 //     lam and a of the block's frequencies sit in shared memory.
 //   * Frequencies: each thread loops over up to 8 frequencies of the chunk,
-//     so the geometry, normals, R_pot and R_dn are read once.  A warp is 32
+//     so the geometry, normals, R_pot and R_dn are read once and the pair's
+//     unit vector is divided out once.  A warp is 32
 //     consecutive source panels j of one field panel i, so loads and the
 //     four stores per frequency are contiguous.
 //   * The two 900 x 200 tables (1.44 MB each in f64) do not fit shared
@@ -330,6 +331,7 @@ struct Cplx {
 template <typename T>
 struct Pair {
   T R, R_use, dx, dy, zP, zQ;
+  T ux_deep, uy_deep, ux_fd, uy_fd;   // the horizontal unit vector of each branch
   bool diag_lid, live;
   T s_q, w_q, ws_q;           // node q = lane % 16: sin(theta_q), w_q pi / 2, product
   const T* coef;              // Horner coefficients (shared memory)
@@ -365,14 +367,10 @@ __device__ void wave_deep(T k, const Pair<T>& p, const Table<T>& tab, Cplx<T>& G
   const T C1 = pos ? (T(1) / Rs) * (T(1) - (-v) / rr) : T(0);
   const T dR_re = k2 * (-(C1 + k * i1));
   const T dR_im = k2 * (T(kPi) * k * eY[0] * J1);
-  const bool posR = p.R > T(1e-12);
-  const T R0 = posR ? p.R : T(1);
-  const T ux = p.diag_lid ? T(1) : (posR ? p.dx / R0 : T(0));
-  const T uy = p.diag_lid ? T(0) : (posR ? p.dy / R0 : T(0));
-  gx.re = dR_re * ux;
-  gx.im = dR_im * ux;
-  gy.re = dR_re * uy;
-  gy.im = dR_im * uy;
+  gx.re = dR_re * p.ux_deep;
+  gx.im = dR_im * p.ux_deep;
+  gy.re = dR_re * p.uy_deep;
+  gy.im = dR_im * p.uy_deep;
 }
 
 template <typename T>
@@ -472,16 +470,12 @@ __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double 
   gre = gre + T(1) / rr;
   gre_R = gre_R - R_use * t3;
   gre_z = gre_z - v2 * t3;
-  const bool pos = R_use > T(1e-12);
-  const T Rs = pos ? R_use : T(1);
-  const T ux = pos ? p.dx / Rs : T(0);
-  const T uy = pos ? p.dy / Rs : T(0);
   G.re = gre;
   G.im = gim;
-  gx.re = gre_R * ux;
-  gx.im = gim_R * ux;
-  gy.re = gre_R * uy;
-  gy.im = gim_R * uy;
+  gx.re = gre_R * p.ux_fd;
+  gx.im = gim_R * p.ux_fd;
+  gy.re = gre_R * p.uy_fd;
+  gy.im = gim_R * p.uy_fd;
   gz.re = gre_z;
   gz.im = gim_z;
 }
@@ -532,6 +526,12 @@ wave_kernel(const T* __restrict__ Rp, const T* __restrict__ Rdn, const T* __rest
   p.diag_lid = ic == jc && lids[jc] > T(0.5);
   const T R_eff = T(0.4) * sqrt(fmax(area_j, T(1e-14)));
   p.R_use = p.diag_lid ? R_eff : p.R;
+  const bool posR = p.R > T(1e-12), posU = p.R_use > T(1e-12);
+  const T R0 = posR ? p.R : T(1), Rs = posU ? p.R_use : T(1);
+  p.ux_deep = p.diag_lid ? T(1) : (posR ? p.dx / R0 : T(0));
+  p.uy_deep = p.diag_lid ? T(0) : (posR ? p.dy / R0 : T(0));
+  p.ux_fd = posU ? p.dx / Rs : T(0);
+  p.uy_fd = posU ? p.dy / Rs : T(0);
   const int q = threadIdx.x & (kNodes - 1);
   p.s_q = node_s[q];
   p.w_q = node_w[q];
