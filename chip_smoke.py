@@ -63,8 +63,8 @@ result line):
    and the OC3spar mooring-knob gradient on the card against the CPU;
 14. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
-   gradient chunk must run at least 75 device operations fewer than with
-   the adjoint's transposed copies (18,346).
+   gradient chunk must run at least 75 device operations fewer than the same
+   chunk with the adjoint's transposed copies, profiled in the same call.
 
 ``--phases a,b`` runs only the named phases (for debugging; the names are
 those printed after ``==``).  ``--compare-with DIR`` (once or more) adds the
@@ -99,10 +99,6 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 # through the plain elimination (float64): the JAX package's bound between
 # its adjoint rule and its differentiated elimination (tests/test_pallas6.py)
 TOL_GRAD = 1e-9
-# device operations of one profiled co-design gradient chunk (250 x 200,
-# scan 25) when the backward materialized the adjoint system (PERF.md,
-# PR 3's profile)
-GRAD_CHUNK_OPS_BEFORE = 18346
 # central differences of the scan objective, h = 1e-4 (tests/test_optimize.py)
 FD_H, FD_RTOL = 1e-4, 2e-3
 # K3 / K4 against their plain versions, scale-relative per output: f64 to
@@ -1446,6 +1442,8 @@ class Smoke:
     def phase_profile(self):
         from torch.profiler import record_function
 
+        from raft_tpu_torch.core import cuda6
+        from raft_tpu_torch.core.cplx import Cx
         from raft_tpu_torch.parallel.optimize import _make_loss, nacelle_accel_std
         from raft_tpu_torch.parallel.sweep import (north_star_grid, stage_north_star_bem,
                                                    sweep_north_star)
@@ -1478,14 +1476,29 @@ class Smoke:
         self._profile("strip sweep", strip, {"K1": K1}, (self.record, ("sweep_wall_ms",)))
         self._profile("BEM staging + BEM-staged sweep", bem, {"K1": K1, "K3": K3, "K4": K4},
                       (self.record_bem, ("stage_ms", "sweep_wall_ms")))
-        n_dev = self._profile(f"co-design gradient, one chunk of {self.chunk} x {self.nw}",
-                              grad_chunk, {"K1": K1}, (self.record_grad, ("chunk_ms",)),
+        label = f"co-design gradient, one chunk of {self.chunk} x {self.nw}"
+        n_dev = self._profile(label, grad_chunk, {"K1": K1}, (self.record_grad, ("chunk_ms",)),
                               split="codesign backward")
-        # PR 3's backward copied Z0^T, -Z0.im^T and -B_drag^T before each of
-        # the 25 adjoint launches; K1's adjoint mode reads them in place
-        self.check(n_dev <= GRAD_CHUNK_OPS_BEFORE - 75,
-                   f"gradient chunk: {n_dev} device operations, at least 75 fewer than the "
-                   f"{GRAD_CHUNK_OPS_BEFORE} with the transposed copies")
+
+        # the same chunk with the adjoint solve on materialized Z0^T, -Z0.im^T
+        # and -B_drag^T (what the kernel's adjoint mode reads in place): the
+        # count moves by tens between calls, so both runs share this call
+        def with_copies(Z0, w, B_drag, G):
+            ZH = Cx(Z0.re.transpose(-1, -2).contiguous(), (-Z0.im.transpose(-1, -2)).contiguous())
+            return cuda6.solve_rao(ZH, w, (-B_drag.transpose(-1, -2)).contiguous(), G)
+
+        orig = cuda6.solve_rao_adjoint
+        cuda6.solve_rao_adjoint = with_copies
+        try:
+            n_copies = self._profile(label + " with the adjoint's transposed copies", grad_chunk,
+                                     {"K1": K1}, (self.record_grad, ("chunk_ms",)),
+                                     split="codesign backward")
+        finally:
+            cuda6.solve_rao_adjoint = orig
+        self.check(n_copies - n_dev >= 75,
+                   f"gradient chunk: {n_dev} device operations, {n_copies - n_dev} fewer than "
+                   f"with the transposed copies ({n_copies}; at least 3 copies x 25 adjoint "
+                   f"launches)")
 
     def run(self, only=None) -> int:
         torch = self.torch

@@ -25,11 +25,11 @@
 // except the near pairs; finite-depth frequencies do four images' wave
 // integrals and 46 x 4 fit terms per pair.  The chunks are bound by
 // operations, in f64 at 34 TFLOP/s.  The first version (one thread per
-// pair) ran 0.34-9.2 ms per staging chunk, 16x its bound on the mean: at
-// low frequency in 200 m almost every image is near, and each of its 16
-// nodes paid 44 f64 divisions in the series, an exp, a cos and a sin; the
-// fit paid a sqrt and two divisions per term and image; and a warp whose
-// 32 pairs took different regions waited for its slowest lane.
+// pair) ran 0.27-8.9 ms per chunk of the 1,024-panel staging grid: at low
+// frequency in 200 m almost every image is near, and each of its 16 nodes
+// paid 44 f64 divisions in the series, an exp, a cos and a sin; the fit
+// paid a sqrt and two divisions per term and image; and a warp whose 32
+// pairs took different regions waited for its slowest lane.
 //
 // Design.
 //   * Near quadrature: the E1 series is a degree-12 complex Horner

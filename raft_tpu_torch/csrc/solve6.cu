@@ -41,13 +41,11 @@
 // to local memory).  Each thread reads its system with 16-byte vector loads
 // (9 per plane in f32, 18 in f64) and its right-hand side and solution as
 // pairs, a quarter or half of the scalar loads' instructions.  Measured on
-// the card against two other designs (PERF.md): eight lanes per system
-// with one row a lane and shuffles for the pivot search, swap and pivot
-// row, and the block's systems staged through shared memory for coalesced
-// loads, were both slower -- a 6x6 elimination in lockstep leaves most of
-// the eight lanes idle at each step while they all issue its shuffles and
-// divisions, and the staging adds a barrier and shared-memory traffic to a
-// kernel that is latency-bound at the sweep's call.  Launch: 128 threads
+// the card (PERF.md), eight lanes per system -- one row a lane, the block's
+// systems staged through shared memory for coalesced loads, shuffles for
+// the pivot search, the swap and the pivot row -- was 1.8-2.5x slower: a
+// 6x6 elimination in lockstep leaves most of the eight lanes idle at each
+// step while all of them issue its shuffles and divisions.  Launch: 128 threads
 // per block on the caller's stream, no synchronization; the C entry
 // returns cudaGetLastError().
 //
