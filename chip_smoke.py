@@ -67,13 +67,11 @@ result line):
    chunk with the adjoint's transposed copies, profiled in the same call.
 
 ``--phases a,b`` runs only the named phases (for debugging; the names are
-those printed after ``==``).  ``--compare-with DIR`` (once or more) adds the
-phase "old vs new" after the build: the K4 and K1/K2 sources of an older
-checkout in DIR (``DIR/raft_tpu_torch``, e.g. unpacked from ``git archive
-<commit> raft_tpu_torch``) are built with that checkout's flags beside this
-checkout's kernels and timed against them in turns on the same inputs.
-The last lines are the kernels JSON record, the nvidia-smi line and
-``{"ok": true, "device": {...}}``.
+those printed after ``==``).  The last lines are the kernels JSON record,
+the nvidia-smi line and ``{"ok": true, "device": {...}}``.  A kernel's
+``ms`` in the record is its mean device time between two events with the
+host's time to enqueue the call left out (:meth:`Smoke.time_ms`);
+``plain_ms`` and ``library_ms`` are timed the same way.
 """
 from __future__ import annotations
 
@@ -291,11 +289,10 @@ class Smoke:
     # the north star's full width: the co-design phases run at these sizes
     n_designs, nw, chunk = 1000, 200, 250
 
-    def __init__(self, compare_dir=()):
+    def __init__(self):
         import torch
 
         self.torch = torch
-        self.compare_dir = list(compare_dir)
         self.failures: list[str] = []
         self.record: dict = {}
         self.records: dict = {}
@@ -457,15 +454,6 @@ class Smoke:
                       f"torch.linalg.solve {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
                       f"max scale-rel diff {worst:.3e}, max abs diff {worst_abs:.3e}")
                 if name == "float32" and B == 250:   # the sweep's call shape
-                    Zm = torch.empty(Z0.re.numel() + 1, dtype=dtype, device=self.dev)[1:]
-                    Zm = Zm.view_as(Z0.re).copy_(Z0.re)
-                    try:
-                        cuda6.solve_rao(Cx(Zm, Z0.im), w, Bd, F)
-                        refused = False
-                    except ValueError:
-                        refused = True
-                    self.check(refused, "K1 refuses a 6x6 plane off the 16-byte alignment of "
-                               "its vector loads")
                     self.record = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
@@ -832,148 +820,6 @@ class Smoke:
                                 "bound_ms": float(np.mean(bound)),
                                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                                 "library_ms": None}
-
-    def phase_old_vs_new(self):
-        """The K4 and K1/K2 sources of older checkouts (``--compare-with
-        DIR``, each holding ``raft_tpu_torch/``), built with the flags of
-        their own wrappers beside this checkout's kernels and timed in turns
-        (old, new, new, old) on the same inputs: K4 on every chunk of the
-        staging grid, K1 at 250 x 200 and 1,000 x 200 in float32 and
-        float64, K1's adjoint solve (in a checkout without the adjoint
-        mode: the materialized transposes and the forward kernel), and K2 at
-        its microbench's 16,384 systems."""
-        import ctypes
-        import re
-
-        from raft_tpu_torch.core import cuda6, cuda_bem, nvcc
-        from raft_tpu_torch.core.cplx import Cx
-        from raft_tpu_torch.hydro import wavetable
-
-        torch = self.torch
-        P, I, D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
-        stream = nvcc.stream_of(self.dev)
-        chunks = self._staging_chunks(torch.float64)
-        rng = np.random.default_rng(20261019)
-        k1_cases = [(dtype, B) + self._k1_inputs("random", B, 200, dtype, rng)
-                    for dtype in (torch.float32, torch.float64) for B in (250, 1000)]
-        k2_cases = [(dtype,) + self._k2_inputs("random", 16384, dtype, rng)
-                    for dtype in (torch.float32, torch.float64)]
-        for d in self.compare_dir:
-            pkg = Path(d).resolve() / "raft_tpu_torch"
-            wrappers = (pkg / "core" / "cuda6.py").read_text() + (
-                pkg / "core" / "cuda_bem.py").read_text()
-            libs = {}
-            for name in ("bem_wave", "solve6"):
-                m = re.search(rf'Spec\("{name}", "{name}.cu"(?:, \(([^)]*)\))?\)', wrappers)
-                flags = tuple(re.findall(r'"([^"]+)"', m[1] or "")) if m else ()
-                out = nvcc.BUILD_DIR / "compare" / Path(d).name / f"lib{name}.so"
-                out.parent.mkdir(parents=True, exist_ok=True)
-                proc = subprocess.run([nvcc._nvcc(), *nvcc.NVCC_FLAGS, *flags, "-o", str(out),
-                                       str(pkg / "csrc" / f"{name}.cu")],
-                                      capture_output=True, text=True, timeout=900)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc of {pkg}/csrc/{name}.cu: {proc.stderr[-2000:]}")
-                print_ptxas(f"{name} ({Path(d).name}, flags {' '.join(flags) or 'none'})",
-                            proc.stderr)
-                libs[name] = (ctypes.CDLL(str(out)),
-                              (pkg / "csrc" / f"{name}.cu").read_text())
-            wave, wave_src = libs["bem_wave"]
-            solve, solve_src = libs["solve6"]
-            staged_nodes = "node_s" in wave_src          # this PR's K4 signature
-            has_adjoint = "long long adjoint" in solve_src
-            wave.bem_wave_f64.argtypes = ([P] * (12 if staged_nodes else 11) + [I, I, D, D]
-                                          + [P] * 6 + [I] * 4 + [D] + [P] * 5)
-            wave.bem_wave_f64.restype = ctypes.c_int
-            for fn in (solve.solve6_fused_f32, solve.solve6_fused_f64):
-                fn.argtypes = [P] * 8 + [I] * (3 if has_adjoint else 2) + [P]
-                fn.restype = ctypes.c_int
-            for fn in (solve.solve6_plain_f32, solve.solve6_plain_f64):
-                fn.argtypes = [P] * 6 + [I] * (2 if has_adjoint else 1) + [P]
-                fn.restype = ctypes.c_int
-
-            def old_k4(wargs, kw):
-                R_pot, R_dn, c, nrm, area, pm, ls, tab, k, fd = wargs
-                n, nf = c.shape[0], k.shape[0]
-                outs = [torch.empty((nf, n, n), dtype=c.dtype, device=self.dev)
-                        for _ in range(4)]
-                nodes = (cuda_bem.near_tables(tab["nodes"]) if staged_nodes
-                         else tab["nodes"])
-                err = wave.bem_wave_f64(
-                    *(t.data_ptr() for t in (R_pot, R_dn, c, nrm, area, pm, ls.to(c.dtype),
-                                             tab["I0"], tab["I1"], *nodes)),
-                    wavetable.NX, wavetable.NS, float(wavetable.XMAX), float(wavetable.SMAX),
-                    *(t.data_ptr() for t in (k, fd["k0"], fd["A0"], fd["active"], fd["lam"],
-                                             fd["a"])),
-                    fd["lam"].shape[-1], n, nf, 1, float(kw["depth"]),
-                    *(o.data_ptr() for o in outs), stream)
-                nvcc.check(err, "bem_wave (older)")
-                return outs
-
-            def old_k1(Z0, w, Bd, F, adjoint=False):
-                if adjoint and not has_adjoint:
-                    Z0 = Cx(Z0.re.transpose(-1, -2).contiguous(),
-                            (-Z0.im.transpose(-1, -2)).contiguous())
-                    Bd = (-Bd.transpose(-1, -2)).contiguous()
-                xr, xi = torch.empty_like(F.re), torch.empty_like(F.im)
-                fn = (solve.solve6_fused_f64 if F.re.dtype == torch.float64
-                      else solve.solve6_fused_f32)
-                mode = (int(adjoint),) if has_adjoint else ()
-                nvcc.check(fn(Z0.re.data_ptr(), Z0.im.data_ptr(), w.data_ptr(), Bd.data_ptr(),
-                              F.re.data_ptr(), F.im.data_ptr(), xr.data_ptr(), xi.data_ptr(),
-                              xr.numel() // 6, w.shape[0], *mode, stream), "solve6 (older)")
-                return Cx(xr, xi)
-
-            def old_k2(A, b):
-                xr, xi = torch.empty_like(b.re), torch.empty_like(b.im)
-                fn = (solve.solve6_plain_f64 if b.re.dtype == torch.float64
-                      else solve.solve6_plain_f32)
-                mode = (0,) if has_adjoint else ()
-                nvcc.check(fn(A.re.data_ptr(), A.im.data_ptr(), b.re.data_ptr(), b.im.data_ptr(),
-                              xr.data_ptr(), xi.data_ptr(), xr.numel() // 6, *mode, stream),
-                           "solve6 plain (older)")
-                return Cx(xr, xi)
-
-            def turns(old, new, reps):
-                t = [self.time_ms(f, reps=reps) for f in (old, new, new, old)]
-                return 0.5 * (t[0] + t[3]), 0.5 * (t[1] + t[2])
-
-            label = Path(d).name
-            old_ms, new_ms = [], []
-            for idx, (wargs, kw, wc) in enumerate(chunks):
-                rel, _ = self._errs(cuda_bem.wave_assembly(*wargs, **kw), old_k4(wargs, kw))
-                o, nw_ = turns(lambda: old_k4(wargs, kw),
-                               lambda: cuda_bem.wave_assembly(*wargs, **kw), reps=5)
-                old_ms.append(o)
-                new_ms.append(nw_)
-                print(f"  K4 staging chunk {idx:2d} (w {wc[0]:.4f}-{wc[-1]:.4f}): {label} "
-                      f"{o:.4f} ms, this checkout {nw_:.4f} ms, {o / nw_:.2f}x; scale-rel diff "
-                      f"{rel:.2e}")
-            print(f"  K4 staging grid, mean per chunk: {label} {np.mean(old_ms):.4f} ms, this "
-                  f"checkout {np.mean(new_ms):.4f} ms ({np.mean(old_ms) / np.mean(new_ms):.2f}x);"
-                  f" sum over {len(chunks)} chunks {np.sum(old_ms):.3f} / {np.sum(new_ms):.3f} ms")
-            for dtype, B, Z0, w, Bd, F in k1_cases:
-                name = str(dtype).split(".")[-1]
-                xo, xn = old_k1(Z0, w, Bd, F), cuda6.solve_rao(Z0, w, Bd, F)
-                same = bool(torch.equal(xo.re, xn.re) and torch.equal(xo.im, xn.im))
-                rel = float(max((xo.re - xn.re).abs().max(), (xo.im - xn.im).abs().max())
-                            / xn.re.abs().max())
-                o, nw_ = turns(lambda: old_k1(Z0, w, Bd, F),
-                               lambda: cuda6.solve_rao(Z0, w, Bd, F), reps=20)
-                oa, na = turns(lambda: old_k1(Z0, w, Bd, F, adjoint=True),
-                               lambda: cuda6.solve_rao_adjoint(Z0, w, Bd, F), reps=20)
-                bound, by = k1_bound_ms(B, 200, torch.finfo(dtype).bits // 8, name)
-                print(f"  K1 {name} {B}x200: {label} {o:.4f} ms, this checkout {nw_:.4f} ms "
-                      f"({o / nw_:.2f}x), bound {bound:.5f} ms ({by}); adjoint solve {label} "
-                      f"{oa:.4f} ms, this checkout {na:.4f} ms; scale-rel diff {rel:.2e}, bit "
-                      f"for bit {same}")
-            for dtype, A, b in k2_cases:
-                name = str(dtype).split(".")[-1]
-                same = bool(torch.equal(old_k2(A, b).re, cuda6.solve_cx(A, b).re))
-                o, nw_ = turns(lambda: old_k2(A, b), lambda: cuda6.solve_cx(A, b), reps=20)
-                bound, by = k2_bound_ms(A.re.shape[0], torch.finfo(dtype).bits // 8, name)
-                print(f"  K2 {name} {A.re.shape[0]} systems: {label} {o:.4f} ms, this checkout "
-                      f"{nw_:.4f} ms ({o / nw_:.2f}x), bound {bound:.5f} ms ({by}); re bit for "
-                      f"bit {same}")
 
     def phase_run_raft(self):
         from raft_tpu_torch.model import run_raft
@@ -1507,10 +1353,7 @@ class Smoke:
         print("card:", nvidia_smi(), flush=True)
         self.check(torch.backends.cuda.matmul.allow_tf32 is False,
                    "TF32 matmul is off (PyTorch's default; the port never turns it on)")
-        phases = [("build", self.phase_build)]
-        if self.compare_dir:
-            phases.append(("old vs new", self.phase_old_vs_new))
-        phases += [("K1 vs plain", self.phase_k1),
+        phases = [("build", self.phase_build), ("K1 vs plain", self.phase_k1),
                   ("K2 vs plain", self.phase_k2), ("K2 microbench", self.phase_k2_microbench),
                   ("adjoints", self.phase_adjoint),
                   ("K3 vs plain", self.phase_k3), ("K4 vs plain", self.phase_k4),
@@ -1583,18 +1426,13 @@ def main() -> int:
         print("CUDA is not available: chip_smoke.py runs on the card only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    args, only, compare_dir = sys.argv[1:], None, []
-    while args:
-        if len(args) >= 2 and args[0] == "--phases":
-            only = [name.strip() for name in args[1].split(",")]
-        elif len(args) >= 2 and args[0] == "--compare-with":
-            compare_dir.append(args[1])
-        else:
-            print("usage: python3 chip_smoke.py [--phases name,name,...] [--compare-with DIR]...",
-                  file=sys.stderr)
-            return 2
-        args = args[2:]
-    return Smoke(compare_dir).run(only)
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
+        only = [name.strip() for name in sys.argv[2].split(",")]
+    elif len(sys.argv) != 1:
+        print("usage: python3 chip_smoke.py [--phases name,name,...]", file=sys.stderr)
+        return 2
+    return Smoke().run(only)
 
 
 if __name__ == "__main__":

@@ -7,12 +7,13 @@ K1 replaces the TPU kernel ``raft_tpu/core/pallas6.py::_fused_kernel``
 ``raft_tpu_torch/csrc/solve6.cu``.  On an H100 both are bound by bytes: per
 system they read the matrix and the right-hand side and write x (72 + 12 +
 12 values), 5.7 us for K1 at the sweep's 250 x 200 systems in f32 and
-1.9 us for K2 at 16,384 systems in f32 (3.35 TB/s); at the sweep's call a
-launch's fixed latency is of the same order.  One thread per system, the
-elimination unrolled in registers with the TPU kernels' pivot rule (strict
-maximum of ``|.|^2``, the lowest row on a tie) and zero-denominator guard,
-the system read with 16-byte vector loads.  Built with ``-fmad=false`` so
-it rounds as the plain versions do.
+1.9 us for K2 at 16,384 systems in f32 (3.35 TB/s).  The kernel gives
+each system eight lanes, one row a lane, and stages the block's systems
+through shared memory with coalesced loads: the pivot is a shuffle
+reduction that keeps the TPU kernels' rule (strict maximum of ``|.|^2``,
+the lowest row on a tie), the row exchange relabels the lanes' positions,
+the pivot row is a shuffle broadcast, and the zero-denominator guard is
+kept.  Built with ``-fmad=false`` so it rounds as the plain versions do.
 
 The shared library is built with ``nvcc`` at first use into
 ``raft_tpu_torch/_build/`` (:mod:`raft_tpu_torch.core.nvcc`, keyed by a
@@ -24,11 +25,11 @@ kernel or raise.
 
 :func:`solve_rao_adjoint` and :func:`solve_cx_adjoint` solve with the
 conjugate transpose, ``(Z0 + i w B_drag)^H lam = g`` and ``A^H lam = g``.
-On the card the kernel's adjoint mode reads the transpose in place (a
-compile-time permutation of the registers); on CPU tensors the wrapper
-builds the transposed system (``Z0^H``, ``-B_drag^T``) for the plain
-version.  :func:`solve_rao_ad` and :func:`solve_cx_ad` are the
-reverse-differentiable entries (the
+On the card the kernel's adjoint mode reads the transpose in place (each
+lane takes a column of the staged system instead of a row); on CPU
+tensors the wrapper builds the transposed system (``Z0^H``,
+``-B_drag^T``) for the plain version.  :func:`solve_rao_ad` and
+:func:`solve_cx_ad` are the reverse-differentiable entries (the
 counterparts of ``solve_rao_pallas_ad`` and ``solve_cx_pallas_ad``): their
 backward is one adjoint solve, then the cotangents from ``lam`` and ``x``;
 the elimination itself is never differentiated.
@@ -106,18 +107,6 @@ def _check_plain(A: Cx, b: Cx):
     return lead
 
 
-def _check_aligned(systems, rhs):
-    """The kernel's vector loads: each (..., 6, 6) plane 16-byte aligned,
-    each (..., 6) plane aligned to two values (a whole-system slice keeps
-    both)."""
-    for t in systems:
-        if t.data_ptr() % 16:
-            raise ValueError("the 6x6 planes must be 16-byte aligned")
-    for t in rhs:
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError("the right-hand-side planes must be aligned to two values")
-
-
 def _cuda_device(t: torch.Tensor) -> torch.device | None:
     """None for a CPU tensor (take the plain version), the device for a CUDA
     one; any other device is refused."""
@@ -146,7 +135,6 @@ def _solve_rao(Z0: Cx, w, B_drag, F: Cx, adjoint: bool = False) -> Cx:
     n = xr.numel() // 6
     if n == 0:
         return Cx(xr, xi)
-    _check_aligned((Z0.re, Z0.im), (F.re, F.im))
     lib = build()
     fn = lib.solve6_fused_f64 if Z0.re.dtype == torch.float64 else lib.solve6_fused_f32
     err = fn(Z0.re.data_ptr(), Z0.im.data_ptr(), w.data_ptr(), B_drag.data_ptr(),
@@ -167,7 +155,6 @@ def _solve_cx(A: Cx, b: Cx, adjoint: bool = False) -> Cx:
     n = xr.numel() // 6
     if n == 0:
         return Cx(xr, xi)
-    _check_aligned((A.re, A.im), (b.re, b.im))
     lib = build()
     fn = lib.solve6_plain_f64 if A.re.dtype == torch.float64 else lib.solve6_plain_f32
     err = fn(A.re.data_ptr(), A.im.data_ptr(), b.re.data_ptr(), b.im.data_ptr(),

@@ -14,11 +14,12 @@
   them in the near quadrature of the wave integrals (the low-frequency
   finite-depth chunks send nearly every image there) and in the 46-term
   exponential fit.  The kernel evaluates the near quadrature's E1 series
-  as a Horner polynomial (no divisions) with the node tables this wrapper
-  stages (:func:`near_tables`), shares each node's sincos between the four
-  images, works through the near pairs a warp at a time (one node per
-  lane), builds the fit terms from one rsqrt, and loops each thread over
-  the chunk's frequencies.
+  as a Horner polynomial (no divisions) with the node tables staged once
+  beside the wave tables (``tab["near"]`` of
+  :func:`raft_tpu_torch.hydro.torch_bem.stage_tables`), shares each
+  node's sincos between the four images, works through the near pairs a
+  warp at a time (one node per lane), builds the fit terms from one
+  rsqrt, and loops each thread over the chunk's frequencies.
 
 Both wrappers dispatch on the tensors' device: CPU tensors take the plain
 versions (:func:`raft_tpu_torch.hydro.torch_bem.rankine_plain`,
@@ -30,7 +31,6 @@ K3 with ``-fmad=false``, so it rounds as its plain version does).
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -49,8 +49,6 @@ _RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P]
 _WAVE_SIG = ([_P] * 12 + [_I, _I, _D, _D] + [_P] * 6 + [_I, _I, _I, _I, _D]
              + [_P] * 4 + [_P])
 _libs: dict = {}
-#: the near quadrature's Horner coefficients, per (dtype, device)
-_coef: dict = {}
 
 
 def build() -> dict:
@@ -121,24 +119,6 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
     return R_pot, R_dn
 
 
-def near_tables(nodes) -> tuple:
-    """What K4 stages for its near quadrature, from the Gauss-Legendre
-    ``nodes`` ``(x_q, w_q)`` on (-1, 1): ``sin(theta_q)`` at ``theta_q =
-    pi/2 + pi/2 x_q``, the weights ``w_q pi/2``, and the E1 series'
-    Horner coefficients ``(-1)^(m+1) / (m m!)``, m = 1..12, all on the
-    nodes' device in their dtype."""
-    from raft_tpu_torch.hydro import torch_bem
-
-    glx, glw = nodes
-    half_pi = 0.5 * torch_bem._PI
-    key = (glx.dtype, glx.device)
-    if key not in _coef:
-        _coef[key] = torch.tensor([(-1.0) ** (m + 1) / (m * math.factorial(m))
-                                   for m in range(1, torch_bem.N_SERIES + 1)],
-                                  dtype=glx.dtype, device=glx.device)
-    return torch.sin(half_pi + half_pi * glx), glw * half_pi, _coef[key]
-
-
 def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor,
                   panel_mask: Tensor, lid_surface: Tensor, tab: dict, k: Tensor,
                   fd: dict | None, *, finite_depth: bool, depth: float):
@@ -157,9 +137,11 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
         raise ValueError(f"R_pot and R_dn must be ({n}, {n})")
     if tab["I0"].shape != (wavetable.NX, wavetable.NS) or tab["I1"].shape != tab["I0"].shape:
         raise ValueError(f"tables must be ({wavetable.NX}, {wavetable.NS})")
-    glx, glw = tab["nodes"]
-    if glx.shape != (16,) or glw.shape != (16,):
+    node_s, node_w, coef = tab["near"]
+    if node_s.shape != (16,) or node_w.shape != (16,):
         raise ValueError("the near quadrature takes 16 nodes")
+    if coef.shape != (torch_bem.N_SERIES,):
+        raise ValueError(f"the E1 series takes {torch_bem.N_SERIES} coefficients")
     if finite_depth:
         nl = fd["lam"].shape[-1]
         if nl > 64:
@@ -172,7 +154,6 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
         nl = 1
         z = torch.zeros(nf, dtype=dtype, device=dev)
         fit = {"k0": z, "A0": z, "active": z, "lam": z[:, None], "a": z[:, None]}
-    node_s, node_w, coef = near_tables((glx, glw))
     a = _checked(dev, dtype, Rp=R_pot, Rdn=R_dn, c=c, nrm=nrm, area=area, mask=panel_mask,
                  lids=lid_surface, I0=tab["I0"], I1=tab["I1"], node_s=node_s, node_w=node_w,
                  coef=coef, k=k, **fit)

@@ -41,6 +41,7 @@ spelling so callers carry across.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -517,12 +518,19 @@ def wave_plain(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor
 
 
 def stage_tables(tab: dict, dtype, device) -> dict:
-    """Host tables -> the kernel-input dict: ``I0``/``I1`` (NX, NS) and the
-    GL ``nodes`` on ``device`` in ``dtype``."""
+    """Host tables -> the kernel-input dict on ``device`` in ``dtype``:
+    ``I0``/``I1`` (NX, NS), the GL ``nodes`` ``(x_q, w_q)`` on (-1, 1), and
+    ``near``, what K4's near quadrature reads: ``sin(theta_q)`` at
+    ``theta_q = pi/2 + pi/2 x_q``, the weights ``w_q pi/2`` and the E1
+    series' Horner coefficients ``(-1)^(m+1) / (m m!)``, m = 1..N_SERIES."""
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
 
-    return {"I0": t(tab["I0"]), "I1": t(tab["I1"]), "nodes": (t(GL16_X), t(GL16_W))}
+    glx, glw = t(GL16_X), t(GL16_W)
+    half_pi = 0.5 * _PI
+    coef = t([(-1.0) ** (m + 1) / (m * math.factorial(m)) for m in range(1, N_SERIES + 1)])
+    return {"I0": t(tab["I0"]), "I1": t(tab["I1"]), "nodes": (glx, glw),
+            "near": (torch.sin(half_pi + half_pi * glx), glw * half_pi, coef)}
 
 
 # ------------------------------------------------------------- the solve

@@ -1,8 +1,8 @@
 """Kernel K4's reformulation of the wave part, checked on the CPU.
 
 The kernel (``raft_tpu_torch/csrc/bem_wave.cu``) evaluates the near
-quadrature's E1 series as a Horner polynomial with tables that
-``cuda_bem.wave_assembly`` stages (:func:`cuda_bem.near_tables`), sums the
+quadrature's E1 series as a Horner polynomial with tables staged beside
+the wave tables (``tab["near"]`` of ``torch_bem.stage_tables``), sums the
 16 nodes by a shuffle tree, node-major with the images inner, and builds
 the exponential-fit terms from one rsqrt.  A torch transcription of that
 arithmetic, on exactly those tables, is held here against the plain
@@ -38,9 +38,9 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _nodes(dtype):
+def _tables(dtype):
     return torch_bem.stage_tables({"I0": np.zeros((2, 2)), "I1": np.zeros((2, 2))}, dtype,
-                                  "cpu")["nodes"]
+                                  "cpu")
 
 
 def _rel(got, ref):
@@ -51,7 +51,7 @@ def _rel(got, ref):
 def test_staged_tables_equal_their_closed_forms(dtype):
     """sin(theta_q) at theta_q = pi/2 (1 + x_q), w_q pi/2 and the Horner
     coefficients (-1)^(m+1) / (m m!), m = 1..12, in the kernel's dtype."""
-    s, w, coef = cuda_bem.near_tables(_nodes(dtype))
+    s, w, coef = _tables(dtype)["near"]
     assert s.dtype == w.dtype == coef.dtype == dtype
     assert s.shape == w.shape == (16,) and coef.shape == (torch_bem.N_SERIES,)
     x = torch_bem.GL16_X.astype(np.float64)
@@ -145,11 +145,12 @@ def test_nodemajor_horner_near_integrals_match_plain_and_jax():
     X, Y = _near_grid()
     assert (X == 0).any() and (Y == 0).any() and len(X) > 1000
     Xt, Yt = torch.as_tensor(X), torch.as_tensor(Y)
-    nodes = _nodes(torch.float64)
+    tab = _tables(torch.float64)
+    nodes = tab["nodes"]
     # four images sharing X, as the finite-depth pole parts do
     Ys = [Yt, 0.5 * Yt, torch.flip(Yt, (0,)) * 0.9, torch.zeros_like(Yt)]
     keep = [torch.sqrt(Xt * Xt + Y * Y + 1e-18) < 0.6 for Y in Ys]
-    got = near_nodemajor(Xt, Ys, cuda_bem.near_tables(nodes))
+    got = near_nodemajor(Xt, Ys, tab["near"])
     for (g0, g1), Y, k in zip(got, Ys, keep):
         p0, p1 = torch_bem._near_integrals(Xt, Y, nodes)
         j0, j1 = (torch.as_tensor(np.array(a)) for a in jax_bem._near_integrals(
