@@ -640,6 +640,7 @@ class Smoke:
             spot = torch_bem.self_potential(P, c, nrm)
             self._cases[key] = {
                 "args": (P, c, nrm, area, diag, pmt, ls, spot), "n": len(padded),
+                "quad": torch_bem.stage_quad(dtype, self.dev),
                 "label": f"{name}{' + lid' if lid else ''} ({len(hull)} hull + "
                          f"{0 if lid_p is None else len(lid_p)} lid -> {len(padded)})",
                 "depth": float(design["mooring"]["water_depth"])}
@@ -661,16 +662,17 @@ class Smoke:
                 dn = str(dtype).split(".")[-1]
                 case = self._bem_case(name, lid, dtype)
                 args = case["args"]
-                got = cuda_bem.rankine_assembly(*args)
-                ref = torch_bem.rankine_plain(*args)
+                quad = case["quad"]
+                got = cuda_bem.rankine_assembly(*args, quad=quad)
+                ref = torch_bem.rankine_plain(*args, quad=quad)
                 torch.cuda.synchronize()
                 rel, ab = self._errs(got, ref)
                 finite = all(bool(torch.isfinite(g).all()) for g in got)
                 lim = TOL_BEM[dn]["rankine"]
                 self.check(finite and rel <= lim, f"K3 {dn} {case['label']}: scale-relative "
                            f"diff {rel:.3e} (limit {lim:.0e})")
-                ms = self.time_ms(lambda: cuda_bem.rankine_assembly(*args))
-                plain_ms = self.time_ms(lambda: torch_bem.rankine_plain(*args), reps=2)
+                ms = self.time_ms(lambda: cuda_bem.rankine_assembly(*args, quad=quad))
+                plain_ms = self.time_ms(lambda: torch_bem.rankine_plain(*args, quad=quad), reps=2)
                 hist, per_pair, bound, by = k3_work(args[1], args[4], args[6],
                                                     torch.finfo(dtype).bits // 8, dn)
                 print(f"  K3 {dn} n={case['n']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
@@ -693,7 +695,7 @@ class Smoke:
                 dn = str(dtype).split(".")[-1]
                 case = self._bem_case(name, lid, dtype)
                 P, c, nrm, area, diag, pm, ls, spot = case["args"]
-                R_pot, R_dn = torch_bem.rankine_plain(*case["args"])
+                R_pot, R_dn = torch_bem.rankine_plain(*case["args"], quad=case["quad"])
                 tabd = torch_bem.stage_tables(tab, dtype, self.dev)
                 nf = torch_bem.freq_chunk(case["n"], 48)
                 depth = case["depth"]
@@ -737,8 +739,8 @@ class Smoke:
         case = self._bem_case("VolturnUS-S", False, torch.float64)
         n = int(case["args"][5].sum())
         args = tuple(a[:n] for a in case["args"])
-        got = cuda_bem.rankine_assembly(*args)
-        ref = torch_bem.rankine_plain(*args)
+        got = cuda_bem.rankine_assembly(*args, quad=case["quad"])
+        ref = torch_bem.rankine_plain(*args, quad=case["quad"])
         rel_r, _ = self._errs(got, ref)
         ws = 0.4 + 0.02 * np.arange(2)
         fd = {k: torch.as_tensor(v, device=self.dev) for k, v in
@@ -764,7 +766,7 @@ class Smoke:
         torch = self.torch
         case = self._bem_case("VolturnUS-S", False, dtype)
         P, c, nrm, area, diag, pm, ls, spot = case["args"]
-        R_pot, R_dn = cuda_bem.rankine_assembly(*case["args"])
+        R_pot, R_dn = cuda_bem.rankine_assembly(*case["args"], quad=case["quad"])
         tabd = torch_bem.stage_tables(wavetable.load_tables(), dtype, self.dev)
         w = np.linspace(0.05, 2.95, 48)
         nf = torch_bem.freq_chunk(case["n"], len(w))

@@ -83,16 +83,26 @@ def _require_cuda(dev: torch.device):
 
 
 def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: Tensor,
-                     panel_mask: Tensor, lid_surface: Tensor, self_pot: Tensor):
+                     panel_mask: Tensor, lid_surface: Tensor, self_pot: Tensor, *, quad=None):
     """K3: ``(R_pot, R_dn)`` (n, n); see
-    :func:`raft_tpu_torch.hydro.torch_bem.rankine_plain` for the arguments."""
+    :func:`raft_tpu_torch.hydro.torch_bem.rankine_plain` for the arguments.
+    On the card ``quad`` is required: the subdivision points staged once by
+    ``torch_bem.stage_tables`` (``tab["quad"]``), so a call copies nothing
+    from the host and never waits for the device."""
     from raft_tpu_torch.hydro import torch_bem
 
     dev, dtype = c.device, c.dtype
     if dev.type == "cpu":
         return torch_bem.rankine_plain(pans, c, nrm, area, diag, panel_mask, lid_surface,
-                                       self_pot)
+                                       self_pot, quad=quad)
     _require_cuda(dev)
+    if quad is None:
+        raise ValueError("rankine_assembly on the card takes quad=, the subdivision points "
+                         "staged by torch_bem.stage_tables (tab['quad'])")
+    us, vs, wf = quad
+    if any(t.shape != (torch_bem.LEVEL_START[-1] + torch_bem.LEVEL_COUNT[-1],)
+           for t in (us, vs, wf)):
+        raise ValueError("quad must be the 766 subdivision points of torch_bem.quad_points")
     n = c.shape[0]
     if pans.shape != (n, 4, 3) or c.shape != (n, 3) or nrm.shape != (n, 3):
         raise ValueError(f"pans (n, 4, 3), c and nrm (n, 3) expected, got "
@@ -101,12 +111,8 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
                     ("lid_surface", lid_surface), ("self_pot", self_pot)):
         if t.shape != (n,):
             raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
-    us, vs, wf, _lv = torch_bem.quad_points()
     a = _checked(dev, dtype, pans=pans, c=c, nrm=nrm, area=area, diag=diag, mask=panel_mask,
-                 lids=lid_surface, spot=self_pot,
-                 us=torch.as_tensor(us, device=dev).to(dtype),
-                 vs=torch.as_tensor(vs, device=dev).to(dtype),
-                 wf=torch.as_tensor(wf, device=dev).to(dtype))
+                 lids=lid_surface, spot=self_pot, us=us, vs=vs, wf=wf)
     R_pot = torch.empty((n, n), dtype=dtype, device=dev)
     R_dn = torch.empty_like(R_pot)
     lib = build()["rankine"]

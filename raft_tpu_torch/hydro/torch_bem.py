@@ -309,7 +309,7 @@ def pair_levels(c: Tensor, diag: Tensor, lid_surface: Tensor):
 # ------------------------------------------------------- K3: Rankine, plain
 
 def rankine_plain(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: Tensor,
-                  panel_mask: Tensor, lid_surface: Tensor, self_pot: Tensor):
+                  panel_mask: Tensor, lid_surface: Tensor, self_pot: Tensor, *, quad=None):
     """Plain version of kernel K3: ``(R_pot, R_dn)`` (n, n) with
     ``R_pot = pot_d + pot_i`` and ``R_dn = (grad_d + grad_i) . n_i``.
 
@@ -317,13 +317,14 @@ def rankine_plain(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: Tens
     only the pairs whose level is the point's level contribute (the
     others add exact zeros).  Field side i = rows, source side j =
     columns; ``self_pot`` is the exact self potential, on the diagonal
-    (doubled for a lid panel at z = 0); masked-out source columns are 0."""
+    (doubled for a lid panel at z = 0); masked-out source columns are 0.
+    ``quad``: the subdivision points ``(us, vs, wf)`` staged by
+    :func:`stage_tables` (``tab["quad"]``), or None to stage them here."""
     dtype, dev = c.dtype, c.device
     n = c.shape[0]
     sel_d, sel_i = pair_levels(c, diag, lid_surface)
-    quad = quad_points()
-    lv = quad[3]
-    us, vs, wf = (torch.as_tensor(a, device=dev).to(dtype) for a in quad[:3])
+    lv = quad_points()[3]
+    us, vs, wf = stage_quad(dtype, dev) if quad is None else quad
     ci = c[:, None, :]
 
     def contrib(pt, dA, sel, level):
@@ -517,20 +518,33 @@ def wave_plain(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor
     return S_re, S_im, Dn_re, Dn_im
 
 
+def _staged(a, dtype, device) -> Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+
+
+def stage_quad(dtype, device):
+    """The subdivision points of :func:`quad_points` on ``device`` in
+    ``dtype``: ``(us, vs, wf)``, each (766,)."""
+    return tuple(_staged(a, dtype, device) for a in quad_points()[:3])
+
+
 def stage_tables(tab: dict, dtype, device) -> dict:
     """Host tables -> the kernel-input dict on ``device`` in ``dtype``:
-    ``I0``/``I1`` (NX, NS), the GL ``nodes`` ``(x_q, w_q)`` on (-1, 1), and
+    ``I0``/``I1`` (NX, NS), the GL ``nodes`` ``(x_q, w_q)`` on (-1, 1);
     ``near``, what K4's near quadrature reads: ``sin(theta_q)`` at
     ``theta_q = pi/2 + pi/2 x_q``, the weights ``w_q pi/2`` and the E1
-    series' Horner coefficients ``(-1)^(m+1) / (m m!)``, m = 1..N_SERIES."""
+    series' Horner coefficients ``(-1)^(m+1) / (m m!)``, m = 1..N_SERIES;
+    and ``quad``, K3's subdivision points (:func:`stage_quad`).  Staged
+    once per solve, so neither kernel wrapper copies from the host."""
     def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+        return _staged(a, dtype, device)
 
     glx, glw = t(GL16_X), t(GL16_W)
     half_pi = 0.5 * _PI
     coef = t([(-1.0) ** (m + 1) / (m * math.factorial(m)) for m in range(1, N_SERIES + 1)])
     return {"I0": t(tab["I0"]), "I1": t(tab["I1"]), "nodes": (glx, glw),
-            "near": (torch.sin(half_pi + half_pi * glx), glw * half_pi, coef)}
+            "near": (torch.sin(half_pi + half_pi * glx), glw * half_pi, coef),
+            "quad": stage_quad(dtype, device)}
 
 
 # ------------------------------------------------------------- the solve
@@ -571,7 +585,8 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *,
     hull_mask = panel_mask * (1.0 - lid_mask)
     lid_surface = (lid_mask > 0.5) & (torch.abs(c[:, 2]) < 1e-6 * torch.clamp(diag, min=1e-9))
     self_pot = self_potential(pans, c, nrm)
-    R_pot, R_dn = rankine_assembly(pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot)
+    R_pot, R_dn = rankine_assembly(pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot,
+                                   quad=tab_d["quad"])
 
     nvec6 = torch.cat([nrm, torch.linalg.cross(c, nrm)], dim=1)      # (n, 6)
     Wn = nvec6 * (hull_mask * area)[:, None]                          # (n, 6)
