@@ -32,7 +32,10 @@ result line):
    sweep's call shape;
 6. K3 (Rankine assembly) against its plain version on the VolturnUS-S hull
    (1,024-panel class) and the OC4semi hull with its waterplane lid
-   (2,048 class), float64 and float32, with the pairs per subdivision level;
+   (2,048 class), float64 and float32, with the pairs per subdivision level:
+   two calls give the same bits, the kernel's near pass takes as many pairs
+   as ``pair_levels`` puts on a level of 36 or more points, and one call
+   under the profiler runs K3's kernel alone (no copy, cast or sync);
 7. K4 (wave part) against its plain version on the same meshes, on a deep
    (1.5 rad/s) and a finite-depth (0.4 rad/s, 200 m) frequency chunk, and on
    every chunk of the north star's 48-frequency staging grid (one line per
@@ -103,11 +106,18 @@ FD_H, FD_RTOL = 1e-4, 2e-3
 # roundoff; f32 at the JAX package's assembly-route bound INTERP_PARITY_RTOL
 TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
            "float32": {"rankine": 1e-4, "wave": 1e-4}}
-# floating-point operations counted from bem_rankine.cu: per pair (two
-# level selections), per visited subdivision point (its position and
-# weight), per contribution (one point source, potential + normal
-# derivative), and the masked store
-K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB = 24, 28, 22
+# floating-point operations counted from bem_rankine.cu, each add,
+# subtract, multiply, negation, division, sqrt and rsqrt one (a fused
+# multiply-add two): per pair, the two level selections and the masked
+# store; per subdivision point visited, its position and weight (a far
+# pair visits a point once for both its integrals when their levels are
+# equal, a near pair once per contribution); per contribution, one point
+# source (potential + normal derivative); per near pair, the fold of the
+# 32 lanes' two partial sums
+K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB, K3_FLOPS_NEAR = 22, 28, 22, 62
+# the far pass takes levels 0 and 1 (ns 1 and 3); a pair with a higher
+# level goes to the near pass (bem_rankine.cu's kFarLevel)
+K3_FAR_LEVEL = 1
 # counted from bem_wave.cu: each add, subtract and multiply is one
 # operation (a fused multiply-add two), and so is each division, sqrt,
 # rsqrt and transcendental call (exp, log, log1p, atan2; sin and cos one
@@ -159,9 +169,10 @@ def k2_bound_ms(n: int, itemsize: int, dtype_name: str):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str):
-    """Pairs per level, operations and bytes of one K3 call on these
-    inputs, and its bound (ms, what binds)."""
+def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str) -> dict:
+    """Pairs per level (``hist``), contributions per pair, near pairs (a
+    level of 36 or more points), operations and bytes of one K3 call on
+    these inputs, and its bound (``bound_ms``, ``bound_by``)."""
     import torch
 
     from raft_tpu_torch.hydro import torch_bem
@@ -170,15 +181,20 @@ def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str):
     sel_d, sel_i = torch_bem.pair_levels(c, diag, lid_surface)
     count = torch.tensor((0,) + torch_bem.LEVEL_COUNT, device=c.device)   # id -1 -> 0
     cd, ci = count[sel_d.long() + 1], count[sel_i.long() + 1]
-    points = int(torch.where(sel_d == sel_i, cd, cd + ci).sum())
+    near = (sel_d > K3_FAR_LEVEL) | (sel_i > K3_FAR_LEVEL)
+    points = int(torch.where(~near & (sel_d == sel_i), cd, cd + ci).sum())
     contribs = int((cd + ci).sum())
-    flops = n * n * K3_FLOPS_PAIR + points * K3_FLOPS_POINT + contribs * K3_FLOPS_CONTRIB
-    nbytes = itemsize * (12 * n + 3 * n + 3 * n + 5 * n + 3 * 766 + 2 * n * n)
+    n_near = int(near.sum())
+    flops = (n * n * K3_FLOPS_PAIR + points * K3_FLOPS_POINT + contribs * K3_FLOPS_CONTRIB
+             + n_near * K3_FLOPS_NEAR)
+    nbytes = itemsize * (12 * n + 3 * n + 3 * n + 4 * n + 3 * 766 + 2 * n * n) + n
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
     hist = {"direct": torch.bincount(sel_d.flatten().long() + 1, minlength=6).tolist()[1:5],
             "image": torch.bincount(sel_i.flatten().long() + 1, minlength=6).tolist()[1:]}
-    return (hist, contribs / (n * n), 1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    return {"hist": hist, "per_pair": contribs / (n * n), "near_pairs": n_near,
+            "near_share": float((cd + ci)[near].sum()) / contribs,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name: str) -> dict:
@@ -663,7 +679,9 @@ class Smoke:
                 case = self._bem_case(name, lid, dtype)
                 args = case["args"]
                 quad = case["quad"]
-                got = cuda_bem.rankine_assembly(*args, quad=quad)
+                near = torch.zeros(1, dtype=torch.int32, device=self.dev)
+                got = cuda_bem.rankine_assembly(*args, quad=quad, near_count=near)
+                again = cuda_bem.rankine_assembly(*args, quad=quad)
                 ref = torch_bem.rankine_plain(*args, quad=quad)
                 torch.cuda.synchronize()
                 rel, ab = self._errs(got, ref)
@@ -671,18 +689,52 @@ class Smoke:
                 lim = TOL_BEM[dn]["rankine"]
                 self.check(finite and rel <= lim, f"K3 {dn} {case['label']}: scale-relative "
                            f"diff {rel:.3e} (limit {lim:.0e})")
+                wk = k3_work(args[1], args[4], args[6], torch.finfo(dtype).bits // 8, dn)
+                same = all(torch.equal(g, h) for g, h in zip(got, again))
+                self.check(same and int(near.item()) == wk["near_pairs"],
+                           f"K3 {dn} n={case['n']}: two calls give the same bits ({same}); "
+                           f"the near pass took {int(near.item())} pairs, pair_levels has "
+                           f"{wk['near_pairs']} with a level of 36 or more points")
                 ms = self.time_ms(lambda: cuda_bem.rankine_assembly(*args, quad=quad))
                 plain_ms = self.time_ms(lambda: torch_bem.rankine_plain(*args, quad=quad), reps=2)
-                hist, per_pair, bound, by = k3_work(args[1], args[4], args[6],
-                                                    torch.finfo(dtype).bits // 8, dn)
                 print(f"  K3 {dn} n={case['n']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                      f"bound {bound:.4f} ms ({by}); {per_pair:.2f} contributions per pair; "
-                      f"pairs per level (ns 1/3/6/12[/24]) direct {hist['direct']}, "
-                      f"image {hist['image']}; max abs diff {ab:.3e}")
+                      f"bound {wk['bound_ms']:.4f} ms ({wk['bound_by']}); "
+                      f"{wk['per_pair']:.2f} contributions per pair, {wk['near_share']:.3f} of "
+                      f"them in near pairs; pairs per level (ns 1/3/6/12[/24]) direct "
+                      f"{wk['hist']['direct']}, image {wk['hist']['image']}; max abs diff "
+                      f"{ab:.3e}")
                 if name == "VolturnUS-S" and dtype == torch.float64:   # the staging's call
                     self.records["rankine"] = {"max_abs_err": ab, "ms": ms, "plain_ms": plain_ms,
-                                               "bound_ms": bound, "bound_by": by,
-                                               "library_ms": None}
+                                               "bound_ms": wk["bound_ms"],
+                                               "bound_by": wk["bound_by"], "library_ms": None}
+                    self._k3_alone(args, quad)
+
+    def _k3_alone(self, args, quad):
+        """One wrapper call under the profiler: its one device operation is
+        K3's kernel (no copy, no cast), and it makes no copy and no stream
+        synchronisation on the host side either."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from raft_tpu_torch.core import cuda_bem
+
+        torch = self.torch
+        cuda_bem.rankine_assembly(*args, quad=quad)        # outputs' memory is cached now
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cuda_bem.rankine_assembly(*args, quad=quad)
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        host = sorted({e.name for e in events if e.device_type != DeviceType.CUDA})
+        bad = [h for h in host if any(part in h for part in (
+            "Memcpy", "Memset", "StreamSynchronize", "EventSynchronize", "aten::copy_",
+            "aten::_to_copy"))]
+        print(f"  K3 one wrapper call under the profiler: device operations {device}; host "
+              f"events {host}")
+        self.check(len(device) == 1 and "rankine_kernel" in device[0] and not bad,
+                   f"K3's wrapper runs its kernel alone: {len(device)} device operation(s), "
+                   f"no copy, cast or stream synchronisation ({bad or 'none'})")
 
     def phase_k4(self):
         from raft_tpu_torch.core import cuda_bem

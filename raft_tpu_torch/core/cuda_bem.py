@@ -3,10 +3,13 @@
 * K3 :func:`rankine_assembly` replaces the TPU kernel
   ``raft_tpu/core/pallas_bem.py::_rankine_kernel``: the Rankine direct +
   free-surface-image panel integrals, ``(R_pot, R_dn)`` (n, n).  Source
-  ``raft_tpu_torch/csrc/bem_rankine.cu``: one thread per panel pair,
-  looping only over the subdivision points of the pair's own levels
-  (about 6 contributions a pair on the shipped meshes, against 956 in
-  the TPU kernel's masked dense loop).  Bound by operations.
+  ``raft_tpu_torch/csrc/bem_rankine.cu``: a block per 32 x 32 tile of
+  pairs with both sides staged in shared memory; each pair visits only
+  its own levels' subdivision points (about 5 contributions a pair on the
+  shipped meshes, against 956 in the TPU kernel's masked dense loop).
+  Pairs of at most 9 points a level are computed a lane each; the others
+  (36, 144 or 576 points) go to a block-local list that the block's warps
+  work through one pair per warp.  Bound by operations.
 * K4 :func:`wave_assembly` replaces ``pallas_bem.py::_wave_kernel``: the
   wave part of the Green function for a chunk of frequencies, combined
   into ``(S_re, S_im, Dn_re, Dn_im)`` (nf, n, n).  Source
@@ -25,8 +28,7 @@ Both wrappers dispatch on the tensors' device: CPU tensors take the plain
 versions (:func:`raft_tpu_torch.hydro.torch_bem.rankine_plain`,
 ``wave_plain``), CUDA tensors launch the kernel or raise.  Each has the
 signature of its plain version.  ``LAUNCHES`` counts kernel launches; the
-libraries are built by ``nvcc`` at first use (:mod:`raft_tpu_torch.core.nvcc`;
-K3 with ``-fmad=false``, so it rounds as its plain version does).
+libraries are built by ``nvcc`` at first use (:mod:`raft_tpu_torch.core.nvcc`).
 """
 from __future__ import annotations
 
@@ -41,11 +43,11 @@ Tensor = torch.Tensor
 #: kernel launches per wrapper (never the plain path)
 LAUNCHES = {"rankine": 0, "wave": 0}
 
-RANKINE = nvcc.Spec("bem_rankine", "bem_rankine.cu", ("-fmad=false",))
+RANKINE = nvcc.Spec("bem_rankine", "bem_rankine.cu")
 WAVE = nvcc.Spec("bem_wave", "bem_wave.cu")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
-_RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P]
+_RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P, _P]
 _WAVE_SIG = ([_P] * 12 + [_I, _I, _D, _D] + [_P] * 6 + [_I, _I, _I, _I, _D]
              + [_P] * 4 + [_P])
 _libs: dict = {}
@@ -83,16 +85,22 @@ def _require_cuda(dev: torch.device):
 
 
 def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: Tensor,
-                     panel_mask: Tensor, lid_surface: Tensor, self_pot: Tensor, *, quad=None):
+                     panel_mask: Tensor, lid_surface: Tensor, self_pot: Tensor, *, quad=None,
+                     near_count: Tensor | None = None):
     """K3: ``(R_pot, R_dn)`` (n, n); see
     :func:`raft_tpu_torch.hydro.torch_bem.rankine_plain` for the arguments.
     On the card ``quad`` is required: the subdivision points staged once by
     ``torch_bem.stage_tables`` (``tab["quad"]``), so a call copies nothing
-    from the host and never waits for the device."""
+    from the host, casts nothing and never waits for the device.
+    ``near_count``, a (1,) int32 tensor on the card, has the number of pairs
+    the kernel worked through in its near pass added to it (for checks; the
+    path passes none)."""
     from raft_tpu_torch.hydro import torch_bem
 
     dev, dtype = c.device, c.dtype
     if dev.type == "cpu":
+        if near_count is not None:
+            raise ValueError("near_count counts the kernel's near pass; the plain version has none")
         return torch_bem.rankine_plain(pans, c, nrm, area, diag, panel_mask, lid_surface,
                                        self_pot, quad=quad)
     _require_cuda(dev)
@@ -111,15 +119,22 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
                     ("lid_surface", lid_surface), ("self_pot", self_pot)):
         if t.shape != (n,):
             raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
+    if lid_surface.dtype != torch.bool or lid_surface.device != dev:
+        raise ValueError(f"lid_surface must be a bool tensor on {dev}")
+    if near_count is not None and (near_count.shape != (1,) or near_count.dtype != torch.int32
+                                   or near_count.device != dev):
+        raise ValueError(f"near_count must be a (1,) int32 tensor on {dev}")
     a = _checked(dev, dtype, pans=pans, c=c, nrm=nrm, area=area, diag=diag, mask=panel_mask,
-                 lids=lid_surface, spot=self_pot, us=us, vs=vs, wf=wf)
+                 spot=self_pot, us=us, vs=vs, wf=wf)
+    lids = lid_surface.contiguous()
     R_pot = torch.empty((n, n), dtype=dtype, device=dev)
     R_dn = torch.empty_like(R_pot)
     lib = build()["rankine"]
     fn = lib.bem_rankine_f64 if dtype == torch.float64 else lib.bem_rankine_f32
-    err = fn(*(a[k].data_ptr() for k in ("pans", "c", "nrm", "area", "diag", "mask", "lids",
-                                         "spot", "us", "vs", "wf")),
-             n, R_pot.data_ptr(), R_dn.data_ptr(), nvcc.stream_of(dev))
+    err = fn(*(a[k].data_ptr() for k in ("pans", "c", "nrm", "area", "diag", "mask")),
+             lids.data_ptr(), *(a[k].data_ptr() for k in ("spot", "us", "vs", "wf")),
+             n, R_pot.data_ptr(), R_dn.data_ptr(),
+             None if near_count is None else near_count.data_ptr(), nvcc.stream_of(dev))
     nvcc.check(err, "bem_rankine")
     LAUNCHES["rankine"] += 1
     return R_pot, R_dn

@@ -12,42 +12,91 @@
 // distance over panel diagonal; the direct self term is the exact
 // flat-panel potential (computed outside, passed as spot), doubled on the
 // diagonal of a lid panel at z = 0, whose image is itself.  Masked-out
-// (padding) source columns are zero.
+// (padding) source columns are zero.  The plain version is
+// raft_tpu_torch/hydro/torch_bem.py::rankine_plain.
 //
-// Design.  The TPU kernel evaluates all 766 subdivision points for every
-// pair and masks out all but the pair's level (956 contributions a pair).
-// The masked terms are exact zeros, so here one thread per pair loops only
-// over the points of its own direct level and its own image level: on the
-// shipped meshes about 5 to 7 contributions a pair instead of 956.  The
-// points keep their order within a level, and levels are visited in
-// increasing order with the direct contribution of a point before its
-// image one, so the sums associate exactly as in the plain version
-// (raft_tpu_torch/hydro/torch_bem.py::rankine_plain).  Row and column ids
-// are global (blockIdx * blockDim + threadIdx), so the diagonal is i == j.
-// j is the fastest thread index: the stores of a warp are contiguous.
+// What bounds it on an H100.  The TPU kernel evaluates all 766 points for
+// every pair and masks all but the pair's own levels; here a pair visits
+// only its own levels' points, about 5 contributions a pair on the shipped
+// meshes, each a point position, an rsqrt and a dozen multiply-adds.  That
+// is bound by operations (f64 at 34 TFLOP/s), with the 2 n^2 outputs
+// written in a comparable time.  The first version (one thread per pair,
+// a warp on 32 neighbouring source panels of one field panel) lost most of
+// that to lanes waiting: about 3.5% of the pairs have a level of 36, 144
+// or 576 points and carry about 40% of the contributions, so a warp ran as
+// long as its nearest pair, 3.1-3.3x the trips its pairs needed; it also
+// read the source vertices 96 bytes apart across the warp and the
+// quadrature from global memory inside the point loop.
 //
-// Bound.  Operations: per pair the two level selections, per point its
-// position, per contribution about 22 floating-point operations; with the
-// few contributions a pair needs, the outputs (2 n^2 values) are written
-// in about the same time as the arithmetic at n = 1024 in f64.  Later work
-// (not done here): stage the source side of a tile in shared memory,
-// schedule pairs by level so a warp runs one trip count, trim registers.
-//
-// Built with -fmad=false: every product and sum is rounded on its own, as
-// PyTorch's elementwise kernels round them, so the f64 kernel agrees with
-// its plain version to roundoff.
+// Design.
+//   * One launch over square tiles: a block owns 32 field rows x 32 source
+//     columns and stages the tile's source side (vertices, centroid, area,
+//     diagonal, lid flag, mask, self potential) and field side (centroid,
+//     normal) in shared memory with coalesced loads, with the points of
+//     the two far levels (ns 1 and 3).
+//   * Far pass: each warp takes four field rows, a lane per source column,
+//     and classifies its pairs.  A pair whose direct and image levels both
+//     have at most 9 points (at most 18 contributions) is computed in
+//     place, in the plain version's order: levels ascending, points in
+//     order, a point's direct contribution before its image one.  Every
+//     other pair is appended to the block's near list in shared memory
+//     (one shared atomic per warp and row, by ballot).
+//   * Near pass: after a barrier the block stages the remaining 756
+//     points (only if its list is not empty), and its eight warps work
+//     through the list one pair per warp.  The pair's contributions, the
+//     direct level's points then the image level's, are dealt to the lanes
+//     in turn (lane l takes l, l + 32, ...); each lane sums its own in
+//     order, a shuffle tree (xor 16, 8, 4, 2, 1) adds the lanes, and lane
+//     0 stores.  The list's order may vary from run to run, but each pair
+//     is summed by one warp in a fixed order, so two calls give the same
+//     bits.  The many blocks (1,024 at 1,024 panels) even out the heavier
+//     diagonal tiles across the SMs; no global list, no second launch.
+//   * Rounding: the quantities that choose a pair's level (dist, distI,
+//     rel, relI) round one operation at a time with the _rn intrinsics,
+//     in the plain version's order, so every pair takes the plain
+//     version's level.  The rest may contract into fused multiply-adds;
+//     each contribution takes ir = rsqrt(r2), ir^3 = ir ir ir.
+//   * near_count (may be null) receives the number of near pairs, for a
+//     check against the plain version's levels; the path passes null.
 #include <cuda_runtime.h>
 
 namespace {
+
+#ifndef K3_TILE_ROWS
+#define K3_TILE_ROWS 8
+#endif
+constexpr int kRows = K3_TILE_ROWS;         // field rows of a block's tile
+constexpr int kCols = 32;                   // source columns of a block's tile: a lane each
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = kRows / kWarps;
+static_assert(kRows % kWarps == 0 && kRows <= 32, "a tile has 8, 16, 24 or 32 rows");
+constexpr int kNQ = 766;                    // subdivision points of all levels
+constexpr int kFarLevel = 1;                // the far pass takes levels 0 and 1 (ns 1, 3)
+constexpr int kNQFar = 10;                  // their points
+constexpr unsigned kFull = 0xffffffffu;
 
 // first point and point count of each level in the quadrature arrays
 // (torch_bem.quad_points: levels 1, 3, 6, 12, then the image-only 24)
 __constant__ int kLevelStart[5] = {0, 1, 10, 46, 190};
 __constant__ int kLevelCount[5] = {1, 9, 36, 144, 576};
 
+// round-to-nearest operations that are never contracted
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double rsqrt_of(double a) { return rsqrt(a); }
+__device__ __forceinline__ float rsqrt_of(float a) { return rsqrtf(a); }
+
+// sqrt(x^2 + y^2 + z^2 + 1e-20), rounded as torch_bem._safe_norm rounds it
 template <typename T>
-__device__ __forceinline__ T safe_norm(T x, T y, T z) {
-  return sqrt(x * x + y * y + z * z + T(1e-20));
+__device__ __forceinline__ T safe_norm_rn(T x, T y, T z) {
+  return sqrt_rn(add_rn(add_rn(add_rn(mul_rn(x, x), mul_rn(y, y)), mul_rn(z, z)), T(1e-20)));
 }
 
 template <typename T>
@@ -65,91 +114,193 @@ __device__ __forceinline__ int level_image(T rel) {
   return out;
 }
 
+template <typename T>
+struct Shared {
+  T u[kNQ], v[kNQ], w[kNQ];                 // subdivision points
+  T p[12][kCols];                           // source vertices, component-major
+  T cj[3][kCols], area[kCols], diag[kCols], mask[kCols], spot[kCols];
+  bool lid[kCols];
+  T ci[3][kRows], ni[3][kRows];             // field centroids and normals
+  unsigned short near[kRows * kCols];       // row | col << 5 | (sel_d + 1) << 10 | (sel_i + 1) << 13
+  int count;
+};
+
+// point q of source column j: position and weight
+template <typename T>
+__device__ __forceinline__ void point(const Shared<T>& s, int q, int j, T& px, T& py, T& pz,
+                                      T& dA) {
+  const T u = s.u[q], v = s.v[q];
+  const T c00 = (T(1) - u) * (T(1) - v), c10 = u * (T(1) - v);
+  const T c11 = u * v, c01 = (T(1) - u) * v;
+  px = c00 * s.p[0][j] + c10 * s.p[3][j] + c11 * s.p[6][j] + c01 * s.p[9][j];
+  py = c00 * s.p[1][j] + c10 * s.p[4][j] + c11 * s.p[7][j] + c01 * s.p[10][j];
+  pz = c00 * s.p[2][j] + c10 * s.p[5][j] + c11 * s.p[8][j] + c01 * s.p[11][j];
+  dA = s.area[j] * s.w[q];
+}
+
 // one point source of strength dA at p seen from the field point c_i
 template <typename T>
 __device__ __forceinline__ void contrib(T cx, T cy, T cz, T nx, T ny, T nz,
                                         T px, T py, T pz, T dA, T& pot, T& dn) {
-  T dx = cx - px, dy = cy - py, dz = cz - pz;
-  T r2 = dx * dx + dy * dy + dz * dz;
+  const T dx = cx - px, dy = cy - py, dz = cz - pz;
+  const T r2 = dx * dx + dy * dy + dz * dz;
   if (r2 > T(1e-12)) {
-    T ir = T(1) / sqrt(r2);
-    T ir3 = ir / r2;
+    const T ir = rsqrt_of(r2);
+    const T ir3 = ir * ir * ir;
     pot = pot + dA * ir;
-    T dsn = dx * nx + dy * ny + dz * nz;
-    dn = dn + (-dA * ir3) * dsn;
+    dn = dn + (-dA * ir3) * (dx * nx + dy * ny + dz * nz);
   }
 }
 
+// exact self term on the diagonal, column mask, store
 template <typename T>
-__global__ void rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c,
-                               const T* __restrict__ nrm, const T* __restrict__ area,
-                               const T* __restrict__ diag, const T* __restrict__ mask,
-                               const T* __restrict__ lids, const T* __restrict__ spot,
-                               const T* __restrict__ us, const T* __restrict__ vs,
-                               const T* __restrict__ wf, int n,
-                               T* __restrict__ R_pot, T* __restrict__ R_dn) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= n || j >= n) return;
-  // field side
-  const T cix = c[3 * i], ciy = c[3 * i + 1], ciz = c[3 * i + 2];
-  const T nix = nrm[3 * i], niy = nrm[3 * i + 1], niz = nrm[3 * i + 2];
-  // source side
-  const T cjx = c[3 * j], cjy = c[3 * j + 1], cjz = c[3 * j + 2];
-  const T* p = pans + 12 * j;
-  const T area_j = area[j], diag_j = diag[j], lid_j = lids[j];
-
-  const T dist = safe_norm(cix - cjx, ciy - cjy, ciz - cjz);
-  const T distI = safe_norm(cix - cjx, ciy - cjy, ciz - (-cjz));
-  const bool ok = diag_j > T(1e-9);
-  const T diag_safe = ok ? diag_j : T(1);
-  const T rel = ok ? dist / diag_safe : T(1e9);
-  const T relI = ok ? distI / diag_safe : T(1e9);
-  int sel_d = level_direct(rel);
-  int sel_i = level_image(relI);
-  if (i == j) {
-    sel_d = -1;                        // exact self term instead
-    if (lid_j > T(0.5)) sel_i = -1;    // lid at z = 0: its image is itself
-  }
-
-  T pot = T(0), dn = T(0);
-  for (int lv = 0; lv < 5; ++lv) {
-    const bool dd = lv == sel_d;
-    const bool di = lv == sel_i;
-    if (!dd && !di) continue;
-    const int q0 = kLevelStart[lv], q1 = q0 + kLevelCount[lv];
-    for (int q = q0; q < q1; ++q) {
-      const T u = us[q], v = vs[q];
-      const T c00 = (T(1) - u) * (T(1) - v), c10 = u * (T(1) - v);
-      const T c11 = u * v, c01 = (T(1) - u) * v;
-      const T px = c00 * p[0] + c10 * p[3] + c11 * p[6] + c01 * p[9];
-      const T py = c00 * p[1] + c10 * p[4] + c11 * p[7] + c01 * p[10];
-      const T pz = c00 * p[2] + c10 * p[5] + c11 * p[8] + c01 * p[11];
-      const T dA = area_j * wf[q];
-      if (dd) contrib(cix, ciy, ciz, nix, niy, niz, px, py, pz, dA, pot, dn);
-      if (di) contrib(cix, ciy, ciz, nix, niy, niz, px, py, -pz, dA, pot, dn);
-    }
-  }
-  if (i == j) pot = pot + spot[j] * (T(1) + lid_j);
-  const T m = mask[j];
+__device__ __forceinline__ void finish(const Shared<T>& s, int i, int j, int jl, int n, T pot,
+                                       T dn, T* __restrict__ R_pot, T* __restrict__ R_dn) {
+  if (i == j) pot = pot + s.spot[jl] * (T(1) + (s.lid[jl] ? T(1) : T(0)));
+  const T m = s.mask[jl];
   const size_t o = static_cast<size_t>(i) * n + j;
   R_pot[o] = pot * m;
   R_dn[o] = dn * m;
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __restrict__ nrm,
+               const T* __restrict__ area, const T* __restrict__ diag,
+               const T* __restrict__ mask, const bool* __restrict__ lids,
+               const T* __restrict__ spot, const T* __restrict__ us,
+               const T* __restrict__ vs, const T* __restrict__ wf, int n,
+               T* __restrict__ R_pot, T* __restrict__ R_dn, int* __restrict__ near_count) {
+  __shared__ Shared<T> s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = blockIdx.y * kRows, j0 = blockIdx.x * kCols;
+  const int ni = min(kRows, n - i0), nj = min(kCols, n - j0);
+
+  // stage the tile's two sides and the far levels' points
+  for (int e = tid; e < 12 * nj; e += kThreads) s.p[e % 12][e / 12] = pans[12 * j0 + e];
+  for (int e = tid; e < 3 * nj; e += kThreads) s.cj[e % 3][e / 3] = c[3 * j0 + e];
+  for (int e = tid; e < 3 * ni; e += kThreads) {
+    s.ci[e % 3][e / 3] = c[3 * i0 + e];
+    s.ni[e % 3][e / 3] = nrm[3 * i0 + e];
+  }
+  if (tid < nj) {
+    s.area[tid] = area[j0 + tid];
+    s.diag[tid] = diag[j0 + tid];
+    s.mask[tid] = mask[j0 + tid];
+    s.spot[tid] = spot[j0 + tid];
+    s.lid[tid] = lids[j0 + tid];
+  }
+  if (tid < kNQFar) {
+    s.u[tid] = us[tid];
+    s.v[tid] = vs[tid];
+    s.w[tid] = wf[tid];
+  }
+  if (tid == 0) s.count = 0;
+  __syncthreads();
+
+  // far pass: a lane per source column, four field rows per warp
+  for (int k = 0; k < kRowsPerWarp; ++k) {
+    const int r = warp + kWarps * k;
+    const int i = i0 + r, j = j0 + lane;
+    const bool live = r < ni && lane < nj;
+    int sel_d = -1, sel_i = -1;
+    T cix = T(0), ciy = T(0), ciz = T(0);
+    if (live) {
+      cix = s.ci[0][r];
+      ciy = s.ci[1][r];
+      ciz = s.ci[2][r];
+      const T dx = cix - s.cj[0][lane], dy = ciy - s.cj[1][lane];
+      const T dist = safe_norm_rn(dx, dy, ciz - s.cj[2][lane]);
+      const T distI = safe_norm_rn(dx, dy, ciz + s.cj[2][lane]);
+      const T dg = s.diag[lane];
+      const bool ok = dg > T(1e-9);
+      sel_d = level_direct(ok ? div_rn(dist, dg) : T(1e9));
+      sel_i = level_image(ok ? div_rn(distI, dg) : T(1e9));
+      if (i == j) {
+        sel_d = -1;                          // exact self term instead
+        if (s.lid[lane]) sel_i = -1;         // lid at z = 0: its image is itself
+      }
+    }
+    const bool near = live && (sel_d > kFarLevel || sel_i > kFarLevel);
+    const unsigned ballot = __ballot_sync(kFull, near);
+    if (ballot != 0u) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&s.count, __popc(ballot));
+      base = __shfl_sync(kFull, base, 0);
+      if (near)
+        s.near[base + __popc(ballot & ((1u << lane) - 1u))] = static_cast<unsigned short>(
+            r | (lane << 5) | ((sel_d + 1) << 10) | ((sel_i + 1) << 13));
+    }
+    if (!live || near) continue;
+    const T nix = s.ni[0][r], niy = s.ni[1][r], niz = s.ni[2][r];
+    T pot = T(0), dn = T(0);
+    for (int lv = 0; lv <= kFarLevel; ++lv) {
+      const bool dd = lv == sel_d, di = lv == sel_i;
+      if (!dd && !di) continue;
+      const int q0 = kLevelStart[lv], q1 = q0 + kLevelCount[lv];
+      for (int q = q0; q < q1; ++q) {
+        T px, py, pz, dA;
+        point(s, q, lane, px, py, pz, dA);
+        if (dd) contrib(cix, ciy, ciz, nix, niy, niz, px, py, pz, dA, pot, dn);
+        if (di) contrib(cix, ciy, ciz, nix, niy, niz, px, py, -pz, dA, pot, dn);
+      }
+    }
+    finish(s, i, j, lane, n, pot, dn, R_pot, R_dn);
+  }
+  __syncthreads();
+
+  // near pass: one pair per warp, its contributions dealt to the lanes
+  const int count = s.count;
+  if (count > 0) {                           // the same for the whole block
+    for (int q = kNQFar + tid; q < kNQ; q += kThreads) {
+      s.u[q] = us[q];
+      s.v[q] = vs[q];
+      s.w[q] = wf[q];
+    }
+    __syncthreads();
+  }
+  for (int e = warp; e < count; e += kWarps) {
+    const unsigned code = s.near[e];
+    const int r = code & 31, jl = (code >> 5) & 31;
+    const int sel_d = static_cast<int>((code >> 10) & 7u) - 1;
+    const int sel_i = static_cast<int>((code >> 13) & 7u) - 1;
+    const int nd = sel_d >= 0 ? kLevelCount[sel_d] : 0;
+    const int nt = nd + (sel_i >= 0 ? kLevelCount[sel_i] : 0);
+    const int qd = sel_d >= 0 ? kLevelStart[sel_d] : 0;
+    const int qi = (sel_i >= 0 ? kLevelStart[sel_i] : 0) - nd;
+    const T cix = s.ci[0][r], ciy = s.ci[1][r], ciz = s.ci[2][r];
+    const T nix = s.ni[0][r], niy = s.ni[1][r], niz = s.ni[2][r];
+    T pot = T(0), dn = T(0);
+    for (int k = lane; k < nt; k += 32) {
+      const bool img = k >= nd;
+      T px, py, pz, dA;
+      point(s, img ? qi + k : qd + k, jl, px, py, pz, dA);
+      contrib(cix, ciy, ciz, nix, niy, niz, px, py, img ? -pz : pz, dA, pot, dn);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      pot = pot + __shfl_xor_sync(kFull, pot, off);
+      dn = dn + __shfl_xor_sync(kFull, dn, off);
+    }
+    if (lane == 0) finish(s, i0 + r, j0 + jl, jl, n, pot, dn, R_pot, R_dn);
+  }
+  if (near_count != nullptr && tid == 0) atomicAdd(near_count, count);
+}
+
+template <typename T>
 int launch(const void* pans, const void* c, const void* nrm, const void* area,
            const void* diag, const void* mask, const void* lids, const void* spot,
            const void* us, const void* vs, const void* wf, long long n,
-           void* R_pot, void* R_dn, void* stream) {
-  const dim3 block(64, 4);
-  const dim3 grid(static_cast<unsigned>((n + 63) / 64), static_cast<unsigned>((n + 3) / 4));
-  rankine_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+           void* R_pot, void* R_dn, void* near_count, void* stream) {
+  if (n == 0) return 0;
+  const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
+                  static_cast<unsigned>((n + kRows - 1) / kRows));
+  rankine_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(pans), static_cast<const T*>(c), static_cast<const T*>(nrm),
       static_cast<const T*>(area), static_cast<const T*>(diag), static_cast<const T*>(mask),
-      static_cast<const T*>(lids), static_cast<const T*>(spot), static_cast<const T*>(us),
+      static_cast<const bool*>(lids), static_cast<const T*>(spot), static_cast<const T*>(us),
       static_cast<const T*>(vs), static_cast<const T*>(wf), static_cast<int>(n),
-      static_cast<T*>(R_pot), static_cast<T*>(R_dn));
+      static_cast<T*>(R_pot), static_cast<T*>(R_dn), static_cast<int*>(near_count));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,17 +311,17 @@ extern "C" {
 int bem_rankine_f32(const void* pans, const void* c, const void* nrm, const void* area,
                     const void* diag, const void* mask, const void* lids, const void* spot,
                     const void* us, const void* vs, const void* wf, long long n,
-                    void* R_pot, void* R_dn, void* stream) {
+                    void* R_pot, void* R_dn, void* near_count, void* stream) {
   return launch<float>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n,
-                       R_pot, R_dn, stream);
+                       R_pot, R_dn, near_count, stream);
 }
 
 int bem_rankine_f64(const void* pans, const void* c, const void* nrm, const void* area,
                     const void* diag, const void* mask, const void* lids, const void* spot,
                     const void* us, const void* vs, const void* wf, long long n,
-                    void* R_pot, void* R_dn, void* stream) {
+                    void* R_pot, void* R_dn, void* near_count, void* stream) {
   return launch<double>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n,
-                        R_pot, R_dn, stream);
+                        R_pot, R_dn, near_count, stream);
 }
 
 }  // extern "C"
