@@ -109,15 +109,16 @@ TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
 # floating-point operations counted from bem_rankine.cu, each add,
 # subtract, multiply, negation, division, sqrt and rsqrt one (a fused
 # multiply-add two): per pair, the two level selections and the masked
-# store; per subdivision point visited, its position and weight (a far
-# pair visits a point once for both its integrals when their levels are
-# equal, a near pair once per contribution); per contribution, one point
-# source (potential + normal derivative); per near pair, the fold of the
-# 32 lanes' two partial sums
+# store; per subdivision point position and weight computed (in the far
+# pass once per point of a level that either of a thread's two pairs
+# needs, for both their integrals; in the near pass once per
+# contribution); per contribution, one point source (potential + normal
+# derivative); per near pair, the fold of the 32 lanes' two partial sums
 K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB, K3_FLOPS_NEAR = 22, 28, 22, 62
-# the far pass takes levels 0 and 1 (ns 1 and 3); a pair with a higher
-# level goes to the near pass (bem_rankine.cu's kFarLevel)
-K3_FAR_LEVEL = 1
+# the far pass takes levels 0 and 1 (ns 1 and 3), and a pair with a higher
+# level goes to the near pass (bem_rankine.cu's kFarLevel); a far-pass
+# thread takes rows i and i + 8 of a 16-row tile (kRows, kWarps)
+K3_FAR_LEVEL, K3_TILE_ROWS, K3_ROW_STRIDE = 1, 16, 8
 # counted from bem_wave.cu: each add, subtract and multiply is one
 # operation (a fused multiply-add two), and so is each division, sqrt,
 # rsqrt and transcendental call (exp, log, log1p, atan2; sin and cos one
@@ -182,7 +183,13 @@ def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str) -> dict:
     count = torch.tensor((0,) + torch_bem.LEVEL_COUNT, device=c.device)   # id -1 -> 0
     cd, ci = count[sel_d.long() + 1], count[sel_i.long() + 1]
     near = (sel_d > K3_FAR_LEVEL) | (sel_i > K3_FAR_LEVEL)
-    points = int(torch.where(~near & (sel_d == sel_i), cd, cd + ci).sum())
+    points = int((cd + ci)[near].sum())
+    rows = -(-n // K3_TILE_ROWS) * K3_TILE_ROWS
+    for lv in range(K3_FAR_LEVEL + 1):
+        need = torch.zeros((rows, n), dtype=torch.bool, device=c.device)
+        need[:n] = ~near & ((sel_d == lv) | (sel_i == lv))
+        pairs = need.view(rows // K3_TILE_ROWS, K3_TILE_ROWS // K3_ROW_STRIDE, K3_ROW_STRIDE, n)
+        points += int(pairs.any(dim=1).sum()) * torch_bem.LEVEL_COUNT[lv]
     contribs = int((cd + ci).sum())
     n_near = int(near.sum())
     flops = (n * n * K3_FLOPS_PAIR + points * K3_FLOPS_POINT + contribs * K3_FLOPS_CONTRIB

@@ -47,7 +47,7 @@ RANKINE = nvcc.Spec("bem_rankine", "bem_rankine.cu")
 WAVE = nvcc.Spec("bem_wave", "bem_wave.cu")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
-_RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P, _P]
+_RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P, _I, _P, _P]
 _WAVE_SIG = ([_P] * 12 + [_I, _I, _D, _D] + [_P] * 6 + [_I, _I, _I, _I, _D]
              + [_P] * 4 + [_P])
 _libs: dict = {}
@@ -57,8 +57,11 @@ def build() -> dict:
     """Compile (once per source hash) and load both kernel libraries."""
     if not _libs:
         nvcc.compile_all([RANKINE, WAVE])
-        _libs["rankine"] = nvcc.load(RANKINE, {"bem_rankine_f32": _RANKINE_SIG,
-                                               "bem_rankine_f64": _RANKINE_SIG})
+        lib = nvcc.load(RANKINE, {"bem_rankine_f32": _RANKINE_SIG,
+                                  "bem_rankine_f64": _RANKINE_SIG})
+        for fn in (lib.bem_rankine_workspace_f32, lib.bem_rankine_workspace_f64):
+            fn.argtypes, fn.restype = [_I], _I
+        _libs["rankine"] = lib
         _libs["wave"] = nvcc.load(WAVE, {"bem_wave_f32": _WAVE_SIG, "bem_wave_f64": _WAVE_SIG})
     return _libs
 
@@ -130,10 +133,15 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
     R_pot = torch.empty((n, n), dtype=dtype, device=dev)
     R_dn = torch.empty_like(R_pot)
     lib = build()["rankine"]
-    fn = lib.bem_rankine_f64 if dtype == torch.float64 else lib.bem_rankine_f32
+    f64 = dtype == torch.float64
+    words = (lib.bem_rankine_workspace_f64 if f64 else lib.bem_rankine_workspace_f32)(n)
+    if words < 0:
+        raise RuntimeError("bem_rankine: the launch could not be planned on this device")
+    work = torch.empty(words, dtype=torch.int32, device=dev)
+    fn = lib.bem_rankine_f64 if f64 else lib.bem_rankine_f32
     err = fn(*(a[k].data_ptr() for k in ("pans", "c", "nrm", "area", "diag", "mask")),
              lids.data_ptr(), *(a[k].data_ptr() for k in ("spot", "us", "vs", "wf")),
-             n, R_pot.data_ptr(), R_dn.data_ptr(),
+             n, R_pot.data_ptr(), R_dn.data_ptr(), work.data_ptr(), words,
              None if near_count is None else near_count.data_ptr(), nvcc.stream_of(dev))
     nvcc.check(err, "bem_rankine")
     LAUNCHES["rankine"] += 1

@@ -18,59 +18,68 @@
 // What bounds it on an H100.  The TPU kernel evaluates all 766 points for
 // every pair and masks all but the pair's own levels; here a pair visits
 // only its own levels' points, about 5 contributions a pair on the shipped
-// meshes, each a point position, an rsqrt and a dozen multiply-adds.  That
-// is bound by operations (f64 at 34 TFLOP/s), with the 2 n^2 outputs
-// written in a comparable time.  The first version (one thread per pair,
-// a warp on 32 neighbouring source panels of one field panel) lost most of
-// that to lanes waiting: about 3.5% of the pairs have a level of 36, 144
-// or 576 points and carry about 40% of the contributions, so a warp ran as
-// long as its nearest pair, 3.1-3.3x the trips its pairs needed; it also
-// read the source vertices 96 bytes apart across the warp and the
-// quadrature from global memory inside the point loop.
+// meshes, each a point position, an rsqrt and a dozen multiply-adds: bound
+// by operations (f64 at 34 TFLOP/s), with the 2 n^2 outputs written in a
+// comparable time.  About 3.5% of the pairs have a level of 36, 144 or 576
+// points and carry about 40% of the contributions.  They cluster: on and
+// next to the diagonal, and in the padding rows, whose centroids all sit
+// on the first hull panel.  The first version (one thread per pair) ran a
+// warp as long as its nearest pair, 3.1-3.3x the trips its pairs needed.
+// A block that works through its own tile's near pairs is no cure: the
+// heaviest tiles then set the end of the launch (32-row tiles ran 1.7x
+// slower than 8-row ones), and small tiles spend the launch in their own
+// short serial chains (stage, barrier, classify, store).
 //
-// Design.
-//   * One launch over square tiles: a block owns 32 field rows x 32 source
-//     columns and stages the tile's source side (vertices, centroid, area,
-//     diagonal, lid flag, mask, self potential) and field side (centroid,
-//     normal) in shared memory with coalesced loads, with the points of
-//     the two far levels (ns 1 and 3).
-//   * Far pass: each warp takes four field rows, a lane per source column,
-//     and classifies its pairs.  A pair whose direct and image levels both
-//     have at most 9 points (at most 18 contributions) is computed in
-//     place, in the plain version's order: levels ascending, points in
-//     order, a point's direct contribution before its image one.  Every
-//     other pair is appended to the block's near list in shared memory
-//     (one shared atomic per warp and row, by ballot).
-//   * Near pass: after a barrier the block stages the remaining 756
-//     points (only if its list is not empty), and its eight warps work
-//     through the list one pair per warp.  The pair's contributions, the
-//     direct level's points then the image level's, are dealt to the lanes
-//     in turn (lane l takes l, l + 32, ...); each lane sums its own in
-//     order, a shuffle tree (xor 16, 8, 4, 2, 1) adds the lanes, and lane
-//     0 stores.  The list's order may vary from run to run, but each pair
-//     is summed by one warp in a fixed order, so two calls give the same
-//     bits.  The many blocks (1,024 at 1,024 panels) even out the heavier
-//     diagonal tiles across the SMs; no global list, no second launch.
+// Design: one cooperative launch of as many blocks as fit on the card at
+// once (raft_tpu_torch/tools/k3_compare.py times it against the older
+// sources).
+//   * Far pass, tile by tile (16 field rows x 32 source columns; tiles
+//     b, b + G, b + 2G, ... for block b of G): the tile's source side
+//     (vertices, centroid, area, diagonal, lid flag, mask, self potential)
+//     and field side (centroid, normal) are staged in shared memory with
+//     coalesced loads.  A thread takes one source column and two field
+//     rows at once, so each point's position serves both.  A pair whose
+//     direct and image levels both have at most 9 points (at most 18
+//     contributions) is computed in place, in the plain version's order:
+//     levels ascending, points in order, a point's direct contribution
+//     before its image one.  Every other pair is appended to the block's
+//     near list in device memory (one shared atomic per warp and row, by
+//     ballot).
+//   * A grid-wide barrier, then the near pass: every warp of the launch
+//     takes near pairs of all blocks' lists in turn (warp w of W takes
+//     pairs w, w + W, ...), so the clustered near work is spread over the
+//     whole card.  A pair's contributions, the direct level's points then
+//     the image level's, are dealt to the lanes in turn (lane l takes l,
+//     l + 32, ...); each lane sums its own in order, a shuffle tree (xor
+//     16, 8, 4, 2, 1) adds the lanes, and lane 0 stores.  Which warp takes
+//     a pair may vary, but each pair is summed in one fixed order, so two
+//     calls give the same bits.
 //   * Rounding: the quantities that choose a pair's level (dist, distI,
 //     rel, relI) round one operation at a time with the _rn intrinsics,
 //     in the plain version's order, so every pair takes the plain
 //     version's level.  The rest may contract into fused multiply-adds;
 //     each contribution takes ir = rsqrt(r2), ir^3 = ir ir ir.
-//   * near_count (may be null) receives the number of near pairs, for a
-//     check against the plain version's levels; the path passes null.
+//   * The near lists and their lengths live in a workspace the wrapper
+//     allocates (bem_rankine_workspace_* words of int32); near_count (may
+//     be null) receives the number of near pairs, for a check against the
+//     plain version's levels; the path passes null.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 #ifndef K3_TILE_ROWS
-#define K3_TILE_ROWS 8
+#define K3_TILE_ROWS 16
 #endif
-constexpr int kRows = K3_TILE_ROWS;         // field rows of a block's tile
-constexpr int kCols = 32;                   // source columns of a block's tile: a lane each
+constexpr int kRows = K3_TILE_ROWS;         // field rows of a tile
+constexpr int kCols = 32;                   // source columns of a tile: a lane each
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = kRows / kWarps;
 static_assert(kRows % kWarps == 0 && kRows <= 32, "a tile has 8, 16, 24 or 32 rows");
+constexpr int kMaxBlocks = 2048;            // blocks of a launch, at most
 constexpr int kNQ = 766;                    // subdivision points of all levels
 constexpr int kFarLevel = 1;                // the far pass takes levels 0 and 1 (ns 1, 3)
 constexpr int kNQFar = 10;                  // their points
@@ -117,25 +126,25 @@ __device__ __forceinline__ int level_image(T rel) {
 template <typename T>
 struct Shared {
   T u[kNQ], v[kNQ], w[kNQ];                 // subdivision points
-  T p[12][kCols];                           // source vertices, component-major
+  T p[12][kCols];                           // the tile's source side, component-major
   T cj[3][kCols], area[kCols], diag[kCols], mask[kCols], spot[kCols];
   bool lid[kCols];
-  T ci[3][kRows], ni[3][kRows];             // field centroids and normals
-  unsigned short near[kRows * kCols];       // row | col << 5 | (sel_d + 1) << 10 | (sel_i + 1) << 13
+  T ci[3][kRows], ni[3][kRows];             // the tile's field side
+  int start[kMaxBlocks + 1];                // first near pair of each block's list
   int count;
 };
 
-// point q of source column j: position and weight
+// point q of a source panel: position and weight
 template <typename T>
-__device__ __forceinline__ void point(const Shared<T>& s, int q, int j, T& px, T& py, T& pz,
-                                      T& dA) {
-  const T u = s.u[q], v = s.v[q];
-  const T c00 = (T(1) - u) * (T(1) - v), c10 = u * (T(1) - v);
-  const T c11 = u * v, c01 = (T(1) - u) * v;
-  px = c00 * s.p[0][j] + c10 * s.p[3][j] + c11 * s.p[6][j] + c01 * s.p[9][j];
-  py = c00 * s.p[1][j] + c10 * s.p[4][j] + c11 * s.p[7][j] + c01 * s.p[10][j];
-  pz = c00 * s.p[2][j] + c10 * s.p[5][j] + c11 * s.p[8][j] + c01 * s.p[11][j];
-  dA = s.area[j] * s.w[q];
+__device__ __forceinline__ void point(const T* u, const T* v, const T* w, int q,
+                                      const T (&p)[12], T area, T& px, T& py, T& pz, T& dA) {
+  const T uq = u[q], vq = v[q];
+  const T c00 = (T(1) - uq) * (T(1) - vq), c10 = uq * (T(1) - vq);
+  const T c11 = uq * vq, c01 = (T(1) - uq) * vq;
+  px = c00 * p[0] + c10 * p[3] + c11 * p[6] + c01 * p[9];
+  py = c00 * p[1] + c10 * p[4] + c11 * p[7] + c01 * p[10];
+  pz = c00 * p[2] + c10 * p[5] + c11 * p[8] + c01 * p[11];
+  dA = area * w[q];
 }
 
 // one point source of strength dA at p seen from the field point c_i
@@ -154,127 +163,211 @@ __device__ __forceinline__ void contrib(T cx, T cy, T cz, T nx, T ny, T nz,
 
 // exact self term on the diagonal, column mask, store
 template <typename T>
-__device__ __forceinline__ void finish(const Shared<T>& s, int i, int j, int jl, int n, T pot,
-                                       T dn, T* __restrict__ R_pot, T* __restrict__ R_dn) {
-  if (i == j) pot = pot + s.spot[jl] * (T(1) + (s.lid[jl] ? T(1) : T(0)));
-  const T m = s.mask[jl];
+__device__ __forceinline__ void finish(int i, int j, int n, T pot, T dn, T spot, T lid, T mask,
+                                       T* __restrict__ R_pot, T* __restrict__ R_dn) {
+  if (i == j) pot = pot + spot * (T(1) + lid);
   const size_t o = static_cast<size_t>(i) * n + j;
-  R_pot[o] = pot * m;
-  R_dn[o] = dn * m;
+  R_pot[o] = pot * mask;
+  R_dn[o] = dn * mask;
 }
 
+// a near pair: tile k of its block's sequence (high 16 bits); row | col << 5 |
+// (sel_d + 1) << 10 | (sel_i + 1) << 13 within the tile (low 16 bits)
+__device__ __forceinline__ unsigned near_code(int k, int r, int col, int sel_d, int sel_i) {
+  return (static_cast<unsigned>(k) << 16) | static_cast<unsigned>(
+      r | (col << 5) | ((sel_d + 1) << 10) | ((sel_i + 1) << 13));
+}
+
+// the list that holds near pair e: the last lo in [lo, hi) with start[lo] <= e
+__device__ __forceinline__ int list_of(const int* start, int lo, int hi, int e) {
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (start[mid] <= e) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// At most 80 registers a thread, so three blocks share an SM: in f64 the
+// far pass's two rows in flight would take 114 and leave two.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __restrict__ nrm,
                const T* __restrict__ area, const T* __restrict__ diag,
                const T* __restrict__ mask, const bool* __restrict__ lids,
                const T* __restrict__ spot, const T* __restrict__ us,
-               const T* __restrict__ vs, const T* __restrict__ wf, int n,
-               T* __restrict__ R_pot, T* __restrict__ R_dn, int* __restrict__ near_count) {
+               const T* __restrict__ vs, const T* __restrict__ wf, int n, int cap,
+               T* __restrict__ R_pot, T* __restrict__ R_dn, int* work,
+               int* __restrict__ near_count) {
   __shared__ Shared<T> s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i0 = blockIdx.y * kRows, j0 = blockIdx.x * kCols;
-  const int ni = min(kRows, n - i0), nj = min(kCols, n - j0);
+  const int blocks = gridDim.x, b = blockIdx.x;
+  const int tiles_j = (n + kCols - 1) / kCols, tiles = tiles_j * ((n + kRows - 1) / kRows);
+  int* lengths = work;                       // near pairs in each block's list
+  unsigned* list = reinterpret_cast<unsigned*>(work + blocks) + static_cast<size_t>(b) * cap;
 
-  // stage the tile's two sides and the far levels' points
-  for (int e = tid; e < 12 * nj; e += kThreads) s.p[e % 12][e / 12] = pans[12 * j0 + e];
-  for (int e = tid; e < 3 * nj; e += kThreads) s.cj[e % 3][e / 3] = c[3 * j0 + e];
-  for (int e = tid; e < 3 * ni; e += kThreads) {
-    s.ci[e % 3][e / 3] = c[3 * i0 + e];
-    s.ni[e % 3][e / 3] = nrm[3 * i0 + e];
-  }
-  if (tid < nj) {
-    s.area[tid] = area[j0 + tid];
-    s.diag[tid] = diag[j0 + tid];
-    s.mask[tid] = mask[j0 + tid];
-    s.spot[tid] = spot[j0 + tid];
-    s.lid[tid] = lids[j0 + tid];
-  }
   if (tid < kNQFar) {
     s.u[tid] = us[tid];
     s.v[tid] = vs[tid];
     s.w[tid] = wf[tid];
   }
   if (tid == 0) s.count = 0;
-  __syncthreads();
 
-  // far pass: a lane per source column, four field rows per warp
-  for (int k = 0; k < kRowsPerWarp; ++k) {
-    const int r = warp + kWarps * k;
-    const int i = i0 + r, j = j0 + lane;
-    const bool live = r < ni && lane < nj;
-    int sel_d = -1, sel_i = -1;
-    T cix = T(0), ciy = T(0), ciz = T(0);
-    if (live) {
-      cix = s.ci[0][r];
-      ciy = s.ci[1][r];
-      ciz = s.ci[2][r];
-      const T dx = cix - s.cj[0][lane], dy = ciy - s.cj[1][lane];
-      const T dist = safe_norm_rn(dx, dy, ciz - s.cj[2][lane]);
-      const T distI = safe_norm_rn(dx, dy, ciz + s.cj[2][lane]);
-      const T dg = s.diag[lane];
-      const bool ok = dg > T(1e-9);
-      sel_d = level_direct(ok ? div_rn(dist, dg) : T(1e9));
-      sel_i = level_image(ok ? div_rn(distI, dg) : T(1e9));
-      if (i == j) {
-        sel_d = -1;                          // exact self term instead
-        if (s.lid[lane]) sel_i = -1;         // lid at z = 0: its image is itself
+  // far pass, tile by tile
+  for (int k = 0, tile = b; tile < tiles; ++k, tile += blocks) {
+    const int i0 = (tile / tiles_j) * kRows, j0 = (tile % tiles_j) * kCols;
+    const int ni = min(kRows, n - i0), nj = min(kCols, n - j0);
+    __syncthreads();                         // the previous tile is done with s
+    for (int e = tid; e < 12 * nj; e += kThreads) s.p[e % 12][e / 12] = pans[12 * j0 + e];
+    for (int e = tid; e < 3 * nj; e += kThreads) s.cj[e % 3][e / 3] = c[3 * j0 + e];
+    for (int e = tid; e < 3 * ni; e += kThreads) {
+      s.ci[e % 3][e / 3] = c[3 * i0 + e];
+      s.ni[e % 3][e / 3] = nrm[3 * i0 + e];
+    }
+    if (tid < nj) {
+      s.area[tid] = area[j0 + tid];
+      s.diag[tid] = diag[j0 + tid];
+      s.mask[tid] = mask[j0 + tid];
+      s.spot[tid] = spot[j0 + tid];
+      s.lid[tid] = lids[j0 + tid];
+    }
+    __syncthreads();
+    // the thread's pairs: column j, rows warp, warp + 8, ... (kRowsPerWarp)
+    const int j = j0 + lane;
+    const bool col = lane < nj;
+    int sel_d[kRowsPerWarp], sel_i[kRowsPerWarp];
+    bool far[kRowsPerWarp];
+#pragma unroll
+    for (int kr = 0; kr < kRowsPerWarp; ++kr) {
+      const int r = warp + kWarps * kr;
+      const bool live = col && r < ni;
+      int d = -1, im = -1;
+      if (live) {
+        const T dx = s.ci[0][r] - s.cj[0][lane], dy = s.ci[1][r] - s.cj[1][lane];
+        const T dist = safe_norm_rn(dx, dy, s.ci[2][r] - s.cj[2][lane]);
+        const T distI = safe_norm_rn(dx, dy, s.ci[2][r] + s.cj[2][lane]);
+        const T dg = s.diag[lane];
+        const bool ok = dg > T(1e-9);
+        d = level_direct(ok ? div_rn(dist, dg) : T(1e9));
+        im = level_image(ok ? div_rn(distI, dg) : T(1e9));
+        if (i0 + r == j) {
+          d = -1;                            // exact self term instead
+          if (s.lid[lane]) im = -1;          // lid at z = 0: its image is itself
+        }
       }
+      const bool near = live && (d > kFarLevel || im > kFarLevel);
+      const unsigned ballot = __ballot_sync(kFull, near);
+      if (ballot != 0u) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(&s.count, __popc(ballot));
+        base = __shfl_sync(kFull, base, 0);
+        if (near)
+          list[base + __popc(ballot & ((1u << lane) - 1u))] = near_code(k, r, lane, d, im);
+      }
+      sel_d[kr] = d;
+      sel_i[kr] = im;
+      far[kr] = live && !near;
     }
-    const bool near = live && (sel_d > kFarLevel || sel_i > kFarLevel);
-    const unsigned ballot = __ballot_sync(kFull, near);
-    if (ballot != 0u) {
-      int base = 0;
-      if (lane == 0) base = atomicAdd(&s.count, __popc(ballot));
-      base = __shfl_sync(kFull, base, 0);
-      if (near)
-        s.near[base + __popc(ballot & ((1u << lane) - 1u))] = static_cast<unsigned short>(
-            r | (lane << 5) | ((sel_d + 1) << 10) | ((sel_i + 1) << 13));
-    }
-    if (!live || near) continue;
-    const T nix = s.ni[0][r], niy = s.ni[1][r], niz = s.ni[2][r];
-    T pot = T(0), dn = T(0);
+    // far pass: each point's position once for the thread's rows; levels
+    // ascending, points in order, a point's direct contribution before its
+    // image one
+    T p[12];
+#pragma unroll
+    for (int e = 0; e < 12; ++e) p[e] = col ? s.p[e][lane] : T(0);
+    const T area_j = col ? s.area[lane] : T(0);
+    T pot[kRowsPerWarp], dn[kRowsPerWarp];
+#pragma unroll
+    for (int kr = 0; kr < kRowsPerWarp; ++kr) pot[kr] = dn[kr] = T(0);
     for (int lv = 0; lv <= kFarLevel; ++lv) {
-      const bool dd = lv == sel_d, di = lv == sel_i;
-      if (!dd && !di) continue;
+      bool any = false;
+#pragma unroll
+      for (int kr = 0; kr < kRowsPerWarp; ++kr)
+        any |= far[kr] && (sel_d[kr] == lv || sel_i[kr] == lv);
+      if (!any) continue;
       const int q0 = kLevelStart[lv], q1 = q0 + kLevelCount[lv];
       for (int q = q0; q < q1; ++q) {
         T px, py, pz, dA;
-        point(s, q, lane, px, py, pz, dA);
-        if (dd) contrib(cix, ciy, ciz, nix, niy, niz, px, py, pz, dA, pot, dn);
-        if (di) contrib(cix, ciy, ciz, nix, niy, niz, px, py, -pz, dA, pot, dn);
+        point(s.u, s.v, s.w, q, p, area_j, px, py, pz, dA);
+#pragma unroll
+        for (int kr = 0; kr < kRowsPerWarp; ++kr) {
+          const int r = warp + kWarps * kr;
+          const T cx = s.ci[0][r], cy = s.ci[1][r], cz = s.ci[2][r];
+          const T nx = s.ni[0][r], ny = s.ni[1][r], nz = s.ni[2][r];
+          if (far[kr] && sel_d[kr] == lv) contrib(cx, cy, cz, nx, ny, nz, px, py, pz, dA,
+                                                  pot[kr], dn[kr]);
+          if (far[kr] && sel_i[kr] == lv) contrib(cx, cy, cz, nx, ny, nz, px, py, -pz, dA,
+                                                  pot[kr], dn[kr]);
+        }
       }
     }
-    finish(s, i, j, lane, n, pot, dn, R_pot, R_dn);
+#pragma unroll
+    for (int kr = 0; kr < kRowsPerWarp; ++kr)
+      if (far[kr])
+        finish(i0 + warp + kWarps * kr, j, n, pot[kr], dn[kr], s.spot[lane],
+               s.lid[lane] ? T(1) : T(0), s.mask[lane], R_pot, R_dn);
   }
   __syncthreads();
-
-  // near pass: one pair per warp, its contributions dealt to the lanes
-  const int count = s.count;
-  if (count > 0) {                           // the same for the whole block
-    for (int q = kNQFar + tid; q < kNQ; q += kThreads) {
-      s.u[q] = us[q];
-      s.v[q] = vs[q];
-      s.w[q] = wf[q];
-    }
-    __syncthreads();
+  if (tid == 0) lengths[b] = s.count;
+  for (int q = kNQFar + tid; q < kNQ; q += kThreads) {
+    s.u[q] = us[q];
+    s.v[q] = vs[q];
+    s.w[q] = wf[q];
   }
-  for (int e = warp; e < count; e += kWarps) {
-    const unsigned code = s.near[e];
-    const int r = code & 31, jl = (code >> 5) & 31;
+  cg::this_grid().sync();
+
+  // near pass: warp w of the launch takes near pairs w, w + W, ... of all lists
+  if (warp == 0) {                           // the lists' starts, by a warp-wide scan
+    int carry = 0;
+    for (int b0 = 0; b0 < blocks; b0 += 32) {
+      const int x = b0 + lane < blocks ? lengths[b0 + lane] : 0;
+      int incl = x;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (b0 + lane < blocks) s.start[b0 + lane] = carry + incl - x;
+      carry += __shfl_sync(kFull, incl, 31);
+    }
+    if (lane == 0) s.start[blocks] = carry;
+  }
+  __syncthreads();
+  const int total = s.start[blocks];
+  const int warps = blocks * kWarps;
+  const unsigned* lists = reinterpret_cast<const unsigned*>(work + blocks);
+  int e = b * kWarps + warp;
+  int owner = e < total ? list_of(s.start, 0, blocks, e) : 0;
+  unsigned code = e < total ? lists[static_cast<size_t>(owner) * cap + (e - s.start[owner])] : 0u;
+  while (e < total) {
+    const int tile = owner + static_cast<int>(code >> 16) * blocks;
+    const int i = (tile / tiles_j) * kRows + static_cast<int>(code & 31u);
+    const int j = (tile % tiles_j) * kCols + static_cast<int>((code >> 5) & 31u);
     const int sel_d = static_cast<int>((code >> 10) & 7u) - 1;
     const int sel_i = static_cast<int>((code >> 13) & 7u) - 1;
+    // everything the pair reads, issued together
+    const T cix = c[3 * i], ciy = c[3 * i + 1], ciz = c[3 * i + 2];
+    const T nix = nrm[3 * i], niy = nrm[3 * i + 1], niz = nrm[3 * i + 2];
+    T p[12];
+#pragma unroll
+    for (int e2 = 0; e2 < 12; ++e2) p[e2] = pans[12 * j + e2];
+    const T area_j = area[j], spot_j = spot[j], mask_j = mask[j];
+    const T lid_j = lids[j] ? T(1) : T(0);
+    // the next pair's list entry, while this one computes
+    const int e_next = e + warps;
+    int owner_next = owner;
+    unsigned code_next = 0;
+    if (e_next < total) {
+      owner_next = list_of(s.start, owner, blocks, e_next);
+      code_next = lists[static_cast<size_t>(owner_next) * cap + (e_next - s.start[owner_next])];
+    }
     const int nd = sel_d >= 0 ? kLevelCount[sel_d] : 0;
     const int nt = nd + (sel_i >= 0 ? kLevelCount[sel_i] : 0);
     const int qd = sel_d >= 0 ? kLevelStart[sel_d] : 0;
     const int qi = (sel_i >= 0 ? kLevelStart[sel_i] : 0) - nd;
-    const T cix = s.ci[0][r], ciy = s.ci[1][r], ciz = s.ci[2][r];
-    const T nix = s.ni[0][r], niy = s.ni[1][r], niz = s.ni[2][r];
     T pot = T(0), dn = T(0);
     for (int k = lane; k < nt; k += 32) {
       const bool img = k >= nd;
       T px, py, pz, dA;
-      point(s, img ? qi + k : qd + k, jl, px, py, pz, dA);
+      point(s.u, s.v, s.w, img ? qi + k : qd + k, p, area_j, px, py, pz, dA);
       contrib(cix, ciy, ciz, nix, niy, niz, px, py, img ? -pz : pz, dA, pot, dn);
     }
 #pragma unroll
@@ -282,46 +375,97 @@ rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __r
       pot = pot + __shfl_xor_sync(kFull, pot, off);
       dn = dn + __shfl_xor_sync(kFull, dn, off);
     }
-    if (lane == 0) finish(s, i0 + r, j0 + jl, jl, n, pot, dn, R_pot, R_dn);
+    if (lane == 0) finish(i, j, n, pot, dn, spot_j, lid_j, mask_j, R_pot, R_dn);
+    e = e_next;
+    owner = owner_next;
+    code = code_next;
   }
-  if (near_count != nullptr && tid == 0) atomicAdd(near_count, count);
+  if (near_count != nullptr && b == 0 && tid == 0) atomicAdd(near_count, total);
+}
+
+// blocks of one launch (all resident at once, as a cooperative launch
+// needs), its tiles' near-list capacity per block, and the workspace words
+template <typename T>
+cudaError_t plan(long long n, int& blocks, int& cap, long long& words) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rankine_kernel<T>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = ((n + kCols - 1) / kCols) * ((n + kRows - 1) / kRows);
+  long long g = static_cast<long long>(sms) * per_sm;
+  if (g > kMaxBlocks) g = kMaxBlocks;
+  if (g > tiles) g = tiles;
+  const long long per_block = (tiles + g - 1) / g;    // a tile's place in a code: 16 bits
+  if (per_block > 65535 || per_block * kRows * kCols > 0x7fffffffLL) return cudaErrorInvalidValue;
+  blocks = static_cast<int>(g);
+  cap = static_cast<int>(per_block) * kRows * kCols;
+  words = g + g * cap;
+  return cudaSuccess;
 }
 
 template <typename T>
 int launch(const void* pans, const void* c, const void* nrm, const void* area,
            const void* diag, const void* mask, const void* lids, const void* spot,
            const void* us, const void* vs, const void* wf, long long n,
-           void* R_pot, void* R_dn, void* near_count, void* stream) {
+           void* R_pot, void* R_dn, void* work, long long work_words, void* near_count,
+           void* stream) {
   if (n == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
-                  static_cast<unsigned>((n + kRows - 1) / kRows));
-  rankine_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pans), static_cast<const T*>(c), static_cast<const T*>(nrm),
-      static_cast<const T*>(area), static_cast<const T*>(diag), static_cast<const T*>(mask),
-      static_cast<const bool*>(lids), static_cast<const T*>(spot), static_cast<const T*>(us),
-      static_cast<const T*>(vs), static_cast<const T*>(wf), static_cast<int>(n),
-      static_cast<T*>(R_pot), static_cast<T*>(R_dn), static_cast<int*>(near_count));
+  int blocks = 0, cap = 0;
+  long long words = 0;
+  cudaError_t err = plan<T>(n, blocks, cap, words);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (work_words < words) return static_cast<int>(cudaErrorInvalidValue);
+  const T *a_pans = static_cast<const T*>(pans), *a_c = static_cast<const T*>(c),
+          *a_nrm = static_cast<const T*>(nrm), *a_area = static_cast<const T*>(area),
+          *a_diag = static_cast<const T*>(diag), *a_mask = static_cast<const T*>(mask),
+          *a_spot = static_cast<const T*>(spot), *a_us = static_cast<const T*>(us),
+          *a_vs = static_cast<const T*>(vs), *a_wf = static_cast<const T*>(wf);
+  const bool* a_lids = static_cast<const bool*>(lids);
+  int a_n = static_cast<int>(n), a_cap = cap;
+  T *a_pot = static_cast<T*>(R_pot), *a_dn = static_cast<T*>(R_dn);
+  int *a_work = static_cast<int*>(work), *a_count = static_cast<int*>(near_count);
+  void* args[] = {&a_pans, &a_c, &a_nrm, &a_area, &a_diag, &a_mask, &a_lids, &a_spot,
+                  &a_us, &a_vs, &a_wf, &a_n, &a_cap, &a_pot, &a_dn, &a_work, &a_count};
+  err = cudaLaunchCooperativeKernel((const void*)rankine_kernel<T>, dim3(blocks),
+                                    dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+long long workspace(long long n) {
+  int blocks = 0, cap = 0;
+  long long words = 0;
+  return plan<T>(n, blocks, cap, words) == cudaSuccess ? words : -1;
 }
 
 }  // namespace
 
 extern "C" {
 
+// int32 words of the workspace a launch at n panels needs (-1 on a CUDA error)
+long long bem_rankine_workspace_f32(long long n) { return workspace<float>(n); }
+long long bem_rankine_workspace_f64(long long n) { return workspace<double>(n); }
+
 int bem_rankine_f32(const void* pans, const void* c, const void* nrm, const void* area,
                     const void* diag, const void* mask, const void* lids, const void* spot,
                     const void* us, const void* vs, const void* wf, long long n,
-                    void* R_pot, void* R_dn, void* near_count, void* stream) {
-  return launch<float>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n,
-                       R_pot, R_dn, near_count, stream);
+                    void* R_pot, void* R_dn, void* work, long long work_words,
+                    void* near_count, void* stream) {
+  return launch<float>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n, R_pot, R_dn,
+                       work, work_words, near_count, stream);
 }
 
 int bem_rankine_f64(const void* pans, const void* c, const void* nrm, const void* area,
                     const void* diag, const void* mask, const void* lids, const void* spot,
                     const void* us, const void* vs, const void* wf, long long n,
-                    void* R_pot, void* R_dn, void* near_count, void* stream) {
-  return launch<double>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n,
-                        R_pot, R_dn, near_count, stream);
+                    void* R_pot, void* R_dn, void* work, long long work_words,
+                    void* near_count, void* stream) {
+  return launch<double>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n, R_pot, R_dn,
+                        work, work_words, near_count, stream);
 }
 
 }  // extern "C"

@@ -1,26 +1,27 @@
-"""Kernel K3 timed in turns against an older K3 source on the card.
+"""Kernel K3 timed in turns against older K3 sources on the card.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 -m raft_tpu_torch.tools.k3_compare --old path/to/bem_rankine.cu
+    python3 -m raft_tpu_torch.tools.k3_compare NAME=path/to/bem_rankine.cu[@ROWS] ...
 
-K3 (``raft_tpu_torch/csrc/bem_rankine.cu``, through
-``cuda_bem.rankine_assembly``: tiles of 8 field rows x 32 source columns)
-is built as the port builds it, and the same source again with tiles of
-16 and 32 rows (``-DK3_TILE_ROWS``).  The older source, with the C
-interface of the port's first K3 (lid flags in the working type, no
-near-pair counter), is built with the port's flags and ``-fmad=false``,
-as that K3 was.  All run behind a wrapper that stages the quadrature
-once and casts the lid flags once, outside the timed call, so each timed
-call is the kernel alone.
+K3 (``raft_tpu_torch/csrc/bem_rankine.cu`` through
+``cuda_bem.rankine_assembly``) is built as the port builds it, and each
+named older source beside it, with the C interface that its text shows:
 
-On the VolturnUS-S hull (850 panels, the 1,024 class of the BEM
-staging) and the OC4semi hull with its waterplane lid (the 2,048 class),
-in float64 and float32, every version is held against the plain version
-and the tile variants against K3 bit for bit, and all are timed in turns
-(each in order, then in reverse order; 20 calls each, after an L2 flush
-and a device spin queued ahead of the start event).  ptxas' registers
-and spills are printed per build.
+* the port's first K3 (lid flags in the working type, no near-pair
+  counter), built with the port's flags and ``-fmad=false``, as it was;
+* a block-local K3 (bool lid flags and a near-pair counter, no
+  workspace), built with the port's flags and, after ``@``, the rows of
+  its tiles (``-DK3_TILE_ROWS``).
+
+Every version runs behind a wrapper that stages the quadrature and casts
+the lid flags once, outside the timed call, so each timed call is the
+kernel alone.  On the VolturnUS-S hull (850 panels, the 1,024 class of
+the BEM staging) and the OC4semi hull with its waterplane lid (the 2,048
+class), in float64 and float32, every version is held against the plain
+version and timed in turns (each in order, then in reverse order; 20
+calls each, after an L2 flush and a device spin queued ahead of the start
+event).  ptxas' registers and spills are printed per build.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ P, I = ctypes.c_void_p, ctypes.c_longlong
 
 def bem_case(name: str, lid: bool, dtype, dev):
     """A shipped design's padded panel mesh (dz_max 3, da_max 2) and its
-    geometry on the card: the K3 arguments."""
+    geometry on ``dev``: the K3 arguments, and a label."""
     design = load_design(DESIGNS / f"{name}.yaml")
     hull = mesh.mesh_design(design, dz_max=3.0, da_max=2.0)
     lid_p = mesh.mesh_lid(design, da_max=2.0) if lid else None
@@ -60,13 +61,47 @@ def bem_case(name: str, lid: bool, dtype, dev):
     return (pans, c, nrm, area, diag, pmt, ls, spot), label
 
 
+class Older:
+    """An older K3 library; :meth:`bind` gives a launcher on staged inputs
+    that returns (R_pot, R_dn)."""
+
+    def __init__(self, name: str, spec: str, work: Path):
+        path, _, rows = spec.partition("@")
+        text = Path(path).read_text()
+        self.name, self.first = name, "near_count" not in text
+        flags = ("-fmad=false",) if self.first else (
+            (f"-DK3_TILE_ROWS={rows}",) if rows else ())
+        self.lib = _nvcc(path, work / f"lib{name}.so", flags)
+        extra = [] if self.first else [P]
+        for fn in (self.lib.bem_rankine_f32, self.lib.bem_rankine_f64):
+            fn.argtypes, fn.restype = [P] * 11 + [I, P, P] + extra + [P], ctypes.c_int
+
+    def bind(self, kargs, quad):
+        dtype, dev = kargs[1].dtype, kargs[1].device
+        n = kargs[1].shape[0]
+        lids = kargs[6].to(dtype) if self.first else kargs[6]
+        ptrs = ([a.data_ptr() for a in kargs[:6]] + [lids.data_ptr(), kargs[7].data_ptr()]
+                + [q.data_ptr() for q in quad])
+        fn = self.lib.bem_rankine_f64 if dtype == torch.float64 else self.lib.bem_rankine_f32
+        extra = () if self.first else (None,)
+
+        def run():
+            R_pot = torch.empty((n, n), dtype=dtype, device=dev)
+            R_dn = torch.empty_like(R_pot)
+            nvcc.check(fn(*ptrs, n, R_pot.data_ptr(), R_dn.data_ptr(), *extra,
+                          nvcc.stream_of(dev)), self.name)
+            return R_pot, R_dn
+        run.lids = lids                       # the cast flags live as long as the launcher
+        return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: this script runs on the card", file=sys.stderr)
         return 2
-    args = sys.argv[1:]
-    if len(args) != 2 or args[0] != "--old":
-        print("usage: python3 -m raft_tpu_torch.tools.k3_compare --old bem_rankine.cu",
+    specs = [a.partition("=") for a in sys.argv[1:]]
+    if not specs or any(not name or not path for name, _, path in specs):
+        print("usage: python3 -m raft_tpu_torch.tools.k3_compare NAME=bem_rankine.cu[@ROWS] ...",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -78,17 +113,7 @@ def main() -> int:
         line.split(":", 1)[-1].strip()
         for line in (nvcc.build_log(cuda_bem.RANKINE) or "").splitlines()
         if "registers" in line or "spill" in line), sep="\n    ")
-    work = nvcc.BUILD_DIR / "k3_compare"
-    old = _nvcc(args[1], work / "libold.so", ("-fmad=false",))
-    for fn in (old.bem_rankine_f32, old.bem_rankine_f64):
-        fn.argtypes, fn.restype = [P] * 11 + [I, P, P, P], ctypes.c_int
-    rows = {}
-    for r in (16, 32):
-        lib = _nvcc(nvcc.CSRC / cuda_bem.RANKINE.source, work / f"librows{r}.so",
-                    (f"-DK3_TILE_ROWS={r}",))
-        for fn in (lib.bem_rankine_f32, lib.bem_rankine_f64):
-            fn.argtypes, fn.restype = [P] * 11 + [I, P, P, P, P], ctypes.c_int
-        rows[f"rows-{r}"] = lib
+    older = [Older(name, path, nvcc.BUILD_DIR / "k3_compare") for name, _, path in specs]
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
 
     for name, lid in (("VolturnUS-S", False), ("OC4semi", True)):
@@ -96,39 +121,15 @@ def main() -> int:
             dn = str(dtype).split(".")[-1]
             kargs, label = bem_case(name, lid, dtype, dev)
             quad = torch_bem.stage_quad(dtype, dev)
-            n = kargs[1].shape[0]
-            head = [a.data_ptr() for a in kargs[:6]]
-            tail = [kargs[7].data_ptr()] + [q.data_ptr() for q in quad]
-            f64 = dtype == torch.float64
-
-            def launcher(lib, name, lids, extra):
-                fn = lib.bem_rankine_f64 if f64 else lib.bem_rankine_f32
-
-                def run():
-                    R_pot = torch.empty((n, n), dtype=dtype, device=dev)
-                    R_dn = torch.empty_like(R_pot)
-                    nvcc.check(fn(*head, lids.data_ptr(), *tail, n, R_pot.data_ptr(),
-                                  R_dn.data_ptr(), *extra, nvcc.stream_of(dev)), name)
-                    return R_pot, R_dn
-                return run
-
-            fns = {"new": lambda: cuda_bem.rankine_assembly(*kargs, quad=quad)}
-            fns.update({name: launcher(lib, name, kargs[6], (None,)) for name, lib in rows.items()})
-            fns["old"] = launcher(old, "old", kargs[6].to(dtype), ())
+            fns = {"K3": lambda: cuda_bem.rankine_assembly(*kargs, quad=quad)}
+            fns.update({o.name: o.bind(kargs, quad) for o in older})
             ref = torch_bem.rankine_plain(*kargs, quad=quad)
-            new = fns["new"]()
-            line = []
-            for key, f in fns.items():
-                got = f()
-                err = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
-                same = all(torch.equal(g, h) for g, h in zip(got, new))
-                line.append(f"{key} {err:.2e}" + ("" if key in ("new", "old") else
-                                                  f" (== new bit for bit: {same})"))
+            errs = {key: max(float((g - r).abs().max() / r.abs().max())
+                             for g, r in zip(f(), ref)) for key, f in fns.items()}
             print(f"  K3 {dn} {label}: scale-relative diff from the plain version: "
-                  + ", ".join(line))
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
             t = in_turns(fns, flush)
-            print(f"  K3 {dn} {label} ms: " + ", ".join(f"{k} {v:.5f}" for k, v in t.items())
-                  + f"; old / new {t['old'] / t['new']:.2f}")
+            print(f"  K3 {dn} {label} ms: " + ", ".join(f"{k} {v:.5f}" for k, v in t.items()))
     return 0
 
 

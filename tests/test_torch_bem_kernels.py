@@ -169,6 +169,29 @@ def test_wrappers_take_the_plain_version_on_cpu(case, monkeypatch):
         cuda_bem.rankine_assembly(*(t.to("meta") for t in tg), spot.to("meta"))
 
 
+@pytest.mark.parametrize("dt", ["float64", "float32"])
+def test_wrappers_take_the_staged_quadrature_on_cpu(case, monkeypatch, dt):
+    """On CPU tensors K3's wrapper and its plain version give the same bits
+    with the quadrature staged by stage_tables (``quad=``, as solve_panels
+    passes it) as without, and launch nothing; the kernel's near-pair
+    counter has no plain counterpart and is refused."""
+    padded, pm, lm, tab = case
+    tdt = DTYPES[dt][0]
+    monkeypatch.setattr(cuda_bem, "LAUNCHES", {"rankine": 0, "wave": 0})
+    tg = _torch_geometry(padded, pm, lm, tdt)
+    spot = torch_bem.self_potential(tg[0], tg[1], tg[2])
+    quad = torch_bem.stage_tables(tab, tdt, "cpu")["quad"]
+    ref = torch_bem.rankine_plain(*tg, spot)
+    for got in (cuda_bem.rankine_assembly(*tg, spot, quad=quad),
+                cuda_bem.rankine_assembly(*tg, spot),
+                torch_bem.rankine_plain(*tg, spot, quad=quad)):
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert cuda_bem.LAUNCHES == {"rankine": 0, "wave": 0}
+    with pytest.raises(ValueError, match="near_count"):
+        cuda_bem.rankine_assembly(*tg, spot, quad=quad,
+                                  near_count=torch.zeros(1, dtype=torch.int32))
+
+
 def test_quadrature_layout_matches_jax_and_kernel():
     """The subdivision points, in the JAX package's order, and the level
     offsets compiled into bem_rankine.cu."""
