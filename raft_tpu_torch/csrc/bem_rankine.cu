@@ -187,8 +187,8 @@ __device__ __forceinline__ int list_of(const int* start, int lo, int hi, int e) 
   return lo;
 }
 
-// At most 80 registers a thread, so three blocks share an SM: in f64 the
-// far pass's two rows in flight would take 114 and leave two.
+// At most 80 registers a thread, so three blocks share an SM: unbounded,
+// the far pass's two rows in flight leave room for two in f64.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
 rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __restrict__ nrm,
