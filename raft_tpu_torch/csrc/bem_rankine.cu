@@ -70,10 +70,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef K3_TILE_ROWS
-#define K3_TILE_ROWS 16
-#endif
-constexpr int kRows = K3_TILE_ROWS;         // field rows of a tile
+constexpr int kRows = 16;                   // field rows of a tile
 constexpr int kCols = 32;                   // source columns of a tile: a lane each
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;

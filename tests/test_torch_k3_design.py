@@ -1,7 +1,7 @@
 """Kernel K3's redesign, checked on the CPU.
 
 The kernel (``raft_tpu_torch/csrc/bem_rankine.cu``) is one cooperative
-launch of G blocks.  Block b works through tiles b, b + G, ... of 32
+launch of G blocks.  Block b works through tiles b, b + G, ... of 16
 field rows x 32 source columns (the far pass): it decides each pair's
 levels with individually rounded operations, computes a pair whose two
 levels have at most 9 points a lane each, in the plain version's order,
@@ -44,8 +44,7 @@ def _constant(name: str) -> str:
     return m[1].strip()
 
 
-ROWS = int(re.search(r"#define K3_TILE_ROWS (\d+)", SOURCE)[1])
-COLS, WARPS = int(_constant("kCols")), int(_constant("kWarps"))
+ROWS, COLS, WARPS = (int(_constant(name)) for name in ("kRows", "kCols", "kWarps"))
 FAR_LEVEL = int(_constant("kFarLevel"))
 
 
