@@ -106,19 +106,17 @@ FD_H, FD_RTOL = 1e-4, 2e-3
 # roundoff; f32 at the JAX package's assembly-route bound INTERP_PARITY_RTOL
 TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
            "float32": {"rankine": 1e-4, "wave": 1e-4}}
-# floating-point operations counted from bem_rankine.cu, each add,
-# subtract, multiply, negation, division, sqrt and rsqrt one (a fused
-# multiply-add two): per pair, the two level selections and the masked
-# store; per subdivision point position and weight computed (in the far
-# pass once per point of a level that either of a thread's two pairs
-# needs, for both their integrals; in the near pass once per
-# contribution); per contribution, one point source (potential + normal
-# derivative); per near pair, the fold of the 32 lanes' two partial sums
-K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB, K3_FLOPS_NEAR = 22, 28, 22, 62
-# the far pass takes levels 0 and 1 (ns 1 and 3), and a pair with a higher
-# level goes to the near pass (bem_rankine.cu's kFarLevel); a far-pass
-# thread takes rows i and i + 8 of a 16-row tile (kRows, kWarps)
-K3_FAR_LEVEL, K3_TILE_ROWS, K3_ROW_STRIDE = 1, 16, 8
+# floating-point operations of K3's function, each add, subtract,
+# multiply, negation, division, sqrt and rsqrt one (a fused multiply-add
+# two), counted for the function and not for the kernel's layout: per
+# pair of an unmasked source column, the two level selections and the
+# store; per subdivision point position and weight, once per (unmasked
+# source panel, point of a level that some pair of its column needs); per
+# contribution, one point source (potential + normal derivative)
+K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB = 22, 28, 22
+# a pair with a level of 36 or more points (level ids above 1) is a near
+# pair: bem_rankine.cu's kFarLevel, for the check of its near-pass count
+K3_FAR_LEVEL = 1
 # counted from bem_wave.cu: each add, subtract and multiply is one
 # operation (a fused multiply-add two), and so is each division, sqrt,
 # rsqrt and transcendental call (exp, log, log1p, atan2; sin and cos one
@@ -170,9 +168,9 @@ def k2_bound_ms(n: int, itemsize: int, dtype_name: str):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str) -> dict:
+def k3_work(c, diag, panel_mask, lid_surface, itemsize: int, dtype_name: str) -> dict:
     """Pairs per level (``hist``), contributions per pair, near pairs (a
-    level of 36 or more points), operations and bytes of one K3 call on
+    level of 36 or more points), operations and bytes of K3's function on
     these inputs, and its bound (``bound_ms``, ``bound_by``)."""
     import torch
 
@@ -183,23 +181,18 @@ def k3_work(c, diag, lid_surface, itemsize: int, dtype_name: str) -> dict:
     count = torch.tensor((0,) + torch_bem.LEVEL_COUNT, device=c.device)   # id -1 -> 0
     cd, ci = count[sel_d.long() + 1], count[sel_i.long() + 1]
     near = (sel_d > K3_FAR_LEVEL) | (sel_i > K3_FAR_LEVEL)
-    points = int((cd + ci)[near].sum())
-    rows = -(-n // K3_TILE_ROWS) * K3_TILE_ROWS
-    for lv in range(K3_FAR_LEVEL + 1):
-        need = torch.zeros((rows, n), dtype=torch.bool, device=c.device)
-        need[:n] = ~near & ((sel_d == lv) | (sel_i == lv))
-        pairs = need.view(rows // K3_TILE_ROWS, K3_TILE_ROWS // K3_ROW_STRIDE, K3_ROW_STRIDE, n)
-        points += int(pairs.any(dim=1).sum()) * torch_bem.LEVEL_COUNT[lv]
+    col = (panel_mask > 0.5)[None, :]
+    points = sum(int((((sel_d == lv) | (sel_i == lv)) & col).any(dim=0).sum()) * nq
+                 for lv, nq in enumerate(torch_bem.LEVEL_COUNT))
     contribs = int((cd + ci).sum())
-    n_near = int(near.sum())
-    flops = (n * n * K3_FLOPS_PAIR + points * K3_FLOPS_POINT + contribs * K3_FLOPS_CONTRIB
-             + n_near * K3_FLOPS_NEAR)
+    flops = (n * int(col.sum()) * K3_FLOPS_PAIR + points * K3_FLOPS_POINT
+             + int(((cd + ci) * col).sum()) * K3_FLOPS_CONTRIB)
     nbytes = itemsize * (12 * n + 3 * n + 3 * n + 4 * n + 3 * 766 + 2 * n * n) + n
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
     hist = {"direct": torch.bincount(sel_d.flatten().long() + 1, minlength=6).tolist()[1:5],
             "image": torch.bincount(sel_i.flatten().long() + 1, minlength=6).tolist()[1:]}
-    return {"hist": hist, "per_pair": contribs / (n * n), "near_pairs": n_near,
-            "near_share": float((cd + ci)[near].sum()) / contribs,
+    return {"hist": hist, "per_pair": contribs / (n * n), "near_pairs": int(near.sum()),
+            "near_share": float((cd + ci)[near].sum()) / contribs, "mflop": flops / 1e6,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -696,7 +689,7 @@ class Smoke:
                 lim = TOL_BEM[dn]["rankine"]
                 self.check(finite and rel <= lim, f"K3 {dn} {case['label']}: scale-relative "
                            f"diff {rel:.3e} (limit {lim:.0e})")
-                wk = k3_work(args[1], args[4], args[6], torch.finfo(dtype).bits // 8, dn)
+                wk = k3_work(args[1], args[4], args[5], args[6], torch.finfo(dtype).bits // 8, dn)
                 same = all(torch.equal(g, h) for g, h in zip(got, again))
                 self.check(same and int(near.item()) == wk["near_pairs"],
                            f"K3 {dn} n={case['n']}: two calls give the same bits ({same}); "
@@ -705,7 +698,7 @@ class Smoke:
                 ms = self.time_ms(lambda: cuda_bem.rankine_assembly(*args, quad=quad))
                 plain_ms = self.time_ms(lambda: torch_bem.rankine_plain(*args, quad=quad), reps=2)
                 print(f"  K3 {dn} n={case['n']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                      f"bound {wk['bound_ms']:.4f} ms ({wk['bound_by']}); "
+                      f"bound {wk['bound_ms']:.4f} ms ({wk['bound_by']}; {wk['mflop']:.1f} MFLOP); "
                       f"{wk['per_pair']:.2f} contributions per pair, {wk['near_share']:.3f} of "
                       f"them in near pairs; pairs per level (ns 1/3/6/12[/24]) direct "
                       f"{wk['hist']['direct']}, image {wk['hist']['image']}; max abs diff "

@@ -3,13 +3,15 @@
 * K3 :func:`rankine_assembly` replaces the TPU kernel
   ``raft_tpu/core/pallas_bem.py::_rankine_kernel``: the Rankine direct +
   free-surface-image panel integrals, ``(R_pot, R_dn)`` (n, n).  Source
-  ``raft_tpu_torch/csrc/bem_rankine.cu``: a block per 32 x 32 tile of
-  pairs with both sides staged in shared memory; each pair visits only
-  its own levels' subdivision points (about 5 contributions a pair on the
-  shipped meshes, against 956 in the TPU kernel's masked dense loop).
-  Pairs of at most 9 points a level are computed a lane each; the others
-  (36, 144 or 576 points) go to a block-local list that the block's warps
-  work through one pair per warp.  Bound by operations.
+  ``raft_tpu_torch/csrc/bem_rankine.cu``: one cooperative launch.  A
+  far pass over tiles of 16 field rows x 32 source columns, both sides
+  staged in shared memory, computes a lane a pair every pair whose levels
+  have at most 9 points (each pair visits only its own levels'
+  subdivision points, about 5 contributions a pair on the shipped meshes,
+  against 956 in the TPU kernel's masked dense loop) and appends the
+  others (36, 144 or 576 points) to near lists in a workspace; after a
+  grid-wide barrier every warp of the launch takes near pairs from all
+  the lists, one pair a warp.
 * K4 :func:`wave_assembly` replaces ``pallas_bem.py::_wave_kernel``: the
   wave part of the Green function for a chunk of frequencies, combined
   into ``(S_re, S_im, Dn_re, Dn_im)`` (nf, n, n).  Source

@@ -18,10 +18,11 @@
 // What bounds it on an H100.  The TPU kernel evaluates all 766 points for
 // every pair and masks all but the pair's own levels; here a pair visits
 // only its own levels' points, about 5 contributions a pair on the shipped
-// meshes, each a point position, an rsqrt and a dozen multiply-adds: bound
-// by operations (f64 at 34 TFLOP/s), with the 2 n^2 outputs written in a
-// comparable time.  About 3.5% of the pairs have a level of 36, 144 or 576
-// points and carry about 40% of the contributions.  They cluster: on and
+// meshes, each an rsqrt and a dozen multiply-adds (a point's position is
+// needed once per source panel): bound by writing the 2 n^2 outputs, with
+// the operations (f64 at 34 TFLOP/s) taking a comparable time.  About
+// 3.5% of the pairs have a level of 36, 144 or 576 points and carry about
+// 40% of the contributions.  They cluster: on and
 // next to the diagonal, and in the padding rows, whose centroids all sit
 // on the first hull panel.  The first version (one thread per pair) ran a
 // warp as long as its nearest pair, 3.1-3.3x the trips its pairs needed.
@@ -31,8 +32,8 @@
 // short serial chains (stage, barrier, classify, store).
 //
 // Design: one cooperative launch of as many blocks as fit on the card at
-// once (raft_tpu_torch/tools/k3_compare.py times it against the older
-// sources).
+// once (raft_tpu_torch/tools/k3_compare.py times it against the port's
+// first K3 source).
 //   * Far pass, tile by tile (16 field rows x 32 source columns; tiles
 //     b, b + G, b + 2G, ... for block b of G): the tile's source side
 //     (vertices, centroid, area, diagonal, lid flag, mask, self potential)

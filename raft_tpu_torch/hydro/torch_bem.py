@@ -524,8 +524,10 @@ def _staged(a, dtype, device) -> Tensor:
 
 def stage_quad(dtype, device):
     """The subdivision points of :func:`quad_points` on ``device`` in
-    ``dtype``: ``(us, vs, wf)``, each (766,)."""
-    return tuple(_staged(a, dtype, device) for a in quad_points()[:3])
+    ``dtype``: ``(us, vs, wf)``, each (766,), the rows of one (3, 766)
+    array staged by one copy."""
+    us, vs, wf = _staged(np.stack(quad_points()[:3]), dtype, device)
+    return us, vs, wf
 
 
 def stage_tables(tab: dict, dtype, device) -> dict:

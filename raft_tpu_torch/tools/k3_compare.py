@@ -1,27 +1,24 @@
-"""Kernel K3 timed in turns against older K3 sources on the card.
+"""Kernel K3 timed in turns against the port's first K3 source on the card.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 -m raft_tpu_torch.tools.k3_compare NAME=path/to/bem_rankine.cu[@ROWS] ...
+    python3 -m raft_tpu_torch.tools.k3_compare --old path/to/bem_rankine.cu
 
 K3 (``raft_tpu_torch/csrc/bem_rankine.cu`` through
-``cuda_bem.rankine_assembly``) is built as the port builds it, and each
-named older source beside it, with the C interface that its text shows:
+``cuda_bem.rankine_assembly``) is built as the port builds it, and the
+port's first K3 source beside it (``--old``: lid flags in the working
+type, no near-pair counter, no workspace; e.g. ``git show
+94ae16b:raft_tpu_torch/csrc/bem_rankine.cu``) with the port's flags and
+``-fmad=false``, as it was built.
 
-* the port's first K3 (lid flags in the working type, no near-pair
-  counter), built with the port's flags and ``-fmad=false``, as it was;
-* a block-local K3 (bool lid flags and a near-pair counter, no
-  workspace), built with the port's flags and, after ``@``, the rows of
-  its tiles (``-DK3_TILE_ROWS``).
-
-Every version runs behind a wrapper that stages the quadrature and casts
-the lid flags once, outside the timed call, so each timed call is the
-kernel alone.  On the VolturnUS-S hull (850 panels, the 1,024 class of
-the BEM staging) and the OC4semi hull with its waterplane lid (the 2,048
-class), in float64 and float32, every version is held against the plain
-version and timed in turns (each in order, then in reverse order; 20
-calls each, after an L2 flush and a device spin queued ahead of the start
-event).  ptxas' registers and spills are printed per build.
+Both run behind a wrapper that stages the quadrature and casts the lid
+flags once, outside the timed call, so each timed call is the kernel
+alone.  On the VolturnUS-S hull (850 panels, the 1,024 class of the BEM
+staging) and the OC4semi hull with its waterplane lid (the 2,048 class),
+in float64 and float32, both are held against the plain version and
+timed in turns (each in order, then in reverse order; 20 calls each,
+after an L2 flush and a device spin queued ahead of the start event).
+ptxas' registers and spills are printed per build.
 """
 from __future__ import annotations
 
@@ -62,34 +59,28 @@ def bem_case(name: str, lid: bool, dtype, dev):
 
 
 class Older:
-    """An older K3 library; :meth:`bind` gives a launcher on staged inputs
-    that returns (R_pot, R_dn)."""
+    """The port's first K3 library; :meth:`bind` gives a launcher on staged
+    inputs that returns (R_pot, R_dn)."""
 
-    def __init__(self, name: str, spec: str, work: Path):
-        path, _, rows = spec.partition("@")
-        text = Path(path).read_text()
-        self.name, self.first = name, "near_count" not in text
-        flags = ("-fmad=false",) if self.first else (
-            (f"-DK3_TILE_ROWS={rows}",) if rows else ())
-        self.lib = _nvcc(path, work / f"lib{name}.so", flags)
-        extra = [] if self.first else [P]
+    def __init__(self, name: str, path: str, work: Path):
+        self.name = name
+        self.lib = _nvcc(path, work / f"lib{name}.so", ("-fmad=false",))
         for fn in (self.lib.bem_rankine_f32, self.lib.bem_rankine_f64):
-            fn.argtypes, fn.restype = [P] * 11 + [I, P, P] + extra + [P], ctypes.c_int
+            fn.argtypes, fn.restype = [P] * 11 + [I, P, P, P], ctypes.c_int
 
     def bind(self, kargs, quad):
         dtype, dev = kargs[1].dtype, kargs[1].device
         n = kargs[1].shape[0]
-        lids = kargs[6].to(dtype) if self.first else kargs[6]
+        lids = kargs[6].to(dtype)
         ptrs = ([a.data_ptr() for a in kargs[:6]] + [lids.data_ptr(), kargs[7].data_ptr()]
                 + [q.data_ptr() for q in quad])
         fn = self.lib.bem_rankine_f64 if dtype == torch.float64 else self.lib.bem_rankine_f32
-        extra = () if self.first else (None,)
 
         def run():
             R_pot = torch.empty((n, n), dtype=dtype, device=dev)
             R_dn = torch.empty_like(R_pot)
-            nvcc.check(fn(*ptrs, n, R_pot.data_ptr(), R_dn.data_ptr(), *extra,
-                          nvcc.stream_of(dev)), self.name)
+            nvcc.check(fn(*ptrs, n, R_pot.data_ptr(), R_dn.data_ptr(), nvcc.stream_of(dev)),
+                       self.name)
             return R_pot, R_dn
         run.lids = lids                       # the cast flags live as long as the launcher
         return run
@@ -99,9 +90,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: this script runs on the card", file=sys.stderr)
         return 2
-    specs = [a.partition("=") for a in sys.argv[1:]]
-    if not specs or any(not name or not path for name, _, path in specs):
-        print("usage: python3 -m raft_tpu_torch.tools.k3_compare NAME=bem_rankine.cu[@ROWS] ...",
+    if len(sys.argv) != 3 or sys.argv[1] != "--old":
+        print("usage: python3 -m raft_tpu_torch.tools.k3_compare --old bem_rankine.cu",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -113,7 +103,7 @@ def main() -> int:
         line.split(":", 1)[-1].strip()
         for line in (nvcc.build_log(cuda_bem.RANKINE) or "").splitlines()
         if "registers" in line or "spill" in line), sep="\n    ")
-    older = [Older(name, path, nvcc.BUILD_DIR / "k3_compare") for name, _, path in specs]
+    old = Older("pr4", sys.argv[2], nvcc.BUILD_DIR / "k3_compare")
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
 
     for name, lid in (("VolturnUS-S", False), ("OC4semi", True)):
@@ -121,8 +111,8 @@ def main() -> int:
             dn = str(dtype).split(".")[-1]
             kargs, label = bem_case(name, lid, dtype, dev)
             quad = torch_bem.stage_quad(dtype, dev)
-            fns = {"K3": lambda: cuda_bem.rankine_assembly(*kargs, quad=quad)}
-            fns.update({o.name: o.bind(kargs, quad) for o in older})
+            fns = {"K3": lambda: cuda_bem.rankine_assembly(*kargs, quad=quad),
+                   old.name: old.bind(kargs, quad)}
             ref = torch_bem.rankine_plain(*kargs, quad=quad)
             errs = {key: max(float((g - r).abs().max() / r.abs().max())
                              for g, r in zip(f(), ref)) for key, f in fns.items()}
