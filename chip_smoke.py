@@ -30,44 +30,60 @@ result line):
 5. the adjoints of K1 and K2 (``solve_rao_ad``, ``solve_cx_ad``) against
    autograd through the plain elimination on the card, float64, at the
    sweep's call shape;
-6. K3 (Rankine assembly) against its plain version on the VolturnUS-S hull
+6. the gradient guard: K1, K2, K3 and K4 called on the card with an input
+   that requires grad raise and name the scan driver, launching nothing,
+   as does ``forward_response(method="while")`` under autograd; the
+   default driver (scan) differentiates 4 north-star lanes through K1 and
+   its adjoint;
+7. K3 (Rankine assembly) against its plain version on the VolturnUS-S hull
    (1,024-panel class) and the OC4semi hull with its waterplane lid
    (2,048 class), float64 and float32, with the pairs per subdivision level:
    two calls give the same bits, the kernel's near pass takes as many pairs
    as ``pair_levels`` puts on a level of 36 or more points, and one call
    under the profiler runs K3's kernel alone (no copy, cast or sync);
-7. K4 (wave part) against its plain version on the same meshes, on a deep
+8. K4 (wave part) against its plain version on the same meshes, on a deep
    (1.5 rad/s) and a finite-depth (0.4 rad/s, 200 m) frequency chunk, and on
    every chunk of the north star's 48-frequency staging grid (one line per
    chunk: frequencies, deep or finite depth, the image evaluations per
    region of the wave integrals, kernel time against the bound); then K3
    and K4 at a panel count off the 64-panel classes (850, the hull
    unpadded);
-8. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
+9. ``run_raft`` on OC3spar, OC4semi and VolturnUS-S on the card in float64
    against the same run on the CPU (plain path);
-9. the strip-theory north-star sweep at full size (1,000 VolturnUS-S
+10. the strip-theory north-star sweep at full size (1,000 VolturnUS-S
    variants x 200 frequencies, float32) with its K1 launches counted, then
    a 16-lane subset in float64 through the kernel and through the plain
    solve on the card;
-10. ``Model(BEM="jax")`` on VolturnUS-S and OC4semi at full width in float64,
+11. ``Model(BEM="jax")`` on VolturnUS-S and OC4semi at full width in float64,
    once through K3/K4 and once through their plain versions on the card;
    and the VolturnUS-S panel solve in float32 against float64;
-11. the BEM-staged north star, whose K1, K3 and K4 launches are counted:
-   the nominal hull's panel solve on the card at 48 frequencies in float64,
-   interpolated to 200 and staged, then the 1,000 x 200 sweep in float32;
-   then a 16-lane float64 subset through K1 and through the plain solve;
-12. the co-design gradient, this slice's main path, whose K1 forward and
-   adjoint launches are counted: ``grad_nacelle_accel_std`` of the 1,000
-   VolturnUS-S plan-radius x draft variants x 200 frequencies (float32, the
-   staged BEM, scan loop at 25 iterations, chunks of 250), with the
-   forward-only time beside it; then a 4-lane float64 subset through the
-   kernels and through the plain solve, and against central differences;
-13. ``optimize_design`` (6 Adam steps) on VolturnUS-S with the staged BEM,
+12. the BEM-staged north star with the panel solve on the card, whose K1,
+   K3 and K4 launches are counted: the nominal hull's panel solve at 48
+   frequencies in float64, interpolated to 200 and staged, then the
+   1,000 x 200 sweep in float32; then a 16-lane float64 subset through K1
+   and through the plain solve;
+13. native BEM staging, the north star as ``bench.py`` stages it: the host
+   C++ solver (``raft_tpu_torch/native/bem.cpp``, built with g++, its wave
+   table built or loaded, both timed) solves the 850-panel hull at 48
+   frequencies and 200 m depth cold (no result cache), with the host's
+   core count printed; the card's staging (K3/K4) is held against it at
+   ``PARITY_RTOL``; then the 1,000 x 200 float32 sweep runs on the
+   native-staged coefficients, every lane converged;
+14. the co-design gradient, whose K1 forward and adjoint launches are
+   counted: ``grad_nacelle_accel_std`` of the 1,000 VolturnUS-S plan-radius
+   x draft variants x 200 frequencies (float32, the card-staged BEM, scan
+   loop at 25 iterations, chunks of 250), with the forward-only time beside
+   it; then a 4-lane float64 subset through the kernels and through the
+   plain solve, and against central differences;
+15. ``optimize_design`` (6 Adam steps) on VolturnUS-S with the staged BEM,
    and the OC3spar mooring-knob gradient on the card against the CPU;
-14. the sweeps and one gradient chunk again under ``torch.profiler``: device
+16. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    gradient chunk must run at least 75 device operations fewer than the same
    chunk with the adjoint's transposed copies, profiled in the same call.
+
+Every BEM solve here passes ``cache=False``, so each phase runs its
+solver and no result is read from the on-disk cache.
 
 ``--phases a,b`` runs only the named phases (for debugging; the names are
 those printed after ``==``).  The last lines are the kernels JSON record,
@@ -316,6 +332,8 @@ class Smoke:
         self.main_launches: dict = {}
         self.record_grad: dict = {}
         self.staged = None
+        self.staged_std = None
+        self.record_native: dict = {}
         self._cases: dict = {}
         self.dev = torch.device("cuda")
         self._flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=self.dev)
@@ -970,7 +988,7 @@ class Smoke:
         m.setEnv(Hs=8.0, Tp=12.0, V=10.0, beta=0.0,
                  Fthrust=float(design.get("turbine", {}).get("Fthrust", 0.0)))
         t0 = time.perf_counter()
-        m.calcBEM()
+        m.calcBEM(cache=False)
         torch.cuda.synchronize()
         t_bem = time.perf_counter() - t0
         if full:
@@ -1045,8 +1063,9 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         self.zero_counts()
         t0 = time.perf_counter()
-        staged, diag = stage_north_star_bem(nw=nw, nw_bem=48, dtype=torch.float64,
-                                            device="cuda", return_diagnostics=True)
+        staged, diag = stage_north_star_bem(nw=nw, nw_bem=48, mode="jax", cache=False,
+                                            dtype=torch.float64, device="cuda",
+                                            return_diagnostics=True)
         torch.cuda.synchronize()
         t_stage = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1057,6 +1076,7 @@ class Smoke:
         launches = {k: v for k, v in self.counts().items() if k in ("fused", "rankine", "wave")}
         self.main_launches.update(rankine=launches["rankine"], wave=launches["wave"])
         self.staged = staged
+        self.staged_std = res["std"]
         peak = torch.cuda.max_memory_allocated()
         self.record_bem = {"stage_ms": 1e3 * t_stage, "sweep_wall_ms": 1e3 * wall}
         std, it, conv = res["std"], res["n_iter"], res["converged"]
@@ -1093,13 +1113,161 @@ class Smoke:
         self.check(same_it and d <= 1e-10,
                    "BEM 16-lane subset: kernel == plain (identical iterations, std 1e-10)")
 
+    def phase_grad_guard(self):
+        """On the card the kernel wrappers refuse gradient work (their
+        outputs carry no autograd history) and name the scan driver; the
+        scan driver, the default of ``forward_response``, still
+        differentiates through K1 and its adjoint."""
+        from raft_tpu_torch.core import cuda6, cuda_bem
+        from raft_tpu_torch.core.cplx import Cx
+        from raft_tpu_torch.hydro import torch_bem, wavetable
+        from raft_tpu_torch.parallel.geometry import make_scale_plan, make_stretch_draft
+        from raft_tpu_torch.parallel.sweep import (_volturnus, forward_response, north_star_grid,
+                                                   response_std)
+
+        torch = self.torch
+        f64 = torch.float64
+        rng = np.random.default_rng(20261019)
+        Z0, w, Bd, F = self._k1_inputs("random", 4, 200, f64, rng)
+
+        def refuses(name, call):
+            self.zero_counts()
+            try:
+                call()
+                msg = None
+            except RuntimeError as e:
+                msg = str(e)
+            launched = {k: v for k, v in self.counts().items() if v}
+            self.check(msg is not None and 'method="scan"' in msg and "solve_rao_ad" in msg
+                       and not launched,
+                       f"{name} with an input that requires grad raises and names the scan "
+                       f"driver (launches {launched})")
+
+        def grad(t):
+            return t.clone().requires_grad_(True)
+
+        refuses("K1 solve_rao", lambda: cuda6.solve_rao(Cx(grad(Z0.re), Z0.im), w, Bd, F))
+        A = Cx(Z0.re.reshape(-1, 6, 6), Z0.im.reshape(-1, 6, 6))
+        b = Cx(F.re.reshape(-1, 6), F.im.reshape(-1, 6))
+        refuses("K2 solve_cx", lambda: cuda6.solve_cx(A, Cx(grad(b.re), b.im)))
+        case = self._bem_case("VolturnUS-S", False, f64)
+        args = list(case["args"])
+        refuses("K3 rankine_assembly", lambda: cuda_bem.rankine_assembly(
+            args[0], grad(args[1]), *args[2:], quad=case["quad"]))
+        R_pot, R_dn = cuda_bem.rankine_assembly(*args, quad=case["quad"])
+        tabd = torch_bem.stage_tables(wavetable.load_tables(), f64, self.dev)
+        k = torch.as_tensor([1.5**2 / 9.81, 1.6**2 / 9.81], dtype=f64, device=self.dev)
+        refuses("K4 wave_assembly", lambda: cuda_bem.wave_assembly(
+            grad(R_pot), R_dn, *args[1:4], args[5], args[6], tabd, k, None,
+            finite_depth=False, depth=0.0))
+
+        _design, members, rna, env, wave, C = _volturnus(self.nw, f64, self.dev)
+        draft, plan = make_stretch_draft(members), make_scale_plan(members)
+        th = torch.as_tensor(north_star_grid(self.n_designs)[:4], dtype=f64,
+                             device=self.dev).requires_grad_(True)
+        m = plan(draft(members, th[:, 1]), th[:, 0])
+        refuses("forward_response(method='while') under autograd", lambda: forward_response(
+            m, rna, env, wave, C, n_iter=40, method="while", device=self.dev))
+        self.zero_counts()
+        out = forward_response(m, rna, env, wave, C, n_iter=25, device=self.dev)
+        g = torch.autograd.grad(response_std(out.Xi.abs2(), wave.w)[:, 4].sum(), th)[0]
+        n = self.counts()
+        print(f"  default-driver gradient of 4 lanes' pitch std: {g.cpu().numpy().tolist()}; "
+              f"launches {n}")
+        self.check(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                   and n["fused"] == 25 and n["fused_adjoint"] == 25,
+                   "forward_response's default (scan) differentiates on the card: K1 forward "
+                   "and adjoint once per step")
+
+    def phase_native_bem(self):
+        """The north star's BEM staged as bench.py stages it: the host C++
+        solver, cold (no result cache), at 48 w on the full 850-panel mesh
+        at 200 m depth, interpolated to 200 w and staged on the card; held
+        against the card's staging (K3/K4) at PARITY_RTOL; then the
+        1,000 x 200 float32 sweep on the native-staged coefficients."""
+        import os
+
+        from raft_tpu_torch.hydro import native_bem, torch_bem
+        from raft_tpu_torch.parallel.sweep import stage_north_star_bem, sweep_north_star
+
+        torch = self.torch
+        n, nw, chunk = self.n_designs, self.nw, self.chunk
+        cores = os.cpu_count()
+        t0 = time.perf_counter()
+        native_bem.build()
+        t_lib = time.perf_counter() - t0
+        had_table = native_bem.table_path().exists()
+        t0 = time.perf_counter()
+        native_bem.wave_integral(1.0, -1.0)              # loads or builds the table
+        t_tab = time.perf_counter() - t0
+        print(f"  native solver: g++ build {t_lib:.2f} s; wave table "
+              f"{'loaded' if had_table else 'built'} in {t_tab:.2f} s "
+              f"({native_bem.table_path().name}); host os.cpu_count() = {cores}")
+
+        self.zero_counts()
+        t0 = time.perf_counter()
+        staged, diag = stage_north_star_bem(nw=nw, nw_bem=48, mode="native", cache=False,
+                                            dtype=torch.float64, device=self.dev,
+                                            return_diagnostics=True)
+        torch.cuda.synchronize()
+        t_native = time.perf_counter() - t0
+        launched = {k: v for k, v in self.counts().items() if v}
+        print(f"  native staging: {diag['panels']} panels x {diag['nw']} w, depth 200 m, f64 on "
+              f"the host, cold: {t_native:.3f} s (solve {diag['seconds']:.3f} s) on "
+              f"{cores} cores; launches {launched}")
+        self.check(diag["route"] == "native" and not diag["cached"] and diag["panels"] == 850
+                   and diag["nw"] == 48 and not launched,
+                   "native staging: 850 panels x 48 w on the host, cold, no kernel launched")
+
+        self.zero_counts()
+        t0 = time.perf_counter()
+        _card, diag_c = stage_north_star_bem(nw=nw, nw_bem=48, mode="jax", cache=False,
+                                             dtype=torch.float64, device=self.dev,
+                                             return_diagnostics=True)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launches = self.counts()
+        errs = [torch_bem.parity_err(c, h)
+                for c, h in zip(diag_c["coeffs"][1:], diag["coeffs"][1:])]
+        print(f"  card staging (K3/K4, f64): {t_card:.3f} s, launches K3 {launches['rankine']}, "
+              f"K4 {launches['wave']}; against native, scale-relative: A {errs[0]:.3e}, "
+              f"B {errs[1]:.3e}, F {errs[2]:.3e} (PARITY_RTOL {torch_bem.PARITY_RTOL})")
+        self.check(max(errs) <= torch_bem.PARITY_RTOL and launches["rankine"] == 1
+                   and launches["wave"] == 24,
+                   "card staging within PARITY_RTOL of the native staging (A, B, F), K3 once, "
+                   "K4 once per chunk")
+
+        self.zero_counts()
+        t0 = time.perf_counter()
+        res = sweep_north_star(n_designs=n, nw=nw, chunk=chunk, n_iter=40, dtype=torch.float32,
+                               device=self.dev, bem=staged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sweep_launches = {k: v for k, v in self.counts().items() if v}
+        std, it, conv = res["std"], res["n_iter"], res["converged"]
+        n_conv = int(conv.sum())
+        line = (f"  native-staged sweep {n} x {nw} float32 (chunk {chunk}): wall {wall:.3f} s, "
+                f"{n * nw / wall:.1f} solves/s, max iterations {int(it.max())}, launches "
+                f"{sweep_launches}")
+        if self.staged_std is not None:
+            d = float((std - self.staged_std).abs().max() / self.staged_std.abs().max())
+            line += f"; std against the card-staged sweep: scale-rel diff {d:.3e}"
+        print(line)
+        self.check(n_conv == n and bool(torch.isfinite(std).all())
+                   and sweep_launches.get("fused", 0) > 0
+                   and set(sweep_launches) == {"fused"},
+                   f"native-staged sweep: {n_conv}/{n} lanes converged, all finite, K1 launched")
+        self.record_native = {"stage_s": t_native, "solve_s": diag["seconds"], "cores": cores,
+                              "card_stage_s": t_card, "sweep_wall_s": wall}
+
     def _staged_bem(self):
         """The nominal hull's staged BEM of the BEM-staged north star (solved
         here when that phase did not run)."""
         if self.staged is None:
             from raft_tpu_torch.parallel.sweep import stage_north_star_bem
 
-            self.staged = stage_north_star_bem(nw=self.nw, nw_bem=48, dtype=self.torch.float64,
+            self.staged = stage_north_star_bem(nw=self.nw, nw_bem=48, mode="jax", cache=False,
+                                               dtype=self.torch.float64,
                                                device=self.dev)
         return self.staged
 
@@ -1357,7 +1525,8 @@ class Smoke:
                              dtype=torch.float32, device="cuda")
 
         def bem():
-            staged = stage_north_star_bem(nw=200, nw_bem=48, dtype=torch.float64, device="cuda")
+            staged = stage_north_star_bem(nw=200, nw_bem=48, mode="jax", cache=False,
+                                          dtype=torch.float64, device="cuda")
             sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
                              dtype=torch.float32, device="cuda", bem=staged)
 
@@ -1410,10 +1579,12 @@ class Smoke:
         phases = [("build", self.phase_build), ("K1 vs plain", self.phase_k1),
                   ("K2 vs plain", self.phase_k2), ("K2 microbench", self.phase_k2_microbench),
                   ("adjoints", self.phase_adjoint),
+                  ("gradient guard", self.phase_grad_guard),
                   ("K3 vs plain", self.phase_k3), ("K4 vs plain", self.phase_k4),
                   ("run_raft", self.phase_run_raft), ("sweep", self.phase_sweep),
                   ("Model(BEM='jax')", self.phase_model_bem),
                   ("BEM-staged north star", self.phase_north_star_bem),
+                  ("native BEM staging", self.phase_native_bem),
                   ("co-design gradient", self.phase_codesign),
                   ("optimize_design", self.phase_optimize),
                   ("profile", self.phase_profile)]

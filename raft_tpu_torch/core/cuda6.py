@@ -21,7 +21,11 @@ hash of the source and flags) and bound with ``ctypes``.  :func:`solve_rao`
 and :func:`solve_cx` dispatch on the tensors' device: CPU tensors take the
 plain versions (:func:`raft_tpu_torch.core.linalg6.solve_cx_fused` and
 :func:`~raft_tpu_torch.core.linalg6.solve_cx`), CUDA tensors launch the
-kernel or raise.
+kernel or raise.  On the card they also raise when grad mode is on and an
+input requires grad (:func:`raft_tpu_torch.core.nvcc.refuse_grad`): the
+kernel's outputs carry no autograd history.  :func:`solve_rao_ad` and
+:func:`solve_cx_ad` are the differentiable entries; their
+``autograd.Function`` calls the wrappers with grad mode off.
 
 :func:`solve_rao_adjoint` and :func:`solve_cx_adjoint` solve with the
 conjugate transpose, ``(Z0 + i w B_drag)^H lam = g`` and ``A^H lam = g``.
@@ -125,6 +129,8 @@ def _conj_transpose(A: Cx) -> Cx:
 
 def _solve_rao(Z0: Cx, w, B_drag, F: Cx, adjoint: bool = False) -> Cx:
     lead, nw = _check(Z0, w, B_drag, F)
+    if Z0.re.device.type != "cpu":
+        nvcc.refuse_grad("solve_rao (K1)", Z0.re, Z0.im, w, B_drag, F.re, F.im)
     dev = _cuda_device(Z0.re)
     if dev is None:
         if adjoint:
@@ -147,6 +153,8 @@ def _solve_rao(Z0: Cx, w, B_drag, F: Cx, adjoint: bool = False) -> Cx:
 
 def _solve_cx(A: Cx, b: Cx, adjoint: bool = False) -> Cx:
     lead = _check_plain(A, b)
+    if A.re.device.type != "cpu":
+        nvcc.refuse_grad("solve_cx (K2)", A.re, A.im, b.re, b.im)
     dev = _cuda_device(A.re)
     if dev is None:
         return linalg6.solve_cx(_conj_transpose(A) if adjoint else A, b)

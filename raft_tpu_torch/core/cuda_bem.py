@@ -28,7 +28,9 @@
 
 Both wrappers dispatch on the tensors' device: CPU tensors take the plain
 versions (:func:`raft_tpu_torch.hydro.torch_bem.rankine_plain`,
-``wave_plain``), CUDA tensors launch the kernel or raise.  Each has the
+``wave_plain``), CUDA tensors launch the kernel or raise; under grad mode
+with an input that requires grad they raise, since neither kernel has a
+backward (:func:`raft_tpu_torch.core.nvcc.refuse_grad`).  Each has the
 signature of its plain version.  ``LAUNCHES`` counts kernel launches; the
 libraries are built by ``nvcc`` at first use (:mod:`raft_tpu_torch.core.nvcc`).
 """
@@ -103,6 +105,9 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
     from raft_tpu_torch.hydro import torch_bem
 
     dev, dtype = c.device, c.dtype
+    if dev.type != "cpu":
+        nvcc.refuse_grad("rankine_assembly (K3)", pans, c, nrm, area, diag, panel_mask,
+                         self_pot, *(quad or ()))
     if dev.type == "cpu":
         if near_count is not None:
             raise ValueError("near_count counts the kernel's near pass; the plain version has none")
@@ -158,6 +163,9 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
     from raft_tpu_torch.hydro import torch_bem, wavetable
 
     dev, dtype = c.device, c.dtype
+    if dev.type != "cpu":
+        nvcc.refuse_grad("wave_assembly (K4)", R_pot, R_dn, c, nrm, area, panel_mask, k,
+                         tab["I0"], tab["I1"], *(fd.values() if fd else ()))
     if dev.type == "cpu":
         return torch_bem.wave_plain(R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab,
                                     k, fd, finite_depth=finite_depth, depth=depth)

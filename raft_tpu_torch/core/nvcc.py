@@ -8,7 +8,10 @@ missing library, all at once, and waits for them; :func:`load` builds one
 library if needed and opens it.  Each build's compiler output (``-Xptxas
 -v``: registers and spills per kernel) is kept beside its library as
 ``lib<name>-<hash>.log``, and :func:`build_log` reads it back whether the
-library was built in this process or loaded.
+library was built in this process or loaded.  :func:`run_jobs`, the step
+that runs the compilers and publishes their outputs atomically, also
+builds the host panel solver with ``g++``
+(:mod:`raft_tpu_torch.hydro.native_bem`).
 """
 from __future__ import annotations
 
@@ -57,38 +60,65 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def compile_all(specs) -> None:
-    """Compile every spec whose library is missing, one ``nvcc`` each, all
-    started together; raises if any build fails."""
-    jobs = []
+@dataclasses.dataclass(frozen=True)
+class Job:
+    """One compiler run: ``argv`` without its output, which goes to a
+    temporary file beside ``so`` (``-o`` is appended) and is published as
+    ``so`` with ``os.replace``; ``log``, when given, keeps the compiler's
+    stderr."""
+
+    what: str
+    argv: tuple
+    so: Path
+    log: Path | None = None
+
+
+def run_jobs(jobs, timeout: float = 900.0) -> None:
+    """Start every job at once and wait for them, each for at most
+    ``timeout`` seconds; publish each output atomically, so a killed or
+    failed compiler never leaves a library under its key.  Raises with
+    the tail of each failed compiler's stderr."""
+    started = []
     try:
-        for spec in specs:
-            so = spec.path()
-            if so.exists():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        for job in jobs:
+            job.so.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=job.so.suffix, dir=job.so.parent)
             os.close(fd)
-            proc = subprocess.Popen([_nvcc(), *spec.flags, "-o", tmp, str(CSRC / spec.source)],
-                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            jobs.append((spec, so, tmp, proc))
+            proc = subprocess.Popen([*job.argv, "-o", tmp], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            started.append((job, tmp, proc))
         failed = []
-        for spec, so, tmp, proc in jobs:
-            _out, err = proc.communicate(timeout=900)
+        for job, tmp, proc in started:
+            try:
+                _out, err = proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                failed.append(f"{job.what}: no result after {timeout:.0f} s")
+                continue
             if proc.returncode != 0:
-                failed.append(f"{spec.source} ({proc.returncode}):\n{err[-4000:]}")
+                failed.append(f"{job.what} ({proc.returncode}):\n{err[-4000:]}")
             else:
-                spec.log_path().write_text(err)
-                os.replace(tmp, so)
+                if job.log is not None:
+                    job.log.write_text(err)
+                os.replace(tmp, job.so)
         if failed:
-            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            raise RuntimeError("build failed: " + "\n".join(failed))
     finally:
-        for _spec, _so, tmp, proc in jobs:
+        for _job, tmp, proc in started:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
+
+
+def compile_all(specs) -> None:
+    """Compile every spec whose library is missing, one ``nvcc`` each, all
+    started together; raises if any build fails."""
+    missing = [spec for spec in specs if not spec.path().exists()]
+    if missing:
+        nvcc = _nvcc()
+        run_jobs([Job(spec.source, (nvcc, *spec.flags, str(CSRC / spec.source)), spec.path(),
+                      spec.log_path()) for spec in missing])
 
 
 def build_log(spec: Spec) -> str | None:
@@ -123,3 +153,21 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t from a launch."""
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad mode is on and a floating input requires grad.
+
+    A kernel writes its outputs through ctypes, so they carry no autograd
+    history: a backward pass would leave the kernel out without a word.
+    The JAX package raises there too (its Pallas kernels have no VJP rule,
+    and ``lax.while_loop`` refuses reverse mode)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors
+                                    if t is not None and t.is_floating_point()):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward and an input requires grad. Differentiate "
+            "the fixed point with method=\"scan\" (its 6x6 solves go through "
+            "cuda6.solve_rao_ad / solve_cx_ad, which launch the kernels inside an "
+            "autograd.Function), or run the plain version on CPU tensors")

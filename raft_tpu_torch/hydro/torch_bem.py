@@ -35,14 +35,26 @@ point, the direct then the image contribution is added to
 (projected per point).  In f64 it agrees with the XLA route's separate
 sums to ~3e-16.
 
+**Routing.** :func:`solve_bem_any` sends a solve to this on-device route
+(mode ``"jax"``) or to the host C++ solver
+(:mod:`raft_tpu_torch.hydro.native_bem`, mode ``"native"``); ``"auto"``
+(the default, through ``RAFT_TPU_BEM``) takes the kernels on the card and
+the native solver on the CPU (:func:`resolved_mode`).  Results of both
+routes are cached on disk, content-addressed (``cache=True``).
+
 The module's name avoids the old one, which names a framework; the
 ``BEM="jax"`` mode name and :func:`solve_bem_jax` keep the JAX package's
 spelling so callers carry across.
 """
 from __future__ import annotations
 
+import functools
+import hashlib
 import math
+import os
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -695,25 +707,80 @@ def pad_mesh(panels: np.ndarray, lid: np.ndarray | None):
     return out, panel_mask, lid_mask
 
 
+@functools.cache
+def _route_sources_digest() -> str:
+    """Hash of the sources the on-device route runs (K3/K4 and their plain
+    versions, the wave tables, the Bessel functions): a salt of its result
+    cache."""
+    pkg = Path(__file__).resolve().parents[1]
+    h = hashlib.sha256()
+    for rel in ("csrc/bem_rankine.cu", "csrc/bem_wave.cu", "core/cuda_bem.py",
+                "core/bessel.py", "hydro/torch_bem.py", "hydro/wavetable.py"):
+        h.update((pkg / rel).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _table_digest(tab: dict) -> str:
+    h = hashlib.sha256(np.ascontiguousarray(tab["I0"]).tobytes())
+    h.update(np.ascontiguousarray(tab["I1"]).tobytes())
+    return h.hexdigest()[:16]
+
+
 def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
                   beta=0.0, depth: float = 0.0, lid: np.ndarray | None = None,
-                  dtype=torch.float64, device=None, return_diagnostics: bool = False):
+                  cache: bool = True, dtype=torch.float64, device=None,
+                  return_diagnostics: bool = False):
     """On-device panel solve with the JAX package's ``solve_bem_jax``
     contract: returns numpy (A[6, 6, nw], B[6, 6, nw], F), F[6, nw] complex
     for a scalar heading or F[nb, 6, nw] for a grid.  With
     ``return_diagnostics`` a fourth item gives the panel counts, the
-    largest refinement residual and the solve's wall-clock (ending in a
-    device synchronisation)."""
+    largest refinement residual, the route (``"kernels"`` on the card,
+    ``"plain"`` on the CPU), whether the result came from the cache and the
+    wall-clock (ending in a device synchronisation).
+
+    With ``cache`` results are content-cached on disk in the ``torch-bem-jax``
+    namespace of :func:`raft_tpu_torch.hydro.native_bem.result_cache_key`,
+    salted with the route, the dtype, ``N_REFINE``, the wave tables and the
+    hash of the route's sources: a result of the plain version is never
+    served to a call on the card."""
+    from raft_tpu_torch.hydro import native_bem
+
     dev = resolve_device(device)
+    t0 = time.perf_counter()
+    panels = np.ascontiguousarray(panels, dtype=np.float64)
     w_np = np.ascontiguousarray(np.atleast_1d(w), dtype=np.float64)
     scalar_beta = np.ndim(beta) == 0
     betas = np.ascontiguousarray(np.atleast_1d(beta), dtype=np.float64)
     depth_f = float(depth) if depth and depth > 0 else -1.0
     finite_depth = depth_f > 0
+    route = "kernels" if dev.type == "cuda" else "plain"
+    tab = wavetable.load_tables()
+    n_lid = 0 if lid is None else len(lid)
+
+    def diagnostics(resid_max: float, cached: bool) -> dict:
+        return {"route": route, "cached": cached, "panels": int(len(panels)),
+                "padded": pad_panel_count(len(panels) + n_lid), "lid": int(n_lid),
+                "nw": int(len(w_np)), "headings": int(len(betas)),
+                "refine_iters": N_REFINE, "max_residual": resid_max,
+                "finite_depth": finite_depth, "dtype": str(dtype),
+                "seconds": time.perf_counter() - t0}
+
+    key = None
+    if cache:
+        key = native_bem.result_cache_key(
+            "torch-bem-jax", panels, w_np, betas, (rho, g, depth_f, 0.0, float(n_lid)),
+            salt=(route, str(dtype), N_REFINE, wavetable.TABLE_VERSION, _table_digest(tab),
+                  _route_sources_digest()),
+            extra_bytes=np.asarray(lid, dtype=np.float64).tobytes() if n_lid else b"")
+        hit = native_bem.result_cache_load(key, ("A", "B", "F", "resid"))
+        if hit is not None:
+            out = (hit["A"], hit["B"], hit["F"][0] if scalar_beta else hit["F"])
+            if return_diagnostics:
+                return out + (diagnostics(float(hit["resid"].max()), True),)
+            return out
+
     padded, panel_mask, lid_mask = pad_mesh(panels, lid)
     fd = wavetable.fd_fit_grid(w_np, depth_f, g)
-    tab = wavetable.load_tables()
-    t0 = time.perf_counter()
     A6, B6, F_cx, resid = solve_panels(
         padded, panel_mask, lid_mask, w_np, betas, fd, tab, rho=float(rho), g=float(g),
         depth=float(depth_f if finite_depth else 0.0), finite_depth=finite_depth,
@@ -723,29 +790,77 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
     F = (F_cx.re.double().cpu().numpy()
          + 1j * F_cx.im.double().cpu().numpy()).transpose(1, 2, 0)   # (nb, 6, nw)
     resid = resid.double().cpu().numpy()
-    seconds = time.perf_counter() - t0
+    if key is not None:
+        native_bem.result_cache_store(key, {"A": A, "B": B, "F": F, "resid": resid})
     out = (A, B, F[0] if scalar_beta else F)
     if return_diagnostics:
-        return out + ({"panels": int(len(panels)), "padded": int(len(padded)),
-                       "lid": int(0 if lid is None else len(lid)), "nw": int(len(w_np)),
-                       "headings": int(len(betas)), "refine_iters": N_REFINE,
-                       "max_residual": float(resid.max()), "finite_depth": finite_depth,
-                       "dtype": str(dtype), "seconds": seconds},)
+        return out + (diagnostics(float(resid.max()), False),)
     return out
 
 
+# ------------------------------------------------------------------ routing
+
+#: the environment knob of the BEM route: ``native`` | ``jax`` | ``auto``
+ENV_VAR = "RAFT_TPU_BEM"
+MODES = ("native", "jax", "auto")
+
+
+def bem_mode(env: str | None = None) -> str:
+    """The ``RAFT_TPU_BEM`` knob (or ``env`` in its place): unset or empty
+    is ``auto``; a value other than native, jax or auto warns and is
+    ``auto``, as in the JAX package."""
+    raw = os.environ.get(ENV_VAR, "") if env is None else env
+    val = raw.strip().lower()
+    if val in ("", "auto"):
+        return "auto"
+    if val in ("native", "jax"):
+        return val
+    warnings.warn(f"{ENV_VAR}={raw!r} is not one of native|jax|auto; using auto",
+                  stacklevel=2)
+    return "auto"
+
+
+def resolved_mode(mode: str | None = None, device=None) -> str:
+    """``"native"`` (the host C++ solver) or ``"jax"`` (the on-device panel
+    solve) for a call with ``mode`` on ``device``.
+
+    An explicit ``"native"`` or ``"jax"`` wins.  ``None`` or ``"auto"``
+    defers to ``RAFT_TPU_BEM``; if that is ``auto`` too, the device decides,
+    the JAX package's rule of the device route only on the accelerator:
+    the kernels (K3/K4) when ``device`` resolves to CUDA (``None`` means
+    the card, and raises without one), the native solver on the CPU."""
+    if mode is not None and mode not in MODES:
+        raise ValueError(f"BEM mode {mode!r}: expected 'native', 'jax' or 'auto'")
+    m = mode if mode in ("native", "jax") else bem_mode()
+    if m != "auto":
+        return m
+    return "jax" if resolve_device(device).type == "cuda" else "native"
+
+
 def solve_bem_any(panels, w, rho=1025.0, g=9.81, beta=0.0, depth=0.0, lid=None,
-                  mode: str | None = None, dtype=torch.float64, device=None,
-                  return_diagnostics: bool = False):
-    """The BEM staging entry.  ``mode`` ``"jax"``, ``"auto"`` or None: the
-    on-device panel solve on ``device``; ``"native"`` (the JAX package's
-    host C++ solver) is not ported yet."""
-    if mode == "native":
-        raise NotImplementedError(
-            "BEM mode 'native' (the host C++ panel solver, raft_tpu/native/bem.cpp) "
-            "comes with a later slice (ROADMAP.md, queue 1, item 1); use 'jax' or "
-            "'auto' for the on-device panel solve")
-    if mode not in (None, "jax", "auto"):
-        raise ValueError(f"BEM mode {mode!r}: expected 'jax', 'auto' or 'native'")
-    return solve_bem_jax(panels, w, rho=rho, g=g, beta=beta, depth=depth, lid=lid,
-                         dtype=dtype, device=device, return_diagnostics=return_diagnostics)
+                  mode: str | None = None, cache: bool = True, nthreads: int = 0,
+                  dtype=torch.float64, device=None, return_diagnostics: bool = False):
+    """The BEM staging entry: the host C++ solver
+    (:func:`raft_tpu_torch.hydro.native_bem.solve_bem`, f64, ``nthreads``
+    OpenMP threads, 0 for its default) or the on-device panel solve
+    (:func:`solve_bem_jax` on ``device`` in ``dtype``), as
+    :func:`resolved_mode` decides from ``mode`` and ``device``.  The same
+    return contract either way; the diagnostics of the native route give
+    its route, counts and wall-clock."""
+    route = resolved_mode(mode, device)
+    if route == "jax":
+        return solve_bem_jax(panels, w, rho=rho, g=g, beta=beta, depth=depth, lid=lid,
+                             cache=cache, dtype=dtype, device=device,
+                             return_diagnostics=return_diagnostics)
+    from raft_tpu_torch.hydro import native_bem
+
+    t0 = time.perf_counter()
+    hits = native_bem.CACHE_STATS["hit"]
+    out = native_bem.solve_bem(panels, w, rho=rho, g=g, beta=beta, depth=depth,
+                               nthreads=nthreads, cache=cache, lid=lid)
+    if not return_diagnostics:
+        return out
+    return out + ({"route": "native", "cached": native_bem.CACHE_STATS["hit"] > hits,
+                   "panels": int(len(panels)), "lid": int(0 if lid is None else len(lid)),
+                   "nw": int(np.size(w)), "headings": int(np.size(beta)),
+                   "seconds": time.perf_counter() - t0},)

@@ -5,12 +5,15 @@
 -> ``solveEigen`` -> ``calcMooringAndOffsets`` -> ``solveDynamics`` ->
 ``calcOutputs``, with the same ``results`` dict keys as the JAX package.
 Hydrodynamics are strip theory (Morison), plus potential-flow (BEM)
-coefficients for the potMod members when ``BEM`` is given: ``"jax"`` or
-``"auto"`` (the JAX package's mode names) mesh those members and solve
-them with the on-device panel BEM (:mod:`raft_tpu_torch.hydro.torch_bem`,
-kernels K3/K4 on the card); a precomputed ``(A, B, F)`` tuple is used as
-given.  Every numeric step runs on ``device`` (the card by default) in
-``dtype``, the BEM solve included.
+coefficients for the potMod members when ``BEM`` is given: ``"native"``,
+``"jax"`` or ``"auto"`` (the JAX package's mode names) mesh those members
+and solve them with the host C++ panel solver
+(:mod:`raft_tpu_torch.hydro.native_bem`, f64) or the on-device panel BEM
+(:mod:`raft_tpu_torch.hydro.torch_bem`, kernels K3/K4 on the card, in
+``dtype``); ``"auto"`` takes the card's route on CUDA and the native one
+on the CPU (``torch_bem.resolved_mode``).  A precomputed ``(A, B, F)``
+tuple is used as given.  Every other numeric step runs on ``device`` (the
+card by default) in ``dtype``.
 """
 from __future__ import annotations
 
@@ -45,10 +48,10 @@ class Model:
 
     ``design``: the parsed YAML dict; ``w``: frequency grid (default
     ``arange(0.05, 3, 0.05)``); ``depth``: water-depth override; ``BEM``:
-    None (strip theory only), ``"jax"`` or ``"auto"`` (on-device panel
-    solve at ``calcSystemProps``), or a precomputed (A[6, 6, nw],
-    B[6, 6, nw], F[6, nw]) tuple.  ``"native"``, the JAX package's host
-    C++ solver, is not ported yet and raises.
+    None (strip theory only), ``"native"`` (host C++ panel solve),
+    ``"jax"`` (on-device panel solve) or ``"auto"`` (either, by device and
+    ``RAFT_TPU_BEM``), each run at ``calcSystemProps``, or a precomputed
+    (A[6, 6, nw], B[6, 6, nw], F[6, nw]) tuple.
     """
 
     def __init__(self, design: dict, w=None, depth: float | None = None,
@@ -57,14 +60,9 @@ class Model:
             raise NotImplementedError(
                 "nTurbines != 1 (ArrayModel) comes with the scenario-batch slice "
                 "(ROADMAP.md, queue 1)")
-        if isinstance(BEM, str) and BEM == "native":
-            raise NotImplementedError(
-                "BEM='native' (the host C++ panel solver, raft_tpu/native/bem.cpp) "
-                "comes with a later slice (ROADMAP.md, queue 1, item 1); BEM='jax' "
-                "or 'auto' solves the panels on the device")
-        if isinstance(BEM, str) and BEM not in ("jax", "auto"):
-            raise ValueError(f"BEM={BEM!r}: expected 'jax', 'auto', or a precomputed "
-                             "(A, B, F) tuple")
+        if isinstance(BEM, str) and BEM not in ("native", "jax", "auto"):
+            raise ValueError(f"BEM={BEM!r}: expected 'native', 'jax', 'auto', or a "
+                             "precomputed (A, B, F) tuple")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.design = design
@@ -136,16 +134,19 @@ class Model:
     # ------------------------------------------------------------- statics
 
     def calcBEM(self, dz_max: float = 3.0, da_max: float = 2.0,
-                out_dir: str | None = None, irr: bool = False, headings=None):
-        """Mesh the potMod members and solve them with the on-device panel
-        BEM, on the model's device in its dtype.
+                out_dir: str | None = None, irr: bool = False, headings=None,
+                cache: bool = True):
+        """Mesh the potMod members and solve them with the panel BEM of
+        ``BEM`` (the host C++ solver, or the on-device solve on the model's
+        device in its dtype; ``torch_bem.solve_bem_any``).
 
         ``irr=True`` adds interior waterplane lid panels (irregular-frequency
         removal).  ``headings``: optional heading grid [rad]; the excitation
         is solved for every heading at once and later ``setEnv(beta=...)``
         calls re-stage it by interpolation.  Writes HullMesh.pnl and
-        platform.gdf when ``out_dir`` is given.  Returns the (A, B, F) tuple
-        (host numpy), or None when the design has no potMod member."""
+        platform.gdf when ``out_dir`` is given.  ``cache``: the solver's
+        on-disk result cache.  Returns the (A, B, F) tuple (host numpy), or
+        None when the design has no potMod member."""
         from raft_tpu_torch.hydro.mesh import mesh_design, mesh_lid, write_gdf, write_pnl
         from raft_tpu_torch.hydro.torch_bem import solve_bem_any
 
@@ -160,7 +161,7 @@ class Model:
             write_gdf(os.path.join(out_dir, "platform.gdf"), panels)
         lid = mesh_lid(self.design, da_max=da_max) if irr else None
         solve = dict(rho=float(self.env.rho), g=float(self.env.g), depth=self.depth, lid=lid,
-                     mode=self.bem_mode, dtype=self.dtype, device=self.device,
+                     mode=self.bem_mode, cache=cache, dtype=self.dtype, device=self.device,
                      return_diagnostics=True)
         w = _np(self.w)
         if headings is not None:

@@ -9,8 +9,8 @@ package).  :func:`sweep_north_star` is ``bench.py::north_star``'s
 workload: VolturnUS-S plan-radius x draft variants x 200 frequencies, in
 chunks, with the std dev reduced on the device.  The caller may add the
 nominal hull's BEM coefficients to every lane (:func:`stage_north_star_bem`
-solves them on the device with the panel BEM); without them it is the
-same sweep on the strip-theory path alone.
+solves them with the host C++ panel solver, as ``bench.py`` does, or on the
+device); without them it is the same sweep on the strip-theory path alone.
 """
 from __future__ import annotations
 
@@ -72,7 +72,7 @@ def stage_bem(bem, wave: WaveState):
 
 def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
                      C_moor: Tensor, bem=None, n_iter: int = 25,
-                     method: str = "while", remat: bool = False, relax: float = 0.8,
+                     method: str = "scan", remat: bool = False, relax: float = 0.8,
                      tik: float = 0.0, dtype=torch.float64, device=None) -> RAOResult:
     """Design (batch) -> RAO solve: statics, strip hydro, drag fixed point.
 
@@ -80,9 +80,9 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     shared by every lane.  ``bem``: optional pre-staged ``(A, B, F)`` with
     A, B (..., nw, 6, 6) and F a Cx (..., nw, 6) on the spectral-amplitude
     basis; the potMod members then leave the Morison added mass and
-    excitation.  ``method="scan"`` (with ``remat``) is the
+    excitation.  ``method="scan"`` (the default, with ``remat``) is the
     reverse-differentiable loop: it always runs ``n_iter`` steps, so keep
-    the cap tight for gradient work.  Inputs must already lie on ``device``
+    the cap tight for gradient work; ``"while"`` exits early.  Inputs must already lie on ``device``
     in ``dtype``.
     """
     dev = resolve_device(device)
@@ -148,51 +148,72 @@ def north_star_grid(n_designs: int) -> np.ndarray:
     return np.stack([pp.ravel(), dd.ravel()], axis=1)
 
 
-def _volturnus(nw: int, dtype, dev):
-    """The north star's design, RNA, sea state (JONSWAP Hs 8 m / Tp 12 s on
-    ``linspace(0.05, 2.95, nw)``) and undisplaced mooring stiffness."""
+def _volturnus_design() -> dict:
     import yaml
 
     with open(VOLTURNUS_S) as f:
-        design = yaml.safe_load(f)
+        return yaml.safe_load(f)
+
+
+def _north_star_wave(nw: int, depth: float, dtype, dev) -> WaveState:
+    w = torch.as_tensor(np.linspace(0.05, 2.95, nw), device=dev).to(dtype)
+    return WaveState(w=w, k=wave_number(w, depth), zeta=torch.sqrt(jonswap(w, 8.0, 12.0)))
+
+
+def _volturnus(nw: int, dtype, dev):
+    """The north star's design, RNA, sea state (JONSWAP Hs 8 m / Tp 12 s on
+    ``linspace(0.05, 2.95, nw)``) and undisplaced mooring stiffness."""
+    design = _volturnus_design()
     members = build_member_set(design, dev, dtype)
     rna = build_rna(design)
     depth = float(design["mooring"]["water_depth"])
     env = Env(Hs=8.0, Tp=12.0, depth=depth)
-    w = torch.as_tensor(np.linspace(0.05, 2.95, nw), device=dev).to(dtype)
-    wave = WaveState(w=w, k=wave_number(w, depth), zeta=torch.sqrt(jonswap(w, 8.0, 12.0)))
+    wave = _north_star_wave(nw, depth, dtype, dev)
     moor = parse_mooring(design["mooring"], dev, dtype,
                          yaw_stiffness=design["turbine"].get("yaw_stiffness", 0.0))
     C_moor = mooring_stiffness(moor, torch.zeros(6, dtype=dtype, device=dev))
     return design, members, rna, env, wave, C_moor
 
 
-def stage_north_star_bem(nw: int = 200, nw_bem: int = 48, dtype=torch.float64, device=None,
+def stage_north_star_bem(nw: int = 200, nw_bem: int = 48, mode: str = "native",
+                         cache: bool = True, dtype=torch.float64, device=None,
                          return_diagnostics: bool = False):
-    """BEM coefficients of the nominal VolturnUS-S hull for the north star
-    (``bench.py::_volturn_setup``, with the panel solve on the device).
+    """BEM coefficients of the nominal VolturnUS-S hull for the north star,
+    staged as ``bench.py::_volturn_setup`` stages them.
 
-    Meshes the potMod members at ``dz_max=3, da_max=2``, solves them at
-    ``nw_bem`` frequencies over ``linspace(0.05, 2.95, nw_bem)`` (depth
-    200 m, heading 0) with kernels K3/K4 on CUDA, interpolates A, B, F to
-    the sweep's ``nw`` frequencies and stages them (:func:`stage_bem`).
-    Returns (A, B, F Cx) on ``device`` in ``dtype`` (and the panel solve's
-    diagnostics with ``return_diagnostics``)."""
+    Meshes the potMod members at ``dz_max=3, da_max=2`` (850 panels),
+    solves them at ``nw_bem`` frequencies over ``linspace(0.05, 2.95,
+    nw_bem)`` (depth 200 m, heading 0), interpolates A, B, F to the sweep's
+    ``nw`` frequencies and stages them on ``device`` in ``dtype``
+    (:func:`stage_bem`).  ``mode="native"`` (the default, as ``bench.py``)
+    solves on the host with the C++ solver in f64 on every core, torch
+    untouched until the staging;
+    ``mode="jax"`` solves on ``device`` in ``dtype`` with kernels K3/K4 on
+    CUDA.  ``cache``: the solvers' on-disk result cache.
+    Returns (A, B, F Cx) (and, with ``return_diagnostics``, the solve's
+    diagnostics with the host-layout coefficients at the ``nw_bem``
+    frequencies under ``"coeffs"``: (w_bem, A, B, F))."""
     from raft_tpu_torch.hydro.bem_io import interp_to_grid
     from raft_tpu_torch.hydro.mesh import mesh_design
     from raft_tpu_torch.hydro.torch_bem import solve_bem_any
 
+    if mode not in ("native", "jax"):
+        raise ValueError(f"mode {mode!r}: expected 'native' or 'jax'")
     dev = resolve_device(device)
-    design, _members, _rna, env, wave, _C = _volturnus(nw, dtype, dev)
+    design = _volturnus_design()
+    depth = float(design["mooring"]["water_depth"])
+    env = Env(Hs=8.0, Tp=12.0, depth=depth)
     w = np.linspace(0.05, 2.95, nw)
     w_bem = np.linspace(w[0], w[-1], nw_bem)
     panels = mesh_design(design, dz_max=3.0, da_max=2.0)
     A_c, B_c, F_c, diag = solve_bem_any(panels, w_bem, rho=float(env.rho), g=float(env.g),
-                                        beta=0.0, depth=env.depth, mode="jax", dtype=dtype,
-                                        device=dev, return_diagnostics=True)
+                                        beta=0.0, depth=depth, mode=mode, cache=cache,
+                                        dtype=dtype, device=dev, return_diagnostics=True)
     staged = stage_bem((interp_to_grid(w_bem, A_c, w), interp_to_grid(w_bem, B_c, w),
-                        interp_to_grid(w_bem, F_c, w)), wave)
-    return (staged, diag) if return_diagnostics else staged
+                        interp_to_grid(w_bem, F_c, w)), _north_star_wave(nw, depth, dtype, dev))
+    if not return_diagnostics:
+        return staged
+    return staged, {**diag, "coeffs": (w_bem, A_c, B_c, F_c)}
 
 
 def sweep_north_star(n_designs: int = 1000, nw: int = 200, chunk: int = 250,

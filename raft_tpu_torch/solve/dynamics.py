@@ -75,7 +75,7 @@ def _error(Xi: Cx, Xi_last: Cx, tol: float) -> Tensor:
 
 def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
                    lin: LinearCoeffs, n_iter: int = 15, tol: float = 0.01,
-                   relax: float = 0.8, method: str = "while", remat: bool = False,
+                   relax: float = 0.8, method: str = "scan", remat: bool = False,
                    history: bool = False, tik: float = 0.0) -> RAOResult:
     """Solve Xi(w) by fixed-point drag linearization.
 
@@ -83,8 +83,9 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
     frequencies of all lanes at once, test the relative change against
     ``tol``, under-relax ``Xi_last <- (1-relax) Xi_last + relax Xi``.  The
     result is the last raw solve of each lane.  ``method`` picks the loop
-    (``"while"``: early exit; ``"scan"``: exactly ``n_iter`` steps with
-    frozen lanes, reverse-differentiable; ``remat`` applies to it only).
+    (``"scan"``, the default as in the JAX package: exactly ``n_iter`` steps
+    with frozen lanes, reverse-differentiable, ``remat`` applies to it only;
+    ``"while"``: early exit, not differentiable on the card).
     ``history`` records each lane's convergence error per iteration (NaN
     past its exit); ``tik`` > 0 lifts each frequency's impedance diagonal
     by ``tik`` times its largest diagonal magnitude (sign-following), as in

@@ -40,6 +40,13 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _own_cache(monkeypatch, tmp_path):
+    """Each test solves into a result cache of its own, so no result of an
+    earlier run is read back."""
+    monkeypatch.setenv("RAFT_TPU_TORCH_CACHE_DIR", str(tmp_path / "cache"))
+
+
 @pytest.fixture
 def tables(monkeypatch):
     """The port reads the JAX package's tables instead of building its own."""
@@ -121,12 +128,22 @@ def test_heading_grid_restaging(tables):
 
 
 def test_unported_and_bad_bem_modes():
+    """Every mode of the JAX package is ported: ``"native"`` builds a Model
+    and runs the host solver through ``solve_bem_any``; a mode outside
+    native, jax and auto raises."""
+    from raft_tpu_torch.hydro.mesh import mesh_member
+
     design = load_design("raft_tpu/designs/OC3spar.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(design, BEM="native", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_bem.solve_bem_any(np.zeros((1, 4, 3)), [1.0], mode="native", device="cpu")
+    m = Model(design, BEM="native", device="cpu")
+    assert m.bem_mode == "native" and m.bem is None
+    hull = mesh_member(stations=[0.0, 8.0], diameters=[2.3, 2.3], rA=[0.0, 0.0, -6.0],
+                       rB=[0.0, 0.0, 2.0], dz_max=1.6, da_max=1.3)
+    A, B, F = torch_bem.solve_bem_any(hull, [1.0], mode="native", device="cpu", cache=False)
+    assert A.shape == (6, 6, 1) and B.shape == (6, 6, 1) and F.shape == (6, 1)
+    assert np.isfinite(A).all() and A[2, 2, 0] > 0
     with pytest.raises(ValueError, match="BEM="):
         Model(design, BEM="capytaine", device="cpu")
+    with pytest.raises(ValueError, match="BEM mode"):
+        torch_bem.solve_bem_any(hull, [1.0], mode="capytaine", device="cpu")
     m = Model(design, BEM="auto", device="cpu")
     assert m.bem_mode == "auto" and m.bem is None

@@ -36,6 +36,13 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _own_cache(monkeypatch, tmp_path):
+    """Each test solves into a result cache of its own, so no result of an
+    earlier run is read back."""
+    monkeypatch.setenv("RAFT_TPU_TORCH_CACHE_DIR", str(tmp_path / "cache"))
+
+
 def _case():
     hull = jmesh.mesh_member(stations=[0.0, 8.0], diameters=[2.3, 2.3], rA=[0.0, 0.0, -6.0],
                              rB=[0.0, 0.0, 2.0], dz_max=1.6, da_max=1.3)
@@ -103,7 +110,7 @@ def test_solve_bem_layout_and_float32(monkeypatch):
                                             device="cpu", return_diagnostics=True)
     assert A.shape == (6, 6, 2) and B.shape == (6, 6, 2) and F.shape == (2, 6, 2)
     assert info["padded"] == 64 and info["lid"] == 12 and info["max_residual"] < 1e-10
-    A1, B1, F1 = torch_bem.solve_bem_any(hull, W, beta=0.6, depth=DEPTH, lid=lid, mode="auto",
+    A1, B1, F1 = torch_bem.solve_bem_any(hull, W, beta=0.6, depth=DEPTH, lid=lid, mode="jax",
                                          device="cpu")
     assert F1.shape == (6, 2)
     np.testing.assert_allclose(F1, F[1], rtol=1e-12, atol=1e-12 * np.abs(F).max())

@@ -72,7 +72,8 @@ def test_solve_dynamics_oc3(history, tik):
 
     tlin = convert.from_numpy("LinearCoeffs", convert.to_numpy(lin), "cpu")
     tkin = convert.from_numpy("StripKin", convert.to_numpy(kin), "cpu")
-    got = solve_dynamics(tm, tkin, twave, tenv, tlin, n_iter=40, history=history, tik=tik)
+    got = solve_dynamics(tm, tkin, twave, tenv, tlin, n_iter=40, method="while",
+                          history=history, tik=tik)
     assert int(got.n_iter) == int(ref.n_iter) and bool(got.converged) == bool(ref.converged)
     scale = max(np.abs(np.asarray(ref.Xi.re)).max(), np.abs(np.asarray(ref.Xi.im)).max())
     for g, r in ((got.Xi.re, ref.Xi.re), (got.Xi.im, ref.Xi.im)):
@@ -96,7 +97,8 @@ def _variants(n_iter, n=8, nw=24):
     ref = jax.vmap(one)(jnp.asarray(grid))
     th = torch.as_tensor(grid)
     m = make_scale_plan(tm)(make_stretch_draft(tm)(tm, th[:, 1]), th[:, 0])
-    out = forward_response(m, trna, tenv, twave, tC, n_iter=n_iter, device="cpu")
+    out = forward_response(m, trna, tenv, twave, tC, n_iter=n_iter, method="while",
+                           device="cpu")
     return ref, out, twave
 
 
@@ -134,7 +136,7 @@ def test_forward_response_with_staged_bem():
     Fr, Fi = 1e5 * rng.normal(size=(nw, 6)), 1e5 * rng.normal(size=(nw, 6))
     ref = jax_forward(jm, jrna, jenv, jwave, C, n_iter=40, method="while",
                       bem=(jnp.asarray(A), jnp.asarray(B), JCx(jnp.asarray(Fr), jnp.asarray(Fi))))
-    got = forward_response(tm, trna, tenv, twave, tC, n_iter=40, device="cpu",
+    got = forward_response(tm, trna, tenv, twave, tC, n_iter=40, method="while", device="cpu",
                            bem=(torch.as_tensor(A), torch.as_tensor(B),
                                 Cx(torch.as_tensor(Fr), torch.as_tensor(Fi))))
     assert int(got.n_iter) == int(ref.n_iter)

@@ -53,6 +53,7 @@ def test_bem_modules_import_nothing_of_jax():
         "import raft_tpu_torch.solve.eigen, raft_tpu_torch.parallel.sweep\n"
         "import raft_tpu_torch.parallel.optimize, raft_tpu_torch.core.cuda6\n"
         "import raft_tpu_torch.solve.dynamics, raft_tpu_torch.mooring.system\n"
+        "import raft_tpu_torch.hydro.native_bem\n"
         "import raft_tpu_torch as rt\n"
         "assert rt.optimize_design.__module__ == 'raft_tpu_torch.parallel.optimize'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -68,7 +69,7 @@ def test_bem_modules_import_nothing_of_jax():
     names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"hydro/torch_bem.py", "hydro/mesh.py", "hydro/wavetable.py", "hydro/bem_io.py",
             "core/bessel.py", "core/cuda_bem.py", "core/nvcc.py", "parallel/optimize.py",
-            "core/cuda6.py"} <= names
+            "core/cuda6.py", "hydro/native_bem.py"} <= names
 
 
 def test_no_forbidden_import_in_source():
@@ -109,6 +110,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         stage_north_star_bem(nw=8, nw_bem=4)
     with pytest.raises(RuntimeError, match="CUDA"):
+        # the host solve never starts: the staging's device is checked first
+        stage_north_star_bem(nw=8, nw_bem=4, mode="native")
+    with pytest.raises(RuntimeError, match="CUDA"):
         solve_bem_any(np.zeros((1, 4, 3)), [1.0])
     m = Model(design, device="cpu")
     m.calcSystemProps()
@@ -148,6 +152,77 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda6.solve_rao(Cx(torch.empty(1, 3, 6, 6, **meta), torch.empty(1, 3, 6, 6, **meta)),
                         torch.empty(3, **meta), torch.empty(1, 6, 6, **meta),
                         Cx(torch.empty(1, 3, 6, **meta), torch.empty(1, 3, 6, **meta)))
+
+
+def test_kernel_wrappers_refuse_grad_off_the_cpu():
+    """Off the CPU, a wrapper called under grad mode with an input that
+    requires grad raises (a kernel's outputs carry no autograd history)
+    and names the scan driver; without grad mode the same call reaches the
+    device dispatch."""
+    from raft_tpu_torch.core import cuda6, cuda_bem
+    from raft_tpu_torch.core.cplx import Cx
+    from raft_tpu_torch.hydro import torch_bem, wavetable
+
+    meta = {"device": "meta", "dtype": torch.float64}
+
+    def e(*shape, grad=False):
+        return torch.empty(*shape, **meta).requires_grad_(grad)
+
+    n = 8
+    quad = tuple(e(torch_bem.LEVEL_START[-1] + torch_bem.LEVEL_COUNT[-1]) for _ in range(3))
+    tab = {"I0": e(wavetable.NX, wavetable.NS), "I1": e(wavetable.NX, wavetable.NS)}
+    calls = {
+        "solve_rao": lambda g: cuda6.solve_rao(Cx(e(1, 3, 6, 6, grad=g), e(1, 3, 6, 6)), e(3),
+                                              e(1, 6, 6), Cx(e(1, 3, 6), e(1, 3, 6))),
+        "solve_cx": lambda g: cuda6.solve_cx(Cx(e(2, 6, 6), e(2, 6, 6)),
+                                            Cx(e(2, 6, grad=g), e(2, 6))),
+        "rankine_assembly": lambda g: cuda_bem.rankine_assembly(
+            e(n, 4, 3, grad=g), e(n, 3), e(n, 3), e(n), e(n), e(n),
+            torch.empty(n, dtype=torch.bool, device="meta"), e(n), quad=quad),
+        "wave_assembly": lambda g: cuda_bem.wave_assembly(
+            e(n, n), e(n, n), e(n, 3), e(n, 3), e(n), e(n),
+            torch.empty(n, dtype=torch.bool, device="meta"), tab, e(2, grad=g), None,
+            finite_depth=False, depth=0.0),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match='method="scan"') as info:
+            call(True)
+        assert "solve_rao_ad" in str(info.value), name
+        with torch.no_grad():
+            with pytest.raises(ValueError, match="no kernel"):
+                call(True)
+        with pytest.raises(ValueError, match="no kernel"):
+            call(False)
+
+
+def test_native_solver_and_caches_are_the_ports_own(tmp_path):
+    """The port's native library is built from its own source into its own
+    build directory; its wave table and result caches live there too, and
+    a process with a fresh HOME writes nothing under it."""
+    from raft_tpu_torch.hydro import native_bem
+
+    assert native_bem.SRC == PKG / "native" / "bem.cpp"
+    assert native_bem.lib_path().parent == PKG / "_build"
+    assert native_bem.table_path().parent == PKG / "_build"
+    text = native_bem.SRC.read_text()
+    assert "getenv" not in text and "system(" not in text and "bem_set_table_path" in text
+    home = tmp_path / "home"
+    home.mkdir()
+    code = (
+        "import os\n"
+        "from raft_tpu_torch.hydro import native_bem\n"
+        f"os.environ.pop({native_bem.CACHE_ENV!r}, None)\n"
+        "print('ROOT', native_bem.cache_root())\n"
+        "native_bem.wave_integral(1.0, -1.0)\n"
+        "print('TABLE', native_bem.table_path().exists())\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT), HOME=str(home))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert f"ROOT {PKG / '_build' / 'cache'}" in proc.stdout and "TABLE True" in proc.stdout
+    assert list(home.iterdir()) == []
 
 
 def test_chip_smoke_refuses_without_card():

@@ -40,9 +40,10 @@ def test_run_raft_matches_jax(name):
 
 def test_unported_options_name_their_slice(capsys):
     design = load_design("raft_tpu/designs/OC3spar.yaml")
-    for kwargs in ({"BEM": "native"}, {"nTurbines": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(design, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(design, device="cpu", nTurbines=2)
+    # BEM="native" is ported (tests/test_torch_native_bem*.py)
+    assert Model(design, device="cpu", BEM="native").bem_mode == "native"
     m = Model(design, device="cpu")
     for call in (lambda: m.airgap([[0.0, 0.0]], 10.0), m.plot):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
