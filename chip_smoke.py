@@ -77,7 +77,26 @@ result line):
    plain solve, and against central differences;
 15. ``optimize_design`` (6 Adam steps) on VolturnUS-S with the staged BEM,
    and the OC3spar mooring-knob gradient on the card against the CPU;
-16. the sweeps and one gradient chunk again under ``torch.profiler``: device
+16. the BEM gradient, K1's forward and adjoint launches counted and K3/K4
+   none: d sigma_nacelle / d theta (radial scale) through
+   ``torch_bem.make_bem_fn`` (VolturnUS-S, 850 panels, 48 w, 200 m, the
+   panel solve's plain assembly differentiated), scan at 25 iterations,
+   at theta 1.01, float32 and float64 with the wall time and peak memory,
+   float32 against float64 and float64 against a central difference with
+   theta's branches held (``tools/bem_grad_fd.py``), and the float64 value
+   and gradient against the same loss with the plain solve in K1's place;
+   then ``optimize_design(bem_fn=...)``, 2 Adam steps in float32;
+17. the DLC table: ``Model(BEM="jax")`` on VolturnUS-S at the north star's
+   200 w with a 7-heading grid (K3 once, K4 per chunk counted), then
+   ``sweep_sea_states`` over 64 cases (8 Hs/Tp rows x 8 headings), float64,
+   all 64 against the plain solve in K1's place, 4 against the same call
+   on the CPU and against the 64-case rows; then a 7-direction spread sea
+   through ``directional_response`` on a grid that covers it;
+18. panel-solve copies: one solve and the refined solve's backward under
+   the profiler, no host-device copy and no synchronisation inside; two
+   ``bem_fn`` steps after a first under CUDA's sync debug mode, with every
+   host-to-device copy counted;
+19. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    gradient chunk must run at least 75 device operations fewer than the same
    chunk with the adjoint's transposed copies, profiled in the same call.
@@ -94,6 +113,7 @@ host's time to enqueue the call left out (:meth:`Smoke.time_ms`);
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -118,6 +138,14 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 TOL_GRAD = 1e-9
 # central differences of the scan objective, h = 1e-4 (tests/test_optimize.py)
 FD_H, FD_RTOL = 1e-4, 2e-3
+# the BEM gradient: float64 against central differences of the float64 loss
+# (h = 1e-5, as tests/test_jax_bem.py) with theta's branches held
+# (tools/bem_grad_fd.py), and float32 against float64, at a radial scale off the
+# unwarped hull, where some pairs sit exactly on a subdivision-level tie
+BEM_THETA, BEM_FD_H, BEM_FD_RTOL, BEM_TOL_32 = 1.01, 1e-5, 1e-5, 1e-3
+# the BEM gradient's float64 value and gradient through K1 against the same
+# loss with the plain solve differentiated by autograd, same card and inputs
+BEM_TOL_PLAIN = 1e-10
 # K3 / K4 against their plain versions, scale-relative per output: f64 to
 # roundoff; f32 at the JAX package's assembly-route bound INTERP_PARITY_RTOL
 TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
@@ -308,6 +336,22 @@ def print_ptxas(name: str, log: str):
                 kind += (" fused" if m[2] == "1" else " plain") + (" adjoint" if m[3] == "1" else "")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {name} {kind}: {line.split(':', 1)[-1].strip()}")
+
+
+@contextlib.contextmanager
+def plain_solve():
+    """The fixed-point driver's K1 entries (``solve_rao``, ``solve_rao_ad``)
+    swapped for the plain elimination (autograd differentiates it) while
+    the block runs: the main path's inputs and shapes, no K1."""
+    from raft_tpu_torch.core import linalg6
+    from raft_tpu_torch.solve import dynamics
+
+    orig = dynamics.solve_rao, dynamics.solve_rao_ad
+    dynamics.solve_rao = dynamics.solve_rao_ad = linalg6.solve_cx_fused
+    try:
+        yield
+    finally:
+        dynamics.solve_rao, dynamics.solve_rao_ad = orig
 
 
 def nvidia_smi() -> str:
@@ -596,7 +640,7 @@ class Smoke:
                 t_best = min(t_best, time.perf_counter() - t0)
             best[label] = (t_best, x)
         launches = self.counts()
-        self.main_launches["plain"] = launches["plain"]
+        self.add_main(launches, ("plain",))
         xk, xp = best["kernel"][1], best["plain"][1]
         err = float((xk.re - xp.re).abs().max() + (xk.im - xp.im).abs().max())
         print(f"  microbench 16384 x 6x6 float32: kernel {1e3 * best['kernel'][0]:.4f} ms, "
@@ -921,9 +965,7 @@ class Smoke:
                        f"run_raft {d} card == cpu (1e-9, identical iterations, kernel launched)")
 
     def phase_sweep(self):
-        from raft_tpu_torch.core import linalg6
         from raft_tpu_torch.parallel.sweep import sweep_north_star
-        from raft_tpu_torch.solve import dynamics
 
         torch = self.torch
         n, nw, chunk = 1000, 200, 250
@@ -936,6 +978,7 @@ class Smoke:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = self.counts()["fused"]
+        self.add_main(self.counts(), ("fused",))
         self.record["launches"] = launches
         self.record["sweep_wall_ms"] = 1e3 * wall
         peak = torch.cuda.max_memory_allocated()
@@ -951,13 +994,9 @@ class Smoke:
         lanes = np.arange(0, n, n // 16)[:16]
         sub_k = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
                                  device="cuda", lanes=lanes)
-        orig = dynamics.solve_rao
-        dynamics.solve_rao = linalg6.solve_cx_fused      # plain solve, same card
-        try:
+        with plain_solve():
             sub_p = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
                                      device="cuda", lanes=lanes)
-        finally:
-            dynamics.solve_rao = orig
         same_it = bool((sub_k["n_iter"] == sub_p["n_iter"]).all())
         d = float((sub_k["std"] - sub_p["std"]).abs().max() / sub_p["std"].abs().max())
         d32 = float((std[lanes].double() - sub_k["std"]).abs().max() / sub_k["std"].abs().max())
@@ -1053,9 +1092,7 @@ class Smoke:
                            f"VolturnUS-S float32 panel solve within PARITY_RTOL of float64")
 
     def phase_north_star_bem(self):
-        from raft_tpu_torch.core import linalg6
         from raft_tpu_torch.parallel.sweep import stage_north_star_bem, sweep_north_star
-        from raft_tpu_torch.solve import dynamics
 
         torch = self.torch
         n, nw, chunk = 1000, 200, 250
@@ -1074,7 +1111,7 @@ class Smoke:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in self.counts().items() if k in ("fused", "rankine", "wave")}
-        self.main_launches.update(rankine=launches["rankine"], wave=launches["wave"])
+        self.add_main(launches, ("fused", "rankine", "wave"))
         self.staged = staged
         self.staged_std = res["std"]
         peak = torch.cuda.max_memory_allocated()
@@ -1097,13 +1134,9 @@ class Smoke:
         lanes = np.arange(0, n, n // 16)[:16]
         sub_k = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
                                  device="cuda", bem=staged, lanes=lanes)
-        orig = dynamics.solve_rao
-        dynamics.solve_rao = linalg6.solve_cx_fused      # plain solve, same card
-        try:
+        with plain_solve():
             sub_p = sweep_north_star(n_designs=n, nw=nw, chunk=16, dtype=torch.float64,
                                      device="cuda", bem=staged, lanes=lanes)
-        finally:
-            dynamics.solve_rao = orig
         same_it = bool((sub_k["n_iter"] == sub_p["n_iter"]).all())
         d = float((sub_k["std"] - sub_p["std"]).abs().max() / sub_p["std"].abs().max())
         d32 = float((std[lanes].double() - sub_k["std"]).abs().max() / sub_k["std"].abs().max())
@@ -1292,11 +1325,9 @@ class Smoke:
         """The slice's main path: d sigma_nacelle / d (plan radius, draft) of
         every north-star variant, through the scan loop (K1 forward and K1
         on the adjoint system in every step)."""
-        from raft_tpu_torch.core import linalg6
         from raft_tpu_torch.parallel.optimize import (_make_loss, grad_nacelle_accel_std,
                                                       nacelle_accel_std)
         from raft_tpu_torch.parallel.sweep import north_star_grid
-        from raft_tpu_torch.solve import dynamics
 
         torch = self.torch
         n, chunk, n_iter = self.n_designs, self.chunk, 25
@@ -1318,8 +1349,7 @@ class Smoke:
         total = time.perf_counter() - t_all
         launches = self.counts()
         peak = torch.cuda.max_memory_allocated()
-        self.main_launches.update(fused=launches["fused"],
-                                  fused_adjoint=launches["fused_adjoint"])
+        self.add_main(launches, ("fused", "fused_adjoint"))
         grad = torch.cat(grads)
         loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, apply_fn, bem, n_iter,
                           False, dtype=torch.float32, device=self.dev)
@@ -1352,12 +1382,8 @@ class Smoke:
         args = (members, rna, env, wave, C, th)
         kw = dict(apply_fn=apply_fn, bem=bem, n_iter=n_iter, dtype=torch.float64, device=self.dev)
         gk = grad_nacelle_accel_std(*args, **kw)
-        orig = dynamics.solve_rao_ad
-        dynamics.solve_rao_ad = linalg6.solve_cx_fused   # autograd through the plain solve
-        try:
+        with plain_solve():
             gp = grad_nacelle_accel_std(*args, **kw)
-        finally:
-            dynamics.solve_rao_ad = orig
         d_plain = float((gk - gp).abs().max() / gp.abs().max())
         loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, apply_fn, bem, n_iter,
                           False, dtype=torch.float64, device=self.dev)
@@ -1439,6 +1465,330 @@ class Smoke:
               f"diff {d:.2e}")
         self.check(d <= TOL_GRAD and bool(torch.isfinite(gc).all()) and bool((gc != 0).all()),
                    f"mooring-knob gradient card == cpu ({TOL_GRAD:.0e}), every knob moves")
+
+    def add_main(self, launches: dict, keys):
+        """Add one main-path run's launches of ``keys`` to the kernels record
+        (summed over every path)."""
+        for k in keys:
+            self.main_launches[k] = self.main_launches.get(k, 0) + launches[k]
+
+    def phase_bem_gradient(self):
+        """The BEM gradient at full width: d sigma_nacelle / d theta (radial
+        scale) through ``make_bem_fn`` (VolturnUS-S, 850 panels, 1,024 class,
+        48 w, 200 m), the panel solve's plain assembly differentiated, K1
+        forward and adjoint in every scan step; float32 against float64 and
+        float64 against central differences; then ``optimize_design`` with
+        ``bem_fn``."""
+        from raft_tpu_torch.hydro import torch_bem
+        from raft_tpu_torch.hydro.mesh import mesh_design
+        from raft_tpu_torch.parallel.optimize import (_make_loss, _value_and_grad,
+                                                      nacelle_accel_std, optimize_design)
+        from raft_tpu_torch.parallel.sweep import _volturnus, scale_diameters
+        from raft_tpu_torch.tools.bem_grad_fd import FrozenBranches
+
+        torch = self.torch
+        nw, depth, n_iter = 48, 200.0, 25
+        w = np.linspace(0.05, 2.95, nw)            # _north_star_wave(48, 200.0)'s grid
+        runs = {}
+        for dtype in (torch.float32, torch.float64):
+            dn = str(dtype).split(".")[-1]
+            design, members, rna, env, wave, C = _volturnus(nw, dtype, self.dev)
+            panels = mesh_design(design, dz_max=3.0, da_max=2.0)
+            t0 = time.perf_counter()
+            bem_fn = torch_bem.make_bem_fn(panels, w, rho=float(env.rho), g=float(env.g),
+                                           depth=depth, beta=0.0, dtype=dtype, device=self.dev)
+            t_stage = time.perf_counter() - t0
+            loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, scale_diameters,
+                              None, n_iter, False, bem_fn=bem_fn, dtype=dtype, device=self.dev)
+            th = torch.tensor(BEM_THETA, dtype=dtype, device=self.dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            val, g = _value_and_grad(loss, th)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = self.counts()
+            if dtype == torch.float32:
+                self.add_main(launches, ("fused", "fused_adjoint"))
+            runs[dn] = (float(val), float(g), loss, th)
+            print(f"  BEM gradient {dn}: {len(panels)} panels -> "
+                  f"{torch_bem.pad_panel_count(len(panels))}, {nw} w, {depth:.0f} m, scan "
+                  f"{n_iter}: bem_fn staged in {t_stage:.2f} s; value and gradient {wall:.2f} s, "
+                  f"peak memory {peak / 2**30:.2f} GiB; sigma_nacelle {float(val):.6e}, "
+                  f"d sigma / d theta {float(g):.6e}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            self.check(bool(torch.isfinite(val)) and bool(torch.isfinite(g)) and float(g) != 0.0
+                       and launches["fused"] == n_iter and launches["fused_adjoint"] == n_iter
+                       and launches["rankine"] == launches["wave"] == 0,
+                       f"BEM gradient {dn}: finite, K1 {n_iter} forward + {n_iter} adjoint "
+                       f"launches, K3/K4 none (the plain assembly)")
+        g32, g64 = runs["float32"][1], runs["float64"][1]
+        v64, _g, loss64, th64 = runs["float64"]
+        t0 = time.perf_counter()
+        with plain_solve():
+            vp, gp = (float(x) for x in _value_and_grad(loss64, th64))
+        t_plain = time.perf_counter() - t0
+        dv, dg = abs(v64 - vp) / abs(vp), abs(g64 - gp) / abs(gp)
+        print(f"  BEM gradient float64, K1 vs the plain solve (autograd through it; {t_plain:.2f} "
+              f"s): value {vp:.12e} rel {dv:.3e}, gradient {gp:.12e} rel {dg:.3e} (limit "
+              f"{BEM_TOL_PLAIN:.0e})")
+        self.check(dv <= BEM_TOL_PLAIN and dg <= BEM_TOL_PLAIN,
+                   f"BEM gradient float64: K1 forward and adjoint == the plain solve "
+                   f"({BEM_TOL_PLAIN:.0e}, value and gradient)")
+        with torch.no_grad():
+            up, down = (float(loss64(th64 + s * BEM_FD_H)) for s in (1.0, -1.0))
+            with FrozenBranches() as frozen:                  # record theta's branches
+                loss64(th64)
+            frozen_fd = []
+            for s in (1.0, -1.0):
+                with frozen.replay():
+                    frozen_fd.append(float(loss64(th64 + s * BEM_FD_H)))
+        fd = (up - down) / (2 * BEM_FD_H)
+        fd_frozen = (frozen_fd[0] - frozen_fd[1]) / (2 * BEM_FD_H)
+        d32, d_fd = abs(g32 - g64) / abs(g64), abs(g64 - fd_frozen) / abs(fd_frozen)
+        print(f"  BEM gradient at theta {BEM_THETA}: float32 {g32:.9e} vs float64 {g64:.9e}, rel "
+              f"{d32:.3e} (limit {BEM_TOL_32:.0e}); float64 vs the central difference (h "
+              f"{BEM_FD_H}) with theta's branches held {fd_frozen:.9e}, rel {d_fd:.3e} (limit "
+              f"{BEM_FD_RTOL:.0e}); with the branches taken afresh {fd:.9e}, rel "
+              f"{abs(g64 - fd) / abs(fd):.3e} ({frozen.n_held} comparisons and integer casts "
+              f"held)")
+        self.check(d32 <= BEM_TOL_32 and d_fd <= BEM_FD_RTOL,
+                   f"BEM gradient: float32 == float64 ({BEM_TOL_32:.0e}), float64 == central "
+                   f"difference ({BEM_FD_RTOL:.0e})")
+
+        design, members, rna, env, wave, C = _volturnus(nw, torch.float32, self.dev)
+        bem_fn = torch_bem.make_bem_fn(mesh_design(design, dz_max=3.0, da_max=2.0), w,
+                                       rho=float(env.rho), g=float(env.g), depth=depth,
+                                       dtype=torch.float32, device=self.dev)
+        t0 = time.perf_counter()
+        res = optimize_design(members, rna, env, wave, C, theta0=1.0, steps=2,
+                              learning_rate=0.02, bounds=(0.8, 1.25), n_iter=n_iter,
+                              bem_fn=bem_fn, dtype=torch.float32, device=self.dev)
+        print(f"  optimize_design(bem_fn) float32, 2 Adam steps: {time.perf_counter() - t0:.2f} s; "
+              f"objective {np.array2string(res.history, precision=7)}; theta "
+              f"{np.array2string(res.thetas, precision=6)}; |grad| {res.grad_norm:.4e}")
+        self.check(bool(np.isfinite(res.history).all()) and bool(np.isfinite(res.thetas).all()),
+                   "optimize_design(bem_fn): finite history")
+
+    def phase_dlc(self):
+        """The DLC table: ``Model(VolturnUS-S, BEM="jax")`` on the north star's
+        200 w with a 7-heading grid (K3 once, K4 per chunk), then
+        ``sweep_sea_states`` over 64 cases (8 Hs/Tp rows x 8 headings), 4 of
+        them held against the CPU; then a 7-direction spread sea through
+        ``directional_response``."""
+        from raft_tpu_torch.model import Model, load_design
+        from raft_tpu_torch.parallel.sweep import (_volturnus, directional_response,
+                                                   make_wave_states, spread_sea_state,
+                                                   sweep_sea_states)
+
+        torch = self.torch
+        f64 = torch.float64
+        nw, n_iter = self.nw, 25
+        w = np.linspace(0.05, 2.95, nw)
+        design = load_design(DESIGNS / "VolturnUS-S.yaml")
+        m = Model(design, w=w, BEM="jax", dtype=f64, device=self.dev)
+        _d, members, rna, env, _wave, C = _volturnus(nw, f64, self.dev)
+        hs_tp = np.stack([np.linspace(2.0, 10.0, 8), np.linspace(7.0, 15.0, 8)], axis=1)
+        cases = np.array([[hs, tp, b] for hs, tp in hs_tp for b in np.linspace(0, np.pi / 2, 8)])
+        torch.cuda.synchronize()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        m.calcBEM(headings=np.linspace(0, np.pi / 2, 7), cache=False)
+        torch.cuda.synchronize()
+        t_bem = time.perf_counter() - t0
+        grid = m._bem_headings
+        waves = make_wave_states(w, cases, env.depth, dtype=f64, device=self.dev)
+        t0 = time.perf_counter()
+        res = sweep_sea_states(members, rna, env, waves, C, bem=grid, n_iter=n_iter, dtype=f64,
+                               device=self.dev)
+        wall = time.perf_counter() - t0
+        launches = self.counts()
+        self.add_main(launches, ("fused", "rankine", "wave"))
+        it = res["iterations"]
+        print(f"  DLC table: calcBEM 200 w x 7 headings float64 {t_bem:.2f} s (max refinement "
+              f"residual {m.bem_diagnostics['max_residual']:.2e}); sweep_sea_states "
+              f"{len(cases)} cases x {nw} w float64 {wall:.3f} s, iterations "
+              f"{int(it.min())}-{int(it.max())}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"    sigma_nacelle per Hs/Tp row (max over headings): "
+              f"{np.array2string(res['nacelle accel std dev'].reshape(8, 8).max(1), precision=5)}")
+        with plain_solve():
+            plain = sweep_sea_states(members, rna, env, waves, C, bem=grid, n_iter=n_iter,
+                                     dtype=f64, device=self.dev)
+        d_plain = max(float(np.abs(res[k] - plain[k]).max() / np.abs(plain[k]).max())
+                      for k in ("std dev", "nacelle accel std dev", "Xi_abs2"))
+        same_plain = bool((res["iterations"] == plain["iterations"]).all())
+        print(f"    64 cases, K1 vs the plain solve on the card: scale-relative {d_plain:.3e}, "
+              f"iterations {'identical' if same_plain else 'differ'}")
+        self.check(d_plain <= 1e-10 and same_plain,
+                   "DLC table: 64 cases through K1 == the plain solve (1e-10, identical "
+                   "iterations)")
+        n_chunks = -(-nw // 2)
+        self.check(res["std dev"].shape == (64, 6) and res["Xi_abs2"].shape == (64, nw, 6)
+                   and bool(np.isfinite(res["Xi_abs2"]).all()) and int(it.max()) < n_iter
+                   and launches["rankine"] == 1 and launches["wave"] == n_chunks
+                   and launches["fused"] == n_iter,
+                   f"DLC table: 64 cases finite and converged; K3 once, K4 {n_chunks} times, K1 "
+                   f"{n_iter}")
+
+        idx = [0, 21, 42, 63]
+
+        def subset(dev):
+            _d, mem, rna_d, env_d, _w, C_d = _volturnus(nw, f64, dev)
+            wv = make_wave_states(w, cases[idx], env_d.depth, dtype=f64, device=dev)
+            t0 = time.perf_counter()
+            out = sweep_sea_states(mem, rna_d, env_d, wv, C_d, bem=grid, n_iter=n_iter,
+                                   dtype=f64, device=dev)
+            return {**out, "seconds": time.perf_counter() - t0}
+
+        card, cpu = subset(self.dev), subset(torch.device("cpu"))
+        rel = max(float(np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max())
+                  for k in ("std dev", "nacelle accel std dev", "Xi_abs2"))
+        same_it = bool((card["iterations"] == cpu["iterations"]).all())
+        rows = max(float(np.abs(card[k] - res[k][idx]).max() / np.abs(res[k][idx]).max())
+                   for k in ("std dev", "Xi_abs2"))
+        print(f"  DLC cases {idx} float64, card vs CPU: scale-relative {rel:.3e}, iterations "
+              f"{card['iterations'].tolist()} / {cpu['iterations'].tolist()} (card "
+              f"{card['seconds']:.2f} s, CPU {cpu['seconds']:.2f} s); against the 64-case "
+              f"sweep's rows {rows:.3e}")
+        self.check(rel <= 1e-10 and same_it and rows <= 1e-12,
+                   "DLC cases card == CPU (1e-10, identical iterations), and == the 64-case "
+                   "sweep's rows (1e-12)")
+
+        # a 7-direction spread spans +-77 degrees about its mean, wider than the
+        # table's [0, 90] degree grid: it takes a grid of its own
+        m.calcBEM(headings=np.linspace(-np.pi / 2, np.pi / 2, 7), cache=False)
+        spread = spread_sea_state(w, 8.0, 12.0, env.depth, beta0=0.0, n_dir=7, dtype=f64,
+                                  device=self.dev)
+        t0 = time.perf_counter()
+        d = directional_response(members, rna, env, spread, C, bem=m._bem_headings,
+                                 n_iter=n_iter, dtype=f64, device=self.dev)
+        wall = time.perf_counter() - t0
+        long = sweep_sea_states(members, rna, env,
+                                make_wave_states(w, [[8.0, 12.0, 0.0]], env.depth, dtype=f64,
+                                                 device=self.dev),
+                                C, bem=m._bem_headings, n_iter=n_iter, dtype=f64,
+                                device=self.dev)
+        per_it = d["per direction"]["iterations"]
+        print(f"  spread sea (Hs 8 m, Tp 12 s, 7 directions, s = 2) float64: {wall:.3f} s; std "
+              f"dev {np.array2string(d['std dev'], precision=5)}; sigma_nacelle "
+              f"{d['nacelle accel std dev']:.6f} against {float(long['nacelle accel std dev'][0]):.6f} "
+              f"long-crested; iterations {per_it.tolist()}")
+        self.check(bool(np.isfinite(d["std dev"]).all()) and int(per_it.max()) < n_iter,
+                   "directional_response: finite, every direction converged")
+
+    def phase_solve_copies(self):
+        """solve_panels copies nothing from the host and never waits for the
+        device.  Under the profiler, every CUDA runtime call counted: one
+        solve (VolturnUS-S, 1,024 class, a finite-depth and a deep chunk,
+        K3/K4) and the refined solve's backward at a chunk's shapes, the
+        library calls (LU, triangular solves) that both routes share; no
+        host-device copy, no synchronisation, no ``cudaFree``.  Then two
+        bem_fn steps at full width (value and gradient, float32, the plain
+        assembly) after a first, under CUDA's sync debug mode (every
+        synchronisation PyTorch issues) with every host-to-device copy
+        counted."""
+        import warnings
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, record_function
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        from raft_tpu_torch.hydro import torch_bem, wavetable
+        from raft_tpu_torch.hydro.mesh import mesh_design
+        from raft_tpu_torch.model import load_design
+
+        torch = self.torch
+        f64 = torch.float64
+        design = load_design(DESIGNS / "VolturnUS-S.yaml")
+        panels = mesh_design(design, dz_max=3.0, da_max=2.0)
+        padded, pm, lm = torch_bem.pad_mesh(panels, None)
+        w, depth = np.array([0.3, 0.4, 1.5, 2.0]), 200.0
+        fd = wavetable.fd_fit_grid(w, depth, 9.81)
+        staged = torch_bem.stage_inputs(padded, pm, lm, w, [0.0], fd, finite_depth=True,
+                                        dtype=f64, device=self.dev)
+        kw = dict(tab=torch_bem.stage_tables(wavetable.load_tables(), f64, self.dev),
+                  depth=depth, finite_depth=True, dtype=f64, device=self.dev)
+        def profiled(label, fn):
+            """fn() under the profiler: the host-device copies of the run and
+            the CUDA runtime calls made between its entry and its exit."""
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function(label):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.events()
+            span = next(e.time_range for e in events if e.name == label)
+            runtime = {}
+            for e in events:
+                if (e.device_type != DeviceType.CUDA and e.name.startswith("cuda")
+                        and span.start <= e.time_range.start and e.time_range.end <= span.end):
+                    runtime[e.name] = runtime.get(e.name, 0) + 1
+            copies = [e.name for e in events if e.device_type == DeviceType.CUDA
+                      and ("HtoD" in e.name or "DtoH" in e.name)]
+            waits = {k: v for k, v in runtime.items() if "Synchronize" in k or k == "cudaFree"}
+            print(f"  {label} under the profiler: host-device copies {copies or 'none'}; runtime "
+                  f"calls inside {runtime}")
+            self.check(not copies and not waits,
+                       f"{label}: no host-to-device or device-to-host copy, no synchronisation "
+                       f"({waits or 'none'})")
+
+        profiled("one solve (1,024 class, 4 w, K3/K4)",
+                 lambda: torch_bem.solve_panels(**staged, **kw))
+        # the refined solve's backward at a chunk's shapes (2 systems, 2n = 2,048)
+        rng = np.random.default_rng(3)
+        m = 2 * len(padded)
+        M2 = torch.as_tensor(rng.normal(size=(2, m, m)) + m * np.eye(m), device=self.dev)
+        M2.requires_grad_(True)
+        B2 = torch.as_tensor(rng.normal(size=(2, m, 7)), device=self.dev)
+        x = torch_bem.solve_refined(M2, B2)
+        xbar = torch.ones_like(x)
+        profiled("the refined solve's backward (2 x 2,048)",
+                 lambda: torch.autograd.grad(x, M2, xbar, retain_graph=True))
+
+        class HostCopies(TorchDispatchMode):
+            """Every operator that takes a CPU tensor and gives a CUDA one."""
+            def __init__(self):
+                super().__init__()
+                self.ops = []
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+                outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+                if any(t.device.type == "cpu" for t in ins) and any(t.is_cuda for t in outs):
+                    self.ops.append(str(func))
+                return out
+
+        bem_fn = torch_bem.make_bem_fn(panels, w, depth=depth, dtype=torch.float32,
+                                       device=self.dev)
+        th = torch.tensor(1.0, device=self.dev, requires_grad=True)
+
+        def step():
+            A, B, F = bem_fn(th)
+            val = A.sum() * 1e-6 + B.sum() * 1e-6 + (F.re**2 + F.im**2).sum() * 1e-10
+            return torch.autograd.grad(val, th)[0]
+
+        step()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught, HostCopies() as hc:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                grads = [step() for _ in range(2)]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(c.message)[:80] for c in caught
+                 if "called a synchronizing CUDA operation" in str(c.message)]
+        print(f"  two bem_fn steps (float32, value and gradient) after the first: host-to-device "
+              f"copies {hc.ops or 'none'}; synchronisations {syncs or 'none'}; gradients "
+              f"{[float(g) for g in grads]}")
+        self.check(not hc.ops and not syncs and bool(torch.isfinite(torch.stack(grads)).all()),
+                   "bem_fn steps: no host-to-device copy, no synchronisation")
 
     def _profile(self, label: str, fn, kernels: dict, wall_key: tuple, split: str | None = None):
         """Where a run's time goes: a second, warm run under torch.profiler
@@ -1587,6 +1937,9 @@ class Smoke:
                   ("native BEM staging", self.phase_native_bem),
                   ("co-design gradient", self.phase_codesign),
                   ("optimize_design", self.phase_optimize),
+                  ("BEM gradient", self.phase_bem_gradient),
+                  ("DLC table", self.phase_dlc),
+                  ("panel-solve copies", self.phase_solve_copies),
                   ("profile", self.phase_profile)]
         if only is not None:
             unknown = set(only) - {name for name, _ in phases}

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.core import cplx
@@ -85,3 +86,26 @@ def wave_kinematics(zeta0: Tensor, w: Tensor, k: Tensor, depth, r: Tensor,
     ud = (u * w).mul_i()
     pDyn = zeta * (rho * g * cc)
     return u, ud, pDyn
+
+
+def spreading_weights(n_dir: int = 7, s: float = 2.0, max_offset: float | None = None):
+    """Discrete cos^2s directional spreading about the mean heading:
+    (offsets [rad], weights), numpy.
+
+    Midpoints of ``n_dir`` equal bins over (-max_offset, max_offset)
+    (default pi/2, where D = 0 at the never-sampled ends), weights
+    D = cos^2s normalized to sum 1 (the fraction of the wave energy each
+    direction carries).  ``n_dir=1`` or ``s=inf`` is one long-crested lane.
+    Host code: it runs once when a sea state is staged."""
+    if n_dir < 1:
+        raise ValueError(f"n_dir must be >= 1, got {n_dir}")
+    if n_dir == 1 or not np.isfinite(s):
+        return np.zeros(1), np.ones(1)
+    half = 0.5 * np.pi if max_offset is None else float(max_offset)
+    if not 0.0 < half <= 0.5 * np.pi:
+        # beyond pi/2 the cos weight goes negative (or NaN for a fractional s)
+        raise ValueError(f"max_offset must be in (0, pi/2], got {half}")
+    edges = np.linspace(-half, half, n_dir + 1)
+    offsets = 0.5 * (edges[:-1] + edges[1:])
+    D = np.cos(offsets) ** (2.0 * s)
+    return offsets, D / D.sum()

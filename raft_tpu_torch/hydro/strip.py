@@ -106,9 +106,17 @@ class StripKin:
 
 
 def node_kinematics(m: MemberSet, wave: WaveState, env: Env) -> StripKin:
-    """Wave kinematics at every strip node."""
+    """Wave kinematics at every strip node.  A ``wave.zeta`` with a leading
+    case axis (B, nw) makes each sea state a lane of one design's nodes
+    (outputs (B, N, ...)), each lane at its own heading when ``env.beta``
+    is a (B,) tensor; ``w`` and ``k`` stay one (nw,) grid."""
+    zeta, beta = wave.zeta, env.beta
+    if zeta.ndim > 1:
+        zeta = zeta[..., None, :]
+        if isinstance(beta, torch.Tensor) and beta.ndim:
+            beta = beta[..., None, None]
     u, ud, pDyn = wave_kinematics(
-        wave.zeta, wave.w, wave.k, env.depth, m.node_r, env.beta, env.rho, env.g)
+        zeta, wave.w, wave.k, env.depth, m.node_r, beta, env.rho, env.g)
     return StripKin(u=u.swapaxes(-1, -2), ud=ud.swapaxes(-1, -2), pDyn=pDyn)
 
 

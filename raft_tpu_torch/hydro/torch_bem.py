@@ -16,9 +16,11 @@ tensors of the model's device and dtype:
   the exact flat-polygon formula.
 * **Solve.** One complex system per frequency with 6 radiation + one
   diffraction column per heading, in the real 2n x 2n block form,
-  LU-factored once per frequency (``torch.linalg.lu_factor``, batched over
-  a frequency chunk) with ``N_REFINE`` refinement steps; the residual is
-  returned per frequency.
+  LU-factored once per frequency (``torch.linalg.lu_factor_ex``, one call
+  per system: cuSOLVER on the card) with ``N_REFINE`` refinement steps;
+  the residual is returned per frequency.  The solve takes tensors staged
+  once by its caller (:func:`stage_inputs`, :func:`stage_tables`) and
+  copies nothing from the host.
 * **Padding.** Panel counts round up to the ``PANEL_CLASSES`` ladder with
   degenerate zero-area panels and explicit masks.
 
@@ -34,6 +36,13 @@ point, the direct then the image contribution is added to
 ``R_pot = pot_d + pot_i`` and to ``R_dn = (grad_d + grad_i) . n_i``
 (projected per point).  In f64 it agrees with the XLA route's separate
 sums to ~3e-16.
+
+**Gradient.** :func:`make_bem_fn` returns ``theta -> (A, B, F)`` of the
+warped hull, differentiable: ``solve_panels(assembly="plain")`` runs the
+plain versions, which autograd differentiates, with the frequency chunks,
+quadrature points, wave-integral evaluations, near nodes and fit terms
+recomputed in the backward pass (``_remat``), and the refined solve has
+its implicit-function rule (:func:`solve_refined`).
 
 **Routing.** :func:`solve_bem_any` sends a solve to this on-device route
 (mode ``"jax"``) or to the host C++ solver
@@ -58,11 +67,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from raft_tpu_torch.core import bessel
 from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.cuda_bem import rankine_assembly, wave_assembly
-from raft_tpu_torch.core.device import resolve_device
+from raft_tpu_torch.core.device import require_on, resolve_device
 from raft_tpu_torch.hydro import wavetable
 
 Tensor = torch.Tensor
@@ -107,6 +117,16 @@ def pad_panel_count(n_total: int) -> int:
                      f"{PANEL_CLASSES[-1]}; mesh coarser (dz_max, da_max)")
 
 
+def _remat(fn, *args):
+    """``fn(*args)``; when autograd records the call, its intermediates are
+    recomputed in the backward pass instead of kept (the JAX package's
+    ``jax.checkpoint``).  Without grad it is a plain call, so the forward
+    bits do not depend on it."""
+    if torch.is_grad_enabled() and any(isinstance(a, Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 # ------------------------------------------------------------ wave integrals
 
 def _phi_near(zr: Tensor, zi: Tensor):
@@ -132,18 +152,24 @@ def _phi_near(zr: Tensor, zi: Tensor):
     return phr, phi, phr - zr * inv, phi + zi * inv
 
 
+def _near_node(X: Tensor, Y: Tensor, x_q: Tensor, w_q: Tensor):
+    """One node's terms of the near quadrature: (w Phi.re, w sin(theta) dPhi.im)."""
+    th = 0.5 * _PI + 0.5 * _PI * x_q
+    s = torch.sin(th)
+    w = w_q * 0.5 * _PI
+    phr, _phi, _dphr, dphi = _phi_near(Y, X * s)
+    return w * phr, w * s * dphi
+
+
 def _near_integrals(X: Tensor, Y: Tensor, nodes):
     """(I0, I1) by direct theta quadrature, valid for rho <= R_NEAR."""
     glx, glw = nodes
     acc0 = torch.zeros_like(X)
     accX = torch.zeros_like(X)
     for q in range(glx.shape[0]):
-        th = 0.5 * _PI + 0.5 * _PI * glx[q]
-        s = torch.sin(th)
-        w = glw[q] * 0.5 * _PI
-        phr, _phi, _dphr, dphi = _phi_near(Y, X * s)
-        acc0 = acc0 + w * phr
-        accX = accX - w * s * dphi
+        t0, tX = _remat(_near_node, X, Y, glx[q], glw[q])
+        acc0 = acc0 + t0
+        accX = accX - tX
     i0 = acc0 / _PI
     dI0_dX = accX / _PI
     rr = torch.sqrt(torch.clamp(X * X + Y * Y, min=1e-14))
@@ -173,6 +199,10 @@ def eval_wave_integrals(X: Tensor, Y: Tensor, tab: dict):
 
     ``tab``: ``{"I0", "I1"}`` (NX, NS) tensors and ``"nodes"``, the GL
     node and weight tensors, all on X's device in X's dtype."""
+    return _remat(_wave_integrals, X, Y, tab)
+
+
+def _wave_integrals(X: Tensor, Y: Tensor, tab: dict):
     NXm1, NSm1 = wavetable.NX - 1, wavetable.NS - 1
     rho = torch.sqrt(X * X + Y * Y + 1e-18)
     near = rho < R_NEAR
@@ -337,10 +367,9 @@ def rankine_plain(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: Tens
     sel_d, sel_i = pair_levels(c, diag, lid_surface)
     lv = quad_points()[3]
     us, vs, wf = stage_quad(dtype, dev) if quad is None else quad
-    ci = c[:, None, :]
 
     def contrib(pt, dA, sel, level):
-        d = ci - pt[None, :, :]
+        d = c[:, None, :] - pt[None, :, :]
         r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
         ok = (sel == level) & (r2 > 1e-12)
         r2s = torch.where(ok, r2, torch.ones_like(r2))
@@ -352,20 +381,23 @@ def rankine_plain(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: Tens
                + d[..., 2] * nrm[:, 2][:, None])
         return pot, torch.where(ok, -dA[None, :] * ir3, zero) * dsn
 
-    pot = torch.zeros((n, n), dtype=dtype, device=dev)
-    dn = torch.zeros_like(pot)
-    for q in range(us.shape[0]):
+    def point(q, pans, area):
+        """The direct (main levels only) and image contributions of point q."""
         u, v = us[q], vs[q]
         pt = ((1 - u) * (1 - v) * pans[:, 0] + u * (1 - v) * pans[:, 1]
               + u * v * pans[:, 2] + (1 - u) * v * pans[:, 3])
         dA = area * wf[q]
         level = int(lv[q])
-        if q < NQ_MAIN:
-            p, g = contrib(pt, dA, sel_d, level)
-            pot, dn = pot + p, dn + g
         ptI = torch.stack([pt[:, 0], pt[:, 1], -pt[:, 2]], dim=-1)
-        p, g = contrib(ptI, dA, sel_i, level)
-        pot, dn = pot + p, dn + g
+        image = contrib(ptI, dA, sel_i, level)
+        return (contrib(pt, dA, sel_d, level) + image) if q < NQ_MAIN else image
+
+    pot = torch.zeros((n, n), dtype=dtype, device=dev)
+    dn = torch.zeros_like(pot)
+    for q in range(us.shape[0]):
+        parts = _remat(point, q, pans, area)
+        for p, g in zip(parts[::2], parts[1::2]):
+            pot, dn = pot + p, dn + g
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     lids = torch.where(lid_surface, torch.ones_like(self_pot), torch.zeros_like(self_pot))
     pot = pot + torch.where(eye, (self_pot * (1.0 + lids))[None, :], torch.zeros_like(pot))
@@ -441,10 +473,8 @@ def _wave_fd(k0, A0, lam, a_fit, h, R, dx, dy, zP, zQ, area_j, diag_lid, tab):
     gre = gre + _sum4(p0)
     gre_R = gre_R + _sum4(pR)
     gre_z = gre_z + _sum4(pz)
-    g0 = gR = gz = torch.zeros_like(X)
-    for j in range(lam.shape[-1]):          # exponential-fit part
-        lam_j = lam[:, j][:, None, None]
-        a_j = a_fit[:, j][:, None, None]
+
+    def fit_term(lam_j, a_j, R_use, R2, *d4):
         t0, tR, tz = [], [], []
         for i in range(4):
             cc = d4[i] + lam_j
@@ -454,7 +484,13 @@ def _wave_fd(k0, A0, lam, a_fit, h, R, dx, dy, zP, zQ, area_j, diag_lid, tab):
             t0.append(a_j / rr)
             tR.append(-R_use * t3)
             tz.append(-cc * t3 * sgn[i])
-        g0, gR, gz = g0 + _sum4(t0), gR + _sum4(tR), gz + _sum4(tz)
+        return _sum4(t0), _sum4(tR), _sum4(tz)
+
+    g0 = gR = gz = torch.zeros_like(X)
+    for j in range(lam.shape[-1]):          # exponential-fit part
+        t0, tR, tz = _remat(fit_term, lam[:, j][:, None, None], a_fit[:, j][:, None, None],
+                            R_use, R2, *d4)
+        g0, gR, gz = g0 + t0, gR + tR, gz + tz
     gre, gre_R, gre_z = gre + g0, gre_R + gR, gre_z + gz
     e4 = [torch.exp(-k0 * d) for d in d4]
     gim = _sum4([-_TWO_PI * A0 * e * J0 for e in e4])
@@ -476,9 +512,19 @@ def _wave_fd(k0, A0, lam, a_fit, h, R, dx, dy, zP, zQ, area_j, diag_lid, tab):
     return Cx(gre, gim), dG_dR * ux, dG_dR * uy, Cx(gre_z, gim_z)
 
 
+def _runs(flags):
+    """(lo, hi, flag) of each maximal run of equal flags."""
+    out, lo = [], 0
+    for i in range(1, len(flags) + 1):
+        if i == len(flags) or flags[i] != flags[lo]:
+            out.append((lo, i, bool(flags[lo])))
+            lo = i
+    return out
+
+
 def wave_plain(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor,
                panel_mask: Tensor, lid_surface: Tensor, tab: dict, k: Tensor,
-               fd: dict | None, *, finite_depth: bool, depth: float):
+               fd: dict | None, *, finite_depth: bool, depth: float, fd_active=None):
     """Plain version of kernel K4: one frequency chunk's wave part combined
     with the Rankine parts into ``(S_re, S_im, Dn_re, Dn_im)``, each
     (nf, n, n).
@@ -486,9 +532,12 @@ def wave_plain(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor
     ``k``: (nf,) deep-water wavenumbers; ``fd``: the chunk's finite-depth
     fit ``{"k0", "A0", "active"}`` (nf,) and ``{"lam", "a"}`` (nf, NL), or
     None in deep water.  Each frequency takes the 4-image branch where
-    ``active`` and the deep branch elsewhere; within a branch every region
-    of the wave integrals is evaluated densely and selected with ``where``.
-    The -2 pi diagonal shift and the lid-row swap stay with the caller."""
+    ``active`` and the deep branch elsewhere (the JAX package's
+    ``lax.cond``); within a branch every region of the wave integrals is
+    evaluated densely and selected with ``where``.  ``fd_active``, the
+    chunk's branches as host booleans (:func:`stage_inputs`), spares the
+    read of ``fd["active"]`` from the device.  The -2 pi diagonal shift and
+    the lid-row swap stay with the caller."""
     n = c.shape[0]
     nf = k.shape[0]
     dev = c.device
@@ -500,24 +549,20 @@ def wave_plain(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor
     v = zP + zQ
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     diag_lid = eye & lid_surface[None, :]
-    shape = (nf, n, n)
-    G = Cx(torch.empty(shape, dtype=c.dtype, device=dev),
-           torch.empty(shape, dtype=c.dtype, device=dev))
-    gx, gy, gz = (Cx(torch.empty_like(G.re), torch.empty_like(G.re)) for _ in range(3))
-    active = (fd["active"] > 0.5) if finite_depth else torch.zeros(nf, dtype=torch.bool, device=dev)
-    for sel, is_fd in ((~active, False), (active, True)):
-        idx = torch.nonzero(sel).flatten()
-        if idx.numel() == 0:
-            continue
+    if fd_active is None:
+        fd_active = (fd["active"] > 0.5).tolist() if finite_depth else [False] * nf
+    runs = []                               # (G, gx, gy, gz) of each run of one branch
+    for lo, hi, is_fd in _runs(fd_active):
         if is_fd:
-            col = lambda key: fd[key][idx][:, None, None]     # noqa: E731
-            parts = _wave_fd(col("k0"), col("A0"), fd["lam"][idx], fd["a"][idx], depth,
+            col = lambda key: fd[key][lo:hi][:, None, None]     # noqa: E731
+            parts = _wave_fd(col("k0"), col("A0"), fd["lam"][lo:hi], fd["a"][lo:hi], depth,
                              R, dx, dy, zP, zQ, area, diag_lid, tab)
         else:
-            parts = _wave_deep(k[idx][:, None, None], R, dx, dy, v, area, diag_lid, tab)
-        for out, part in zip((G, gx, gy, gz), parts):
-            out.re[idx] = part.re.expand(idx.numel(), n, n)
-            out.im[idx] = part.im.expand(idx.numel(), n, n)
+            parts = _wave_deep(k[lo:hi][:, None, None], R, dx, dy, v, area, diag_lid, tab)
+        runs.append([Cx(p.re.expand(hi - lo, n, n), p.im.expand(hi - lo, n, n))
+                     for p in parts])
+    G, gx, gy, gz = (Cx(torch.cat([r[i].re for r in runs]), torch.cat([r[i].im for r in runs]))
+                     for i in range(4))
     area_row = area[None, :]
     colm = panel_mask[None, :]
     n0, n1, n2 = (nrm[:, i][:, None] for i in range(3))
@@ -549,7 +594,9 @@ def stage_tables(tab: dict, dtype, device) -> dict:
     ``theta_q = pi/2 + pi/2 x_q``, the weights ``w_q pi/2`` and the E1
     series' Horner coefficients ``(-1)^(m+1) / (m m!)``, m = 1..N_SERIES;
     and ``quad``, K3's subdivision points (:func:`stage_quad`).  Staged
-    once per solve, so neither kernel wrapper copies from the host."""
+    once by the caller of :func:`solve_panels` (once per solve, once per
+    :func:`make_bem_fn`), so neither the solve nor a kernel wrapper copies
+    from the host."""
     def t(a):
         return _staged(a, dtype, device)
 
@@ -561,6 +608,99 @@ def stage_tables(tab: dict, dtype, device) -> dict:
             "quad": stage_quad(dtype, device)}
 
 
+def stage_inputs(pans, panel_mask, lid_mask, w, betas, fd: dict, *, finite_depth: bool,
+                 dtype, device) -> dict:
+    """One panel solve's host arrays -> the keyword arguments ``pans``,
+    ``panel_mask``, ``lid_mask``, ``w``, ``betas``, ``fd`` and ``fd_active``
+    of :func:`solve_panels`: each array copied once to ``device`` in
+    ``dtype``; ``fd_active`` is the per-frequency branch of the finite-depth
+    fit as host booleans (``fd["active"] > 0.5`` when ``finite_depth``),
+    read here so the plain assembly never reads it back from the device."""
+    dev = resolve_device(device)
+    nw = len(np.atleast_1d(w))
+    active = (tuple(bool(a > 0.5) for a in np.asarray(fd["active"])) if finite_depth
+              else (False,) * nw)
+    return {"pans": _staged(pans, dtype, dev), "panel_mask": _staged(panel_mask, dtype, dev),
+            "lid_mask": _staged(lid_mask, dtype, dev), "w": _staged(w, dtype, dev),
+            "betas": _staged(betas, dtype, dev),
+            "fd": {key: _staged(val, dtype, dev) for key, val in fd.items()},
+            "fd_active": active}
+
+
+def _require_staged(dev, dtype, **tensors):
+    """Every argument a tensor on ``dev`` in ``dtype``: :func:`solve_panels`
+    copies nothing from the host."""
+    for name, t in tensors.items():
+        if not isinstance(t, Tensor):
+            raise TypeError(f"solve_panels: {name} is a {type(t).__name__}, not a tensor; stage "
+                            "the inputs with stage_inputs and the tables with stage_tables")
+    require_on(dev, dtype, **tensors)
+
+
+def _refined(M2: Tensor, LU: Tensor, piv: Tensor, B2: Tensor, adjoint: bool = False) -> Tensor:
+    """Solve ``M2 x = B2`` (``M2^T x = B2`` with ``adjoint``; pass ``M2`` as
+    given) on the factors of ``M2``, then ``N_REFINE`` refinement steps."""
+    M = M2.mT if adjoint else M2
+    x = torch.linalg.lu_solve(LU, piv, B2, adjoint=adjoint)
+    for _ in range(N_REFINE):
+        x = x + torch.linalg.lu_solve(LU, piv, B2 - M @ x, adjoint=adjoint)
+    return x
+
+
+def _lu_factor(M2: Tensor):
+    """LU factors of a batch of systems, one ``lu_factor_ex`` call per
+    system: a single matrix goes to cuSOLVER's getrf on the card, where a
+    batch goes to MAGMA's batched getrf, which allocates and frees its
+    workspace with the device in every call (``cudaFree`` waits for the
+    device).  On the CPU both are LAPACK's getrf per matrix.
+
+    A singular system raises on CPU tensors.  On the card its error code is
+    not read back (that would wait for the device): its factors hold inf or
+    NaN, which the solve's residual ``resid`` reports, as in the JAX
+    package."""
+    mats = M2.reshape(-1, *M2.shape[-2:])
+    parts = [torch.linalg.lu_factor_ex(m) for m in mats]
+    if M2.device.type == "cpu":
+        bad = [i for i, (_lu, _piv, info) in enumerate(parts) if int(info) != 0]
+        if bad:
+            raise torch.linalg.LinAlgError(f"solve_panels: block systems {bad} are singular "
+                                           "(getrf's info is nonzero)")
+    return (torch.stack([p[0] for p in parts]).reshape(M2.shape),
+            torch.stack([p[1] for p in parts]).reshape(M2.shape[:-1]))
+
+
+class _SolveRefined(torch.autograd.Function):
+    """The refined solve of the block systems with its implicit-function
+    rule (the JAX package's ``custom_vjp`` ``_solve_refined``): for
+    ``M2 x = B2``, ``lam = M2^-T xbar`` by the same refined solver (on the
+    forward's factors, ``lu_solve(adjoint=True)``, refined against
+    ``M2^T``), ``M2bar = -lam x^T`` and ``B2bar = lam``.  The refinement
+    loop itself is never differentiated."""
+
+    @staticmethod
+    def forward(ctx, M2, B2):
+        LU, piv = _lu_factor(M2)
+        x = _refined(M2, LU, piv, B2)
+        ctx.save_for_backward(M2, LU, piv, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, xbar):
+        M2, LU, piv, x = ctx.saved_tensors
+        lam = _refined(M2, LU, piv, xbar.contiguous(), adjoint=True)
+        return -lam @ x.mT, lam
+
+
+def solve_refined(M2: Tensor, B2: Tensor) -> Tensor:
+    """``x = M2^-1 B2`` for a batch of real systems: LU factored once per
+    system (:func:`_lu_factor`: a singular system raises on the CPU and shows
+    on the card only in the residual), one solve and ``N_REFINE`` refinement
+    steps;
+    reverse-differentiable by the implicit function theorem
+    (:class:`_SolveRefined`)."""
+    return _SolveRefined.apply(M2, B2)
+
+
 # ------------------------------------------------------------- the solve
 
 def freq_chunk(n: int, nw: int) -> int:
@@ -569,38 +709,56 @@ def freq_chunk(n: int, nw: int) -> int:
     return max(1, min(nw, 8, 2048 // max(n, 1)))
 
 
-def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *,
+ASSEMBLIES = ("kernels", "plain")
+
+
+def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, fd_active,
                  rho: float = 1025.0, g: float = 9.81, depth: float = 0.0,
-                 finite_depth: bool = False, dtype=torch.float64, device=None):
+                 finite_depth: bool = False, assembly: str = "kernels",
+                 dtype=torch.float64, device=None):
     """Padded panels -> ``(A, B, F, resid)`` (port of ``jax_bem.solve_panels``).
 
-    ``pans`` (n, 4, 3) padded vertices (hull, lid, degenerate padding);
-    ``panel_mask``/``lid_mask`` (n,); ``w`` (nw,) rad/s; ``betas`` (nb,)
-    headings [rad]; ``fd`` the :func:`wavetable.fd_fit_grid` arrays;
-    ``tab`` ``{"I0", "I1"}`` host tables.  Everything is taken to
-    ``device`` in ``dtype``, the solve's precision.
+    Every input is a tensor already on ``device`` in ``dtype``, the solve's
+    precision: ``pans`` (n, 4, 3) padded vertices (hull, lid, degenerate
+    padding), ``panel_mask``/``lid_mask`` (n,), ``w`` (nw,) rad/s, ``betas``
+    (nb,) headings [rad] and ``fd``, the :func:`wavetable.fd_fit_grid`
+    arrays, as :func:`stage_inputs` stages them (with ``fd_active``, the
+    fit's branches on the host); ``tab`` as :func:`stage_tables` stages it.
+    Host arrays or tensors elsewhere raise: the solve stages nothing.
+
+    ``assembly`` (the JAX package's ``assembly=``): ``"kernels"`` launches
+    K3 and K4 on CUDA tensors (their wrappers raise under autograd) and
+    takes their plain versions on CPU tensors; ``"plain"`` runs
+    :func:`rankine_plain` and :func:`wave_plain` on any device, the route
+    :func:`make_bem_fn` differentiates.  Under autograd each frequency
+    chunk, each quadrature point of the Rankine sum, each wave-integral
+    evaluation, near-quadrature node and fit term is recomputed in the
+    backward pass rather than kept, and the refined solve has its
+    implicit-function rule (:func:`solve_refined`).
 
     Returns A, B (nw, 6, 6) with [j, k] = force j per unit mode-k motion,
     F a Cx (nw, nb, 6), and resid (nw,), the largest relative residual of
     the block system after refinement."""
     dev = resolve_device(device)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                               device=dev).to(dtype)
-
-    pans, panel_mask, lid_mask, w, betas = (t(x) for x in (pans, panel_mask, lid_mask, w, betas))
-    fd = {key: t(val) for key, val in fd.items()}
-    tab_d = stage_tables(tab, dtype, dev)
+    if assembly not in ASSEMBLIES:
+        raise ValueError(f"assembly {assembly!r}: expected one of {ASSEMBLIES}")
+    _require_staged(dev, dtype, pans=pans, panel_mask=panel_mask, lid_mask=lid_mask, w=w,
+                    betas=betas, **{f"fd[{key!r}]": val for key, val in fd.items()},
+                    **{f"tab[{key!r}]": val for key, val in tab.items() if key in ("I0", "I1")},
+                    **{f"tab[{key!r}][{i}]": val for key in ("nodes", "near", "quad")
+                       for i, val in enumerate(tab[key])})
+    nw = w.shape[0]
+    if len(fd_active) != nw:
+        raise ValueError(f"fd_active has {len(fd_active)} entries for {nw} frequencies")
     n = pans.shape[0]
-    nb = betas.shape[0]
 
     c, nrm, area, diag = panel_geometry(pans)
     hull_mask = panel_mask * (1.0 - lid_mask)
     lid_surface = (lid_mask > 0.5) & (torch.abs(c[:, 2]) < 1e-6 * torch.clamp(diag, min=1e-9))
     self_pot = self_potential(pans, c, nrm)
-    R_pot, R_dn = rankine_assembly(pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot,
-                                   quad=tab_d["quad"])
+    rankine = rankine_assembly if assembly == "kernels" else rankine_plain
+    R_pot, R_dn = rankine(pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot,
+                          quad=tab["quad"])
 
     nvec6 = torch.cat([nrm, torch.linalg.cross(c, nrm)], dim=1)      # (n, 6)
     Wn = nvec6 * (hull_mask * area)[:, None]                          # (n, 6)
@@ -612,18 +770,19 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *,
     sb = torch.sin(betas)[None, :, None]
     cx, cy, cz = c[:, 0], c[:, 1], c[:, 2]
 
-    nw = w.shape[0]
-    chunk = freq_chunk(n, nw)
-    A_out, B_out, Fr_out, Fi_out, res_out = [], [], [], [], []
-    for lo in range(0, nw, chunk):
-        sl = slice(lo, min(lo + chunk, nw))
+    def one_chunk(sl, R_pot, R_dn):
         om = w[sl]
         nf = om.shape[0]
         k = om * om / g
         fd_c = {key: val[sl] for key, val in fd.items()} if finite_depth else None
-        S_re, S_im, Dn_re, Dn_im = wave_assembly(
-            R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab_d, k, fd_c,
-            finite_depth=finite_depth, depth=depth)
+        if assembly == "kernels":
+            S_re, S_im, Dn_re, Dn_im = wave_assembly(
+                R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab, k, fd_c,
+                finite_depth=finite_depth, depth=depth)
+        else:
+            S_re, S_im, Dn_re, Dn_im = wave_plain(
+                R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab, k, fd_c,
+                finite_depth=finite_depth, depth=depth, fd_active=fd_active[sl])
         M_re = torch.where(lid_row, S_re, Dn_re - _TWO_PI * eye)
         M_im = torch.where(lid_row, S_im, Dn_im)
 
@@ -657,12 +816,10 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *,
 
         M2 = torch.cat([torch.cat([M_re, -M_im], dim=2), torch.cat([M_im, M_re], dim=2)], dim=1)
         B2 = torch.cat([B_re, B_im], dim=1)
-        LU, piv = torch.linalg.lu_factor(M2)
-        x2 = torch.linalg.lu_solve(LU, piv, B2)
-        for _ in range(N_REFINE):
-            x2 = x2 + torch.linalg.lu_solve(LU, piv, B2 - M2 @ x2)
-        r2 = B2 - M2 @ x2
-        resid = r2.abs().amax(dim=(1, 2)) / torch.clamp(B2.abs().amax(dim=(1, 2)), min=1e-30)
+        x2 = solve_refined(M2, B2)
+        with torch.no_grad():
+            r2 = B2 - M2 @ x2
+            resid = r2.abs().amax(dim=(1, 2)) / torch.clamp(B2.abs().amax(dim=(1, 2)), min=1e-30)
         xr, xi = x2[:, :n], x2[:, n:]
 
         # panel potentials phi = S sigma, then the pressure integrals
@@ -670,16 +827,62 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *,
         P_im = S_re @ xi + S_im @ xr
         acc_re = P_re[:, :, :6].transpose(1, 2) @ Wn                   # (nf, kk, j)
         acc_im = P_im[:, :, :6].transpose(1, 2) @ Wn
-        A_out.append(-rho * acc_re.transpose(1, 2))
-        B_out.append(rho * omc * acc_im.transpose(1, 2))
         tot = ph + Cx(P_re[:, :, 6:].transpose(1, 2), P_im[:, :, 6:].transpose(1, 2))
         exc_re = tot.re @ Wn                                           # (nf, nb, j)
         exc_im = tot.im @ Wn
-        Fr_out.append(-rho * omc * exc_im)
-        Fi_out.append(rho * omc * exc_re)
-        res_out.append(resid)
-    return (torch.cat(A_out), torch.cat(B_out),
-            Cx(torch.cat(Fr_out), torch.cat(Fi_out)), torch.cat(res_out))
+        return (-rho * acc_re.transpose(1, 2), rho * omc * acc_im.transpose(1, 2),
+                -rho * omc * exc_im, rho * omc * exc_re, resid)
+
+    chunk = freq_chunk(n, nw)
+    outs = [_remat(one_chunk, slice(lo, min(lo + chunk, nw)), R_pot, R_dn)
+            for lo in range(0, nw, chunk)]
+    A, B, Fr, Fi, resid = (torch.cat(parts) for parts in zip(*outs))
+    return A, B, Cx(Fr, Fi), resid
+
+
+def scale_radially(pans: Tensor, theta: Tensor) -> Tensor:
+    """The default warp of :func:`make_bem_fn`: x and y scaled by ``theta``
+    (a scalar, or one scale each) about the z axis; degenerate padding
+    panels stay degenerate under it."""
+    scale = torch.cat([theta.expand(2), torch.ones(1, dtype=pans.dtype, device=pans.device)])
+    return pans * scale
+
+
+def make_bem_fn(panels, w, *, rho: float = 1025.0, g: float = 9.81, depth: float = 0.0,
+                beta: float = 0.0, lid=None, warp_fn=None, dtype=torch.float32, device=None):
+    """``theta -> (A (nw, 6, 6), B (nw, 6, 6), F Cx (nw, 6))``, the
+    differentiable geometry -> coefficients hook of
+    :func:`raft_tpu_torch.parallel.optimize.optimize_design` (``bem_fn=``;
+    port of ``jax_bem.make_bem_fn``).
+
+    ``warp_fn(padded_panels, theta) -> padded_panels`` parameterizes the
+    geometry (default :func:`scale_radially`).  The mesh, its masks, the
+    frequencies, the finite-depth fit and the tables are staged on
+    ``device`` in ``dtype`` here, once; each call warps the staged panels
+    and solves with ``assembly="plain"`` (the kernels have no backward, as
+    the JAX package's Pallas tiles have none), so gradients flow through
+    the panel geometry, the influence assembly and the refined solve."""
+    dev = resolve_device(device)
+    padded, panel_mask, lid_mask = pad_mesh(panels, lid)
+    w_np = np.ascontiguousarray(np.atleast_1d(w), dtype=np.float64)
+    depth_f = float(depth) if depth and depth > 0 else -1.0
+    finite_depth = depth_f > 0
+    staged = stage_inputs(padded, panel_mask, lid_mask, w_np, [float(beta)],
+                          wavetable.fd_fit_grid(w_np, depth_f, g), finite_depth=finite_depth,
+                          dtype=dtype, device=dev)
+    pans0 = staged.pop("pans")
+    tab = stage_tables(wavetable.load_tables(), dtype, dev)
+    warp = scale_radially if warp_fn is None else warp_fn
+
+    def bem_fn(theta):
+        theta = torch.as_tensor(theta, dtype=dtype, device=dev)
+        A, B, F, _resid = solve_panels(
+            warp(pans0, theta), tab=tab, **staged, rho=float(rho), g=float(g),
+            depth=float(depth_f if finite_depth else 0.0), finite_depth=finite_depth,
+            assembly="plain", dtype=dtype, device=dev)
+        return A, B, Cx(F.re[:, 0], F.im[:, 0])
+
+    return bem_fn
 
 
 # ------------------------------------------------------------ host wrappers
@@ -780,9 +983,11 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
             return out
 
     padded, panel_mask, lid_mask = pad_mesh(panels, lid)
-    fd = wavetable.fd_fit_grid(w_np, depth_f, g)
+    staged = stage_inputs(padded, panel_mask, lid_mask, w_np, betas,
+                          wavetable.fd_fit_grid(w_np, depth_f, g), finite_depth=finite_depth,
+                          dtype=dtype, device=dev)
     A6, B6, F_cx, resid = solve_panels(
-        padded, panel_mask, lid_mask, w_np, betas, fd, tab, rho=float(rho), g=float(g),
+        **staged, tab=stage_tables(tab, dtype, dev), rho=float(rho), g=float(g),
         depth=float(depth_f if finite_depth else 0.0), finite_depth=finite_depth,
         dtype=dtype, device=dev)
     A = A6.double().cpu().numpy().transpose(1, 2, 0)              # (6, 6, nw)

@@ -11,11 +11,15 @@ optimization is plain gradient descent: Adam with optax's defaults
 The JAX package batches designs with ``jax.vmap``; here a ``theta`` with a
 leading lane axis, through an ``apply_fn`` that maps it to a design batch,
 gives each lane its own objective and, through the sum of the lanes'
-objectives, its own gradient.  Not ported yet: batched sea states
-(``make_wave_states``, ``case_reduce`` over a DLC table, per-lane
-headings) and the differentiable panel re-solve ``bem_fn`` (ROADMAP.md,
-queue 1), and the JAX package's compiled-executable cache around the
-value-and-grad step (queue 1, item 7: PyTorch runs eagerly).
+objectives, its own gradient.  A batched sea state
+(:func:`~raft_tpu_torch.parallel.sweep.make_wave_states`) makes each case
+a lane of one design instead, reduced by ``case_reduce`` (robust design
+over a DLC table).  ``bem_fn``
+(:func:`raft_tpu_torch.hydro.torch_bem.make_bem_fn`) re-solves the panel
+method inside the loss, so the gradient carries the potential-flow
+coefficients' dependence on the hull.  Not ported: the JAX package's
+compiled-executable cache around the value-and-grad step (ROADMAP.md,
+queue 1, item 7: PyTorch runs eagerly).
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.device import resolve_device
 from raft_tpu_torch.core.types import Env, MemberSet, RNA, WaveState
-from raft_tpu_torch.parallel.sweep import forward_response, scale_diameters, stage_bem
+from raft_tpu_torch.parallel.sweep import (_bem_device_layout, _stage_heading_rows, _stage_zeta,
+                                           forward_response, scale_diameters)
 
 Tensor = torch.Tensor
 
@@ -53,50 +58,77 @@ def energy_sum(sigmas: Tensor) -> Tensor:
     return torch.sqrt(torch.sum(sigmas**2))
 
 
-def _stage(bem, wave: WaveState, env: Env):
-    """The single-sea-state BEM layouts of the JAX package's ``_make_loss``
-    -> staged (A, B, F Cx) on the wave's device: ``stage_bem`` output as
-    given, a raw host (A[6, 6, nw], B[6, 6, nw], F[6, nw]) tuple, or a
-    heading grid (betas, F_all[nb, 6, nw], A, B) interpolated to the wave's
-    heading."""
-    if len(bem) == 4:
-        from raft_tpu_torch.model import interp_heading_excitation
-
-        bgrid, F_all, A_h, B_h = bem
-        beta = float(env.beta if wave.beta is None else wave.beta)
-        return stage_bem((A_h, B_h, interp_heading_excitation(bgrid, F_all, beta)), wave)
-    if isinstance(bem[2], Cx):
-        return bem
-    return stage_bem(bem, wave)
-
-
 def _make_loss(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor,
                objective: Callable, apply_fn: Callable, bem, n_iter: int, remat: bool,
                case_reduce=None, moor=None, moor_apply_fn=None, r6_moor=None,
                bem_fn=None, dtype=torch.float64, device=None):
     """theta -> objective(Xi) through the reverse-differentiable pipeline.
 
-    ``bem`` (frozen at the nominal hull) is ``stage_bem`` output, the raw
-    host tuple or a heading grid (see :func:`_stage`).  With ``moor`` and
-    ``moor_apply_fn(moor, theta)`` the mooring stiffness is recomputed
-    inside the loss from the theta-modified system at ``r6_moor`` (default
-    zeros), and ``C_moor`` is ignored.  ``case_reduce`` applies to batched
-    sea states only, which are not ported.
-    """
-    if wave.zeta.ndim == 2:
-        raise NotImplementedError(
-            "batched sea states (make_wave_states, case_reduce, per-lane headings) come "
-            "with the scenario-batch slice (ROADMAP.md, queue 1, item 6)")
-    if bem_fn is not None:
-        raise NotImplementedError(
-            "bem_fn, the differentiable panel re-solve, comes with the BEM-gradient slice "
-            "(ROADMAP.md, queue 1)")
+    With ``moor`` and ``moor_apply_fn(moor, theta)`` the mooring stiffness
+    is recomputed inside the loss from the theta-modified system at
+    ``r6_moor`` (default zeros), and ``C_moor`` is ignored.
+
+    ``wave`` may be one sea state or a batch with a case axis
+    (:func:`~raft_tpu_torch.parallel.sweep.make_wave_states`): each case is
+    then a lane of one design with its own drag-linearized fixed point, and
+    the per-case objectives reduce with ``case_reduce`` (default
+    ``torch.max``, worst case over the DLC table; :func:`energy_sum` for
+    the lanes of one spread sea).
+
+    ``bem_fn`` (not with ``bem``): ``theta -> (A[nw, 6, 6], B[nw, 6, 6],
+    F Cx[nw, 6])`` re-solved inside the loss, one solve per theta shared by
+    every sea state, zeta-staged per case.  ``bem``, frozen at the nominal
+    hull: ``stage_bem`` output (one sea state only), the raw host tuple
+    (A[6, 6, nw], B[6, 6, nw], F[6, nw]) when every lane has one heading,
+    or the staged heading grid (betas, F_all[nb, 6, nw], A, B) of
+    ``Model.calcBEM(headings=...)``, each lane's excitation interpolated to
+    its heading."""
     dev = resolve_device(device)
+    batched = wave.zeta.ndim == 2
+    if case_reduce is None:
+        case_reduce = torch.max
+    if bem_fn is not None and bem is not None:
+        raise ValueError("pass bem (frozen coefficients) OR bem_fn (differentiable re-solve), "
+                         "not both")
+    if bem_fn is not None and batched and wave.beta is not None:
+        raise ValueError("bem_fn solves one heading; lanes carrying their own wave headings "
+                         "need the staged heading-grid bem instead")
+    staged = None          # (A, B, F_re, F_im) to zeta-stage per case
     if bem is not None:
-        bem = _stage(bem, wave, env)
+        if len(bem) == 4:                                   # staged heading grid
+            if batched:
+                betas_eval = (wave.beta.cpu().numpy() if wave.beta is not None
+                              else np.full(wave.zeta.shape[0], float(env.beta)))
+            else:
+                betas_eval = [float(env.beta if wave.beta is None else wave.beta)]
+            staged = _stage_heading_rows(bem, betas_eval, dtype, dev)
+            if not batched:
+                bem = _stage_zeta(staged[:2] + (staged[2][0], staged[3][0]), wave.zeta)
+                staged = None
+        elif isinstance(bem[2], Cx):                        # stage_bem output
+            if batched:
+                raise ValueError(
+                    "batched sea states need the raw (A[6,6,nw], B[6,6,nw], F[6,nw]) "
+                    "coefficient tuple, not stage_bem output: the zeta scaling is per-case")
+        else:                                               # raw host layout
+            if batched and wave.beta is not None:
+                raise ValueError(
+                    "lanes vary the wave heading but bem is a single-heading (A, B, F) tuple; "
+                    "pass the staged heading grid (betas, F_all, A, B) from "
+                    "Model.calcBEM(headings=...) so each lane's excitation matches its heading")
+            staged = _bem_device_layout(bem, dtype, dev)
+            if not batched:
+                bem = _stage_zeta(staged, wave.zeta)
+                staged = None
 
     def loss(theta: Tensor) -> Tensor:
         m = apply_fn(members, theta)
+        b = bem
+        if bem_fn is not None:
+            A_d, B_d, F_cx = bem_fn(theta)
+            b = _stage_zeta((A_d, B_d, F_cx.re, F_cx.im), wave.zeta)
+        elif staged is not None:
+            b = _stage_zeta(staged, wave.zeta)
         if moor is not None:
             from raft_tpu_torch.mooring.system import mooring_stiffness
 
@@ -106,9 +138,10 @@ def _make_loss(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor,
             C = mooring_stiffness(sys_t, r0)
         else:
             C = C_moor
-        out = forward_response(m, rna, env, wave, C, bem=bem, n_iter=n_iter, method="scan",
+        out = forward_response(m, rna, env, wave, C, bem=b, n_iter=n_iter, method="scan",
                                remat=remat, dtype=dtype, device=dev)
-        return objective(out.Xi, wave, rna)
+        per = objective(out.Xi, wave, rna)
+        return case_reduce(per) if batched else per
 
     return loss
 
@@ -151,8 +184,11 @@ def optimize_design(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_m
     With ``moor`` and ``moor_apply_fn`` (e.g.
     :func:`raft_tpu_torch.mooring.system.scale_mooring`) the mooring
     stiffness follows theta too.  With ``bem`` staged, the potential-flow
-    coefficients are the nominal hull's and are held constant.  Returns the
-    parameter and objective trajectory.
+    coefficients are the nominal hull's and are held constant; with
+    ``bem_fn`` (:func:`raft_tpu_torch.hydro.torch_bem.make_bem_fn`) the panel
+    solve runs differentiably inside each step instead.  A batched ``wave``
+    reduces its cases with ``case_reduce`` (see :func:`_make_loss`).
+    Returns the parameter and objective trajectory.
     """
     dev = resolve_device(device)
     loss = _make_loss(members, rna, env, wave, C_moor, objective, apply_fn, bem, n_iter,
@@ -185,7 +221,8 @@ def grad_nacelle_accel_std(members: MemberSet, rna: RNA, env: Env, wave: WaveSta
                            dtype=torch.float64, device=None) -> Tensor:
     """d sigma_nacelle / d theta, the headline co-design derivative
     (``BASELINE.json`` configs[4]).  A ``theta`` with a leading lane axis
-    gives each lane's own gradient."""
+    gives each lane's own gradient; a batched ``wave`` gives the gradient
+    of the ``case_reduce`` (default worst-case) statistic."""
     dev = resolve_device(device)
     loss = _make_loss(members, rna, env, wave, C_moor, nacelle_accel_std, apply_fn, bem,
                       n_iter, remat, case_reduce=case_reduce, dtype=dtype, device=dev)

@@ -1,11 +1,14 @@
-"""Design-batch forward pipeline and the north-star variant sweep (port of
-``raft_tpu.parallel.sweep``: ``scale_diameters``, ``forward_response``,
-``response_std``, ``stage_bem``, ``grad_response_std``).
+"""Design-batch and sea-state-batch forward pipeline, the DLC table and the
+north-star variant sweep (port of ``raft_tpu.parallel.sweep``:
+``scale_diameters``, ``forward_response``, ``response_std``, ``stage_bem``,
+``grad_response_std``, ``make_wave_states``, ``sweep_sea_states``,
+``spread_sea_state``, ``mixed_sea_state``, ``directional_response``).
 
-A design batch is a MemberSet with a leading axis; ``forward_response``
-runs statics, strip hydrodynamics and the batched drag-linearized fixed
-point for every lane at once (the job ``jax.vmap`` does in the JAX
-package).  :func:`sweep_north_star` is ``bench.py::north_star``'s
+A design batch is a MemberSet with a leading axis; a sea-state batch is a
+WaveState whose ``zeta`` (and ``beta``) carry a leading case axis.
+``forward_response`` runs statics, strip hydrodynamics and the batched
+drag-linearized fixed point for every lane at once (the job ``jax.vmap``
+does in the JAX package).  :func:`sweep_north_star` is ``bench.py::north_star``'s
 workload: VolturnUS-S plan-radius x draft variants x 200 frequencies, in
 chunks, with the std dev reduced on the device.  The caller may add the
 nominal hull's BEM coefficients to every lane (:func:`stage_north_star_bem`
@@ -24,7 +27,7 @@ from raft_tpu_torch.build.members import build_member_set, build_rna
 from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.device import require_on, resolve_device
 from raft_tpu_torch.core.types import Env, MemberSet, RNA, WaveState
-from raft_tpu_torch.core.waves import jonswap, wave_number
+from raft_tpu_torch.core.waves import jonswap, spreading_weights, wave_number
 from raft_tpu_torch.hydro.strip import node_kinematics, strip_added_mass, strip_excitation
 from raft_tpu_torch.mooring.system import mooring_stiffness, parse_mooring
 from raft_tpu_torch.parallel.geometry import make_scale_plan, make_stretch_draft
@@ -50,6 +53,61 @@ def scale_diameters(members: MemberSet, scale) -> MemberSet:
     )
 
 
+def _t(a, dtype, dev) -> Tensor:
+    """Host array -> tensor on ``dev`` in ``dtype`` (one copy)."""
+    return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+
+def _bem_device_layout(bem, dtype, dev):
+    """Host layout (A[6, 6, nw], B[6, 6, nw], F[6, nw] complex) ->
+    frequency-leading (A[nw, 6, 6], B[nw, 6, 6], F_re[nw, 6], F_im[nw, 6])
+    on ``dev`` in ``dtype``, the excitation not yet zeta-scaled."""
+    A_bem, B_bem, F_bem = bem
+    Fb = np.moveaxis(np.asarray(F_bem), -1, 0)           # (nw, 6) complex, host
+    return (_t(np.moveaxis(np.asarray(A_bem), -1, 0), dtype, dev),
+            _t(np.moveaxis(np.asarray(B_bem), -1, 0), dtype, dev),
+            _t(Fb.real, dtype, dev), _t(Fb.imag, dtype, dev))
+
+
+def _interp_rows_host(bgrid, F_all, betas_np) -> np.ndarray:
+    """(B,) headings -> (B, 6, nw) complex excitation rows off a staged
+    heading grid, on the host."""
+    from raft_tpu_torch.model import interp_heading_excitation
+
+    return np.stack([interp_heading_excitation(np.asarray(bgrid), F_all, float(b))
+                     for b in betas_np])
+
+
+def _rows_device_layout(F_rows, dtype, dev):
+    """(B, 6, nw) complex host rows -> (F_re[B, nw, 6], F_im[B, nw, 6])."""
+    Fb = np.moveaxis(F_rows, -1, 1)
+    return _t(Fb.real, dtype, dev), _t(Fb.imag, dtype, dev)
+
+
+def _stage_heading_rows(bem, betas_eval, dtype, dev):
+    """A ``Model.calcBEM(headings=...)`` heading grid (betas, F_all[nb, 6,
+    nw], A[6, 6, nw], B[6, 6, nw]) for per-case headings ``betas_eval``
+    (B,): the excitation interpolated to each heading on the host, then
+    (A[nw, 6, 6], B[nw, 6, 6], F_re[B, nw, 6], F_im[B, nw, 6]) on ``dev``,
+    not yet zeta-scaled.  The one staging rule of :func:`sweep_sea_states`
+    and the co-design losses."""
+    bgrid, F_all, A_h, B_h = bem
+    F_rows = _interp_rows_host(bgrid, F_all, np.asarray(betas_eval))
+    return (_t(np.moveaxis(np.asarray(A_h), -1, 0), dtype, dev),
+            _t(np.moveaxis(np.asarray(B_h), -1, 0), dtype, dev),
+            *_rows_device_layout(F_rows, dtype, dev))
+
+
+def _stage_zeta(staged, zeta: Tensor):
+    """(A, B, F_re, F_im) -> (A, B, F Cx) with the excitation on the
+    spectral-amplitude basis (zeta = sqrt(S)) of the Morison path; a
+    ``zeta`` with a case axis (B, nw) scales a shared (nw, 6) excitation
+    into one per case."""
+    A, B, F_re, F_im = staged
+    z = zeta[..., None]
+    return A, B, Cx(z * F_re, z * F_im)
+
+
 def stage_bem(bem, wave: WaveState):
     """Host-layout BEM coefficients -> frequency-leading device tensors.
 
@@ -58,16 +116,7 @@ def stage_bem(bem, wave: WaveState):
     Returns (A[nw, 6, 6], B[nw, 6, 6], F Cx[nw, 6]) on the wave's device in
     its dtype, with the excitation scaled onto the spectral-amplitude basis
     (zeta = sqrt(S)) of the Morison path."""
-    A_bem, B_bem, F_bem = bem
-    dev, dtype = wave.zeta.device, wave.zeta.dtype
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
-
-    Fb = np.moveaxis(np.asarray(F_bem), -1, 0)           # (nw, 6) complex, host
-    z = wave.zeta[:, None]
-    return (t(np.moveaxis(np.asarray(A_bem), -1, 0)), t(np.moveaxis(np.asarray(B_bem), -1, 0)),
-            Cx(z * t(Fb.real), z * t(Fb.imag)))
+    return _stage_zeta(_bem_device_layout(bem, wave.zeta.dtype, wave.zeta.device), wave.zeta)
 
 
 def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
@@ -76,17 +125,29 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
                      tik: float = 0.0, dtype=torch.float64, device=None) -> RAOResult:
     """Design (batch) -> RAO solve: statics, strip hydro, drag fixed point.
 
-    ``members`` may carry a leading design axis; ``wave`` (and its grid) is
-    shared by every lane.  ``bem``: optional pre-staged ``(A, B, F)`` with
-    A, B (..., nw, 6, 6) and F a Cx (..., nw, 6) on the spectral-amplitude
-    basis; the potMod members then leave the Morison added mass and
-    excitation.  ``method="scan"`` (the default, with ``remat``) is the
+    ``members`` may carry a leading design axis, ``wave`` (and its grid)
+    then shared by every lane.  Or ``wave`` may carry a leading case axis
+    (``zeta`` (B, nw), ``beta`` (B,) or None, as :func:`make_wave_states`
+    builds it; ``w`` and ``k`` one grid, (nw,) or rows of it) for one
+    design: each sea state is then a lane with its own heading and drag
+    linearization (the JAX package vmaps this function over cases).
+    ``bem``: optional pre-staged ``(A, B, F)`` with A, B (..., nw, 6, 6)
+    and F a Cx (..., nw, 6) on the spectral-amplitude basis; the potMod
+    members then leave the Morison added mass and excitation.
+    ``method="scan"`` (the default, with ``remat``) is the
     reverse-differentiable loop: it always runs ``n_iter`` steps, so keep
-    the cap tight for gradient work; ``"while"`` exits early.  Inputs must already lie on ``device``
-    in ``dtype``.
+    the cap tight for gradient work; ``"while"`` exits early.  Inputs must
+    already lie on ``device`` in ``dtype``.
     """
     dev = resolve_device(device)
     require_on(dev, dtype, node_r=members.node_r, w=wave.w, zeta=wave.zeta, C_moor=C_moor)
+    if wave.zeta.ndim > 1:
+        if members.node_r.ndim > 2:
+            raise ValueError("a case axis on the wave and a design axis on the members do not "
+                             "combine: solve the designs one at a time")
+        nw = wave.w.shape[-1]
+        wave = dataclasses.replace(wave, w=wave.w.reshape(-1, nw)[0],
+                                   k=wave.k.reshape(-1, nw)[0])
     if wave.beta is not None:
         env = dataclasses.replace(env, beta=wave.beta)
     exclude = bem is not None
@@ -94,15 +155,15 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     kin = node_kinematics(members, wave, env)
     A = strip_added_mass(members, env, exclude_potmod=exclude)
     F = strip_excitation(members, kin, env, exclude_potmod=exclude)
+    if bem is not None:
+        F = F + bem[2]
     nw = wave.w.shape[-1]
     MA = stat.M_struc + A
-    M = MA[..., None, :, :].expand(*MA.shape[:-2], nw, 6, 6)
+    M = MA[..., None, :, :].expand(*F.re.shape[:-2], nw, 6, 6)
     B = torch.zeros_like(M)
     if bem is not None:
-        A_bem, B_bem, F_bem = bem
-        M = M + A_bem
-        B = B + B_bem
-        F = F + F_bem
+        M = M + bem[0]
+        B = B + bem[1]
     lin = LinearCoeffs(M=M, B=B, C=stat.C_struc + stat.C_hydro + C_moor, F=F)
     return solve_dynamics(members, kin, wave, env, lin, n_iter=n_iter, relax=relax,
                           method=method, remat=remat, tik=tik)
@@ -131,6 +192,182 @@ def grad_response_std(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
                            method="scan", dtype=dtype, device=dev)
     sigma = response_std(out.Xi.abs2(), wave.w)[..., dof]
     return torch.autograd.grad(sigma.sum(), th)[0]
+
+
+# ------------------------------------------------------ sea-state batches
+
+#: the ROADMAP item that holds the JAX package's multi-device, pipelined and
+#: lane-health options of the batched sweeps
+_OPERATIONS_ITEM = "ROADMAP.md, queue 1, item 7"
+
+
+def make_wave_states(w, cases, depth, g: float = 9.81, dtype=torch.float64,
+                     device=None) -> WaveState:
+    """Sea-state rows -> one WaveState with a leading case axis.
+
+    ``cases``: (B, 2) rows [Hs, Tp] or (B, 3) rows [Hs, Tp, beta] (heading
+    in rad), e.g. a design-load-case table.  ``zeta`` (B, nw) holds each
+    row's JONSWAP amplitudes, ``beta`` (B,) the headings of 3-column rows
+    (else None); ``w`` and ``k`` are the one grid broadcast to (B, nw)."""
+    dev = resolve_device(device)
+    w = _t(np.asarray(w, dtype=float), dtype, dev)
+    cases = np.asarray(cases, dtype=float)
+    if cases.ndim == 1:              # one flat row: [Hs, Tp] or [Hs, Tp, beta]
+        cases = cases[None, :]
+    if cases.ndim != 2 or cases.shape[-1] not in (2, 3):
+        raise ValueError(f"cases rows must be [Hs, Tp] or [Hs, Tp, beta]; got shape "
+                         f"{cases.shape}")
+    k = wave_number(w, depth, g=g)
+    zeta = torch.stack([torch.sqrt(jonswap(w, float(Hs), float(Tp))) for Hs, Tp in cases[:, :2]])
+    B = zeta.shape[0]
+    return WaveState(w=w.expand(B, -1), k=k.expand(B, -1), zeta=zeta,
+                     beta=_t(cases[:, 2], dtype, dev) if cases.shape[-1] == 3 else None)
+
+
+def spread_sea_state(w, Hs, Tp, depth, beta0: float = 0.0, n_dir: int = 7, s: float = 2.0,
+                     g: float = 9.81, dtype=torch.float64, device=None) -> WaveState:
+    """A short-crested sea as a WaveState with one lane per direction: the
+    JONSWAP energy split over ``n_dir`` directions by the cos^2s spreading
+    function (:func:`raft_tpu_torch.core.waves.spreading_weights`) about
+    ``beta0``, lane j at heading ``beta0 + offset_j`` with amplitude
+    ``sqrt(weight_j) zeta``, so the lanes' variances sum to the
+    long-crested total.  For :func:`directional_response`."""
+    dev = resolve_device(device)
+    offsets, wts = spreading_weights(n_dir=n_dir, s=s)
+    w = _t(np.asarray(w, dtype=float), dtype, dev)
+    k = wave_number(w, depth, g=g)
+    zeta = torch.sqrt(jonswap(w, float(Hs), float(Tp)))
+    n = len(offsets)
+    return WaveState(w=w.expand(n, -1), k=k.expand(n, -1),
+                     zeta=torch.sqrt(_t(wts, dtype, dev))[:, None] * zeta[None, :],
+                     beta=beta0 + _t(offsets, dtype, dev))
+
+
+def mixed_sea_state(w, components, depth, g: float = 9.81, dtype=torch.float64,
+                    device=None) -> WaveState:
+    """A multi-component sea (e.g. wind sea + swell): rows [Hs, Tp, beta],
+    each an independent JONSWAP component with its own heading, one lane
+    each, for :func:`directional_response` (the total variance is the lane
+    sum)."""
+    comps = np.asarray(components, dtype=float)
+    if comps.ndim != 2 or comps.shape[1] != 3:
+        raise ValueError(f"components must be rows of [Hs, Tp, beta]; got shape {comps.shape}")
+    return make_wave_states(w, comps, depth, g=g, dtype=dtype, device=device)
+
+
+def _bem_mode(bem, betas_case) -> str:
+    """Classify and validate the ``bem`` argument of the batched sea-state
+    APIs: ``"none"``, the raw single-heading ``"raw"`` tuple, or the staged
+    heading ``"grid"``."""
+    if bem is None:
+        return "none"
+    if len(bem) == 4:
+        return "grid"
+    if betas_case is not None:
+        raise ValueError(
+            "cases vary the wave heading but bem is a single-heading (A, B, F) tuple; pass the "
+            "staged heading grid (betas, F_all, A, B) from Model.calcBEM(headings=...) so each "
+            "case gets its own BEM excitation")
+    if isinstance(bem[2], Cx):
+        raise ValueError(
+            "sweep_sea_states expects the raw host (A[6,6,nw], B, F complex) tuple or the "
+            "staged heading grid from Model.calcBEM(headings=...), not the stage_bem output "
+            "(F is a Cx): batched sea states re-stage per case, so pass the pre-staging layout")
+    return "raw"
+
+
+def _make_dlc_case_fn(members, rna, env, C_moor, staged, n_iter, relax: float = 0.8,
+                      tik: float = 0.0, dtype=torch.float64, device=None):
+    """The DLC solve of every case at once: ``(waves, F_re, F_im) ->
+    (|Xi|^2 (B, nw, 6), sigma_nacelle (B,), iterations (B,))``, each case a
+    lane of :func:`forward_response` (the JAX package vmaps its per-case
+    function instead).  The zeta scaling of the staged excitation
+    (``F_re``/``F_im`` (nw, 6) shared or (B, nw, 6) per case) is the only
+    sea-state-dependent staging, so it happens per lane here."""
+    from raft_tpu_torch.parallel.optimize import nacelle_accel_std
+
+    def run(waves, F_re, F_im):
+        b = (_stage_zeta((staged[0], staged[1], F_re, F_im), waves.zeta)
+             if staged is not None else None)
+        out = forward_response(members, rna, env, waves, C_moor, bem=b, n_iter=n_iter,
+                               relax=relax, tik=tik, dtype=dtype, device=device)
+        return out.Xi.abs2(), nacelle_accel_std(out.Xi, waves, rna), out.n_iter
+
+    return run
+
+
+def _host(t: Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def sweep_sea_states(members: MemberSet, rna: RNA, env: Env, waves: WaveState, C_moor: Tensor,
+                     bem=None, n_iter: int = 25, mesh=None, chunk: int | None = None,
+                     pipeline_depth: int | None = None, health: bool = False,
+                     escalate: bool = True, dtype=torch.float64, device=None) -> dict:
+    """One design x a batch of sea states in one batched solve: the
+    design-load-case (DLC) table of a WEIS outer loop.
+
+    ``waves``: a WaveState with a case axis (:func:`make_wave_states`), all
+    cases on one frequency grid (checked).  Each case is a lane with its
+    own kinematics, excitation and drag-linearized fixed point (scan
+    driver, ``n_iter`` steps), and with ``waves.beta`` its own heading.
+    ``bem``: None, the raw host tuple (A[6, 6, nw], B, F[6, nw] complex)
+    for cases that share one heading, or the staged heading grid (betas,
+    F_all[nb, 6, nw], A, B) of ``Model.calcBEM(headings=...)``, interpolated
+    on the host to each case's heading.  Returns numpy arrays, as the JAX
+    package: ``"std dev"`` (B, 6), ``"nacelle accel std dev"`` (B,),
+    ``"iterations"`` (B,) and ``"Xi_abs2"`` (B, nw, 6).
+
+    Not ported: ``mesh`` (sharding over devices), ``chunk`` /
+    ``pipeline_depth`` (pipelined chunks) and ``health`` / ``escalate``
+    (lane quarantine and the escalation ladder) raise
+    ``NotImplementedError`` (ROADMAP.md, queue 1, item 7)."""
+    for name, given in (("mesh", mesh is not None), ("chunk", chunk is not None),
+                        ("pipeline_depth", pipeline_depth is not None),
+                        ("health", bool(health))):
+        if given:
+            raise NotImplementedError(
+                f"sweep_sea_states({name}=...): multi-device sharding, pipelined chunks and "
+                f"lane health (with escalate) come with {_OPERATIONS_ITEM}")
+    dev = resolve_device(device)
+    w_rows = waves.w.reshape(-1, waves.w.shape[-1])
+    if not bool((w_rows == w_rows[0]).all()):
+        raise ValueError("sweep_sea_states requires one shared frequency grid across cases "
+                         "(make_wave_states builds one)")
+    B = int(waves.zeta.shape[0])
+    betas_case = None if waves.beta is None else _host(waves.beta)
+    mode = _bem_mode(bem, betas_case)
+    staged = F_re = F_im = None
+    if mode == "grid":
+        betas_eval = betas_case if betas_case is not None else np.full(B, float(env.beta))
+        A_dev, B_dev, F_re, F_im = _stage_heading_rows(bem, betas_eval, dtype, dev)
+        staged = (A_dev, B_dev)
+    elif mode == "raw":
+        A_dev, B_dev, F_re, F_im = _bem_device_layout(bem, dtype, dev)
+        staged = (A_dev, B_dev)
+    run = _make_dlc_case_fn(members, rna, env, C_moor, staged, n_iter, dtype=dtype, device=dev)
+    with torch.no_grad():
+        abs2, a_nac, iters = run(waves, F_re, F_im)
+        sigma = response_std(abs2, w_rows[0])
+    return {"std dev": _host(sigma), "nacelle accel std dev": _host(a_nac),
+            "iterations": _host(iters), "Xi_abs2": _host(abs2)}
+
+
+def directional_response(members: MemberSet, rna: RNA, env: Env, waves_dir: WaveState,
+                         C_moor: Tensor, bem=None, n_iter: int = 25, mesh=None,
+                         dtype=torch.float64, device=None) -> dict:
+    """Response statistics in a directionally spread (or multi-component)
+    sea: the lanes of ``waves_dir`` (:func:`spread_sea_state`,
+    :func:`mixed_sea_state`) are independent linear components, solved as a
+    DLC table by :func:`sweep_sea_states` (each with its own drag
+    linearization), and their variances add:
+    ``sigma_total^2 = sum_j sigma_j^2``.  Returns ``{"std dev": (6,),
+    "nacelle accel std dev": float, "per direction": the sweep's dict}``."""
+    per = sweep_sea_states(members, rna, env, waves_dir, C_moor, bem=bem, n_iter=n_iter,
+                           mesh=mesh, dtype=dtype, device=device)
+    return {"std dev": np.sqrt((per["std dev"] ** 2).sum(axis=0)),
+            "nacelle accel std dev": float(np.sqrt((per["nacelle accel std dev"] ** 2).sum())),
+            "per direction": per}
 
 
 def north_star_grid(n_designs: int) -> np.ndarray:

@@ -65,6 +65,16 @@ def jax_case():
     return padded, pm, lm, fd, tab, ref
 
 
+def _staged(padded, pm, lm, fd):
+    """The solve's inputs staged on the CPU, as solve_bem_jax stages them."""
+    return torch_bem.stage_inputs(padded, pm, lm, W, BETAS, fd, finite_depth=DEPTH > 0,
+                                  dtype=torch.float64, device="cpu")
+
+
+def _tables(tab):
+    return torch_bem.stage_tables(tab, torch.float64, "cpu")
+
+
 def _check(out, ref):
     A, B, F, resid = out
     assert A.shape == (2, 6, 6) and F.re.shape == (2, 2, 6) and resid.shape == (2,)
@@ -76,8 +86,7 @@ def _check(out, ref):
 
 def test_solve_panels_matches_jax(jax_case):
     padded, pm, lm, fd, tab, ref = jax_case
-    P, pmt, lmt = convert.padded_mesh(padded, pm, lm, "cpu")
-    _check(torch_bem.solve_panels(P, pmt, lmt, W, BETAS, fd, tab, depth=DEPTH,
+    _check(torch_bem.solve_panels(**_staged(padded, pm, lm, fd), tab=_tables(tab), depth=DEPTH,
                                   finite_depth=DEPTH > 0, dtype=torch.float64, device="cpu"),
            ref)
 
@@ -90,10 +99,9 @@ def test_solve_panels_unaligned_count_matches_jax(jax_case):
     assert n_mesh + 3 < len(padded)
     for n in (n_mesh + 3, n_mesh):
         assert n % 64 and n % 4
-        P, pmt, lmt = convert.padded_mesh(padded[:n], pm[:n], lm[:n], "cpu")
-        _check(torch_bem.solve_panels(P, pmt, lmt, W, BETAS, fd, tab, depth=DEPTH,
-                                      finite_depth=DEPTH > 0, dtype=torch.float64,
-                                      device="cpu"), ref)
+        _check(torch_bem.solve_panels(**_staged(padded[:n], pm[:n], lm[:n], fd),
+                                      tab=_tables(tab), depth=DEPTH, finite_depth=DEPTH > 0,
+                                      dtype=torch.float64, device="cpu"), ref)
 
 
 def test_solve_bem_layout_and_float32(monkeypatch):

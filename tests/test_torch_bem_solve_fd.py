@@ -62,10 +62,12 @@ def test_solve_panels_matches_jax_finite_depth():
         jnp.asarray(BETAS), {k: jnp.asarray(v) for k, v in fd.items()},
         {k: jnp.asarray(tab[k]) for k in ("I0", "I1")}, depth=DEPTH,
         finite_depth=DEPTH > 0, dtype=jnp.float64, assembly="pallas")
-    P, pmt, lmt = convert.padded_mesh(padded, pm, lm, "cpu")
-    A, B, F, resid = torch_bem.solve_panels(P, pmt, lmt, W, BETAS, fd, tab, depth=DEPTH,
-                                            finite_depth=DEPTH > 0, dtype=torch.float64,
-                                            device="cpu")
+    staged = torch_bem.stage_inputs(padded, pm, lm, W, BETAS, fd, finite_depth=DEPTH > 0,
+                                    dtype=torch.float64, device="cpu")
+    A, B, F, resid = torch_bem.solve_panels(**staged,
+                                            tab=torch_bem.stage_tables(tab, torch.float64, "cpu"),
+                                            depth=DEPTH, finite_depth=DEPTH > 0,
+                                            dtype=torch.float64, device="cpu")
     assert A.shape == (2, 6, 6) and F.re.shape == (2, 2, 6) and resid.shape == (2,)
     for got, want in ((A, ref[0]), (B, ref[1]), (F.re, ref[2].re), (F.im, ref[2].im)):
         assert bool(torch.isfinite(got).all())

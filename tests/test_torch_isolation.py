@@ -138,6 +138,38 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_bem_gradient_and_sea_state_entries_refuse_cpu_fallback(monkeypatch):
+    """The BEM gradient's and the sea-state batches' entry points, like the
+    others, raise without CUDA unless the caller asks for the CPU."""
+    from raft_tpu_torch.hydro.torch_bem import make_bem_fn, stage_inputs
+    from raft_tpu_torch.model import Model, load_design
+    from raft_tpu_torch.parallel.sweep import (directional_response, make_wave_states,
+                                               mixed_sea_state, spread_sea_state,
+                                               sweep_sea_states)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = np.linspace(0.3, 1.5, 4)
+    panels = np.array([[[1.0, 0.0, -1.0], [1.0, 0.5, -1.0], [1.0, 0.5, -2.0], [1.0, 0.0, -2.0]]])
+    for call in (lambda: make_bem_fn(panels, w),
+                 lambda: stage_inputs(panels, [1.0], [0.0], w, [0.0], {}, finite_depth=False,
+                                      dtype=torch.float64, device=None),
+                 lambda: make_wave_states(w, [[6.0, 10.0]], 200.0),
+                 lambda: spread_sea_state(w, 6.0, 10.0, 200.0),
+                 lambda: mixed_sea_state(w, [[6.0, 10.0, 0.0]], 200.0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    m = Model(load_design(ROOT / "raft_tpu" / "designs" / "OC3spar.yaml"), device="cpu")
+    m.calcSystemProps()
+    waves = make_wave_states(_np(m.w), [[6.0, 10.0], [8.0, 12.0]], m.depth, device="cpu")
+    for fn in (sweep_sea_states, directional_response):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(m.members, m.rna, m.env, waves, m.C_moor0)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A tensor on another device than CPU or CUDA finds no kernel in the
     solve wrappers (no silent fallback to the plain version)."""

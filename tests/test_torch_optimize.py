@@ -21,10 +21,9 @@ from raft_tpu.parallel import (forward_response as jax_forward,
                                stage_bem as jax_stage_bem)
 
 from raft_tpu_torch.core.cplx import Cx
-from raft_tpu_torch.parallel.optimize import (_make_loss, grad_nacelle_accel_std,
-                                              nacelle_accel_std, optimize_design)
-from raft_tpu_torch.parallel.sweep import (forward_response, grad_response_std,
-                                           scale_diameters, stage_bem)
+from raft_tpu_torch.parallel.optimize import (grad_nacelle_accel_std, nacelle_accel_std,
+                                              optimize_design)
+from raft_tpu_torch.parallel.sweep import forward_response, grad_response_std, stage_bem
 
 from test_torch_dynamics import _stage
 
@@ -114,19 +113,16 @@ def test_optimize_design_matches_jax_trajectory(oc3):
 
 
 def test_unported_options_raise(oc3):
-    """Batched sea states and the differentiable panel re-solve name their
-    ROADMAP item."""
+    """The batched sea-state sweep's options that are not ported (sharding
+    over a mesh, pipelined chunks, lane health) name their ROADMAP item."""
     _, (tm, trna, tenv, twave, tC) = oc3
-    from raft_tpu_torch.core.types import WaveState
+    from raft_tpu_torch.parallel.sweep import make_wave_states, sweep_sea_states
 
-    batched = WaveState(w=twave.w, k=twave.k[None].repeat(2, 1),
-                        zeta=twave.zeta[None].repeat(2, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _make_loss(tm, trna, tenv, batched, tC, nacelle_accel_std, scale_diameters, None,
-                   25, False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _make_loss(tm, trna, tenv, twave, tC, nacelle_accel_std, scale_diameters, None,
-                   25, False, bem_fn=lambda th: None, device="cpu")
+    waves = make_wave_states(twave.w.numpy(), [[6.0, 10.0], [8.0, 12.0]], tenv.depth,
+                             device="cpu")
+    for kw in ({"mesh": object()}, {"chunk": 1}, {"pipeline_depth": 2}, {"health": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sweep_sea_states(tm, trna, tenv, waves, tC, device="cpu", **kw)
 
 
 def test_forward_response_scan_matches_jax(oc3):
