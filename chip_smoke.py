@@ -85,18 +85,33 @@ result line):
    float32 against float64 and float64 against a central difference with
    theta's branches held (``tools/bem_grad_fd.py``), and the float64 value
    and gradient against the same loss with the plain solve in K1's place;
-   then ``optimize_design(bem_fn=...)``, 2 Adam steps in float32;
+   then ``optimize_design(bem_fn=...)``, 1 Adam step in float32;
 17. the DLC table: ``Model(BEM="jax")`` on VolturnUS-S at the north star's
    200 w with a 7-heading grid (K3 once, K4 per chunk counted), then
    ``sweep_sea_states`` over 64 cases (8 Hs/Tp rows x 8 headings), float64,
    all 64 against the plain solve in K1's place, 4 against the same call
    on the CPU and against the 64-case rows; then a 7-direction spread sea
    through ``directional_response`` on a grid that covers it;
-18. panel-solve copies: one solve and the refined solve's backward under
+18. the variant sweep, K1's launches counted: ``sweep`` of OC3spar's
+   ``scale_diameters`` variants, 2,048 scales x 200 w, float32, scan at 25,
+   wall-clock, solves/s and a profile; 64 lanes in float64 through K1 and
+   through the plain solve;
+19. the mixed designs, K1's launches counted: ``sweep_designs`` of 1,000
+   dicts (250 of each shipped platform, member diameters scaled in [0.95,
+   1.05]) at 200 w in two 500-lane buckets of 256 w, float32, staging and
+   solve timed apart and the solve profiled; one lane of each family in
+   float64 against its solo run, K1 against the plain solve per bucket with
+   the padded bins exactly zero; the 250 VolturnUS-S dicts with the
+   nominal hull's (native-staged) BEM coefficients;
+20. the array farm, K1, K3 and K4 launches counted: ``Model(VolturnUS-S,
+   nTurbines=16, BEM="jax")`` on a 4 x 4 grid at 1,500 m, 59 w, float64,
+   every step timed; turbines against single-turbine runs, K1 and K3/K4
+   against their plain versions, ``airgap`` at 4 deck points;
+21. panel-solve copies: one solve and the refined solve's backward under
    the profiler, no host-device copy and no synchronisation inside; two
    ``bem_fn`` steps after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-19. the sweeps and one gradient chunk again under ``torch.profiler``: device
+22. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    gradient chunk must run at least 75 device operations fewer than the same
    chunk with the adjoint's transposed copies, profiled in the same call.
@@ -364,6 +379,9 @@ def nvidia_smi() -> str:
 class Smoke:
     # the north star's full width: the co-design phases run at these sizes
     n_designs, nw, chunk = 1000, 200, 250
+    # the design-batch phases: variants of the variant sweep, designs of each
+    # family in the mixed-design sweep, turbines on a side of the farm's grid
+    n_variants, per_family, farm_side = 2048, 250, 4
 
     def __init__(self):
         import torch
@@ -378,6 +396,8 @@ class Smoke:
         self.staged = None
         self.staged_std = None
         self.record_native: dict = {}
+        self.native_coeffs = None
+        self.record_batches: dict = {}
         self._cases: dict = {}
         self.dev = torch.device("cuda")
         self._flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=self.dev)
@@ -1290,6 +1310,7 @@ class Smoke:
                    and sweep_launches.get("fused", 0) > 0
                    and set(sweep_launches) == {"fused"},
                    f"native-staged sweep: {n_conv}/{n} lanes converged, all finite, K1 launched")
+        self.native_coeffs = diag["coeffs"]
         self.record_native = {"stage_s": t_native, "solve_s": diag["seconds"], "cores": cores,
                               "card_stage_s": t_card, "sweep_wall_s": wall}
 
@@ -1563,10 +1584,10 @@ class Smoke:
                                        rho=float(env.rho), g=float(env.g), depth=depth,
                                        dtype=torch.float32, device=self.dev)
         t0 = time.perf_counter()
-        res = optimize_design(members, rna, env, wave, C, theta0=1.0, steps=2,
+        res = optimize_design(members, rna, env, wave, C, theta0=1.0, steps=1,
                               learning_rate=0.02, bounds=(0.8, 1.25), n_iter=n_iter,
                               bem_fn=bem_fn, dtype=torch.float32, device=self.dev)
-        print(f"  optimize_design(bem_fn) float32, 2 Adam steps: {time.perf_counter() - t0:.2f} s; "
+        print(f"  optimize_design(bem_fn) float32, 1 Adam step: {time.perf_counter() - t0:.2f} s; "
               f"objective {np.array2string(res.history, precision=7)}; theta "
               f"{np.array2string(res.thetas, precision=6)}; |grad| {res.grad_norm:.4e}")
         self.check(bool(np.isfinite(res.history).all()) and bool(np.isfinite(res.thetas).all()),
@@ -1678,6 +1699,341 @@ class Smoke:
               f"long-crested; iterations {per_it.tolist()}")
         self.check(bool(np.isfinite(d["std dev"]).all()) and int(per_it.max()) < n_iter,
                    "directional_response: finite, every direction converged")
+
+    # --------------------------------------- design batches and turbine arrays
+
+    def _rel(self, got, want) -> float:
+        """Scale-relative difference (largest |difference| over the largest
+        |entry| of the reference), numpy or tensors."""
+        got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got)
+        want = want.detach().cpu().numpy() if hasattr(want, "detach") else np.asarray(want)
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def phase_variant_sweep(self):
+        """``sweep`` of OC3spar's ``scale_diameters`` variants at
+        ``bench.py::oc3_strip_throughput``'s width: 2,048 scales in [0.9,
+        1.1] x 200 w, Hs 8 m / Tp 12 s, float32, scan at 25 iterations,
+        ``return_xi=False``; then 64 of them in float64 through K1 and
+        through the plain solve, and the solve under the profiler."""
+        from raft_tpu_torch.model import stage_design_base
+        from raft_tpu_torch.parallel.sweep import sweep
+
+        torch = self.torch
+        n, nw, n_iter = self.n_variants, 200, 25
+        kw = dict(nw=nw, Hs=8.0, Tp=12.0, w_min=0.05, w_max=2.95)
+        path = DESIGNS / "OC3spar.yaml"
+        thetas = np.linspace(0.9, 1.1, n)
+        t0 = time.perf_counter()
+        _d, m, rna, env, wave, C = stage_design_base(path, dtype=torch.float32, device=self.dev,
+                                                     **kw)
+        torch.cuda.synchronize()
+        t_stage = time.perf_counter() - t0
+
+        def run():
+            return sweep(m, rna, env, wave, C, thetas, n_iter=n_iter, return_xi=False,
+                         dtype=torch.float32, device=self.dev)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        res = run()                                   # numpy out: ends in a synchronise
+        wall = time.perf_counter() - t0
+        launches = self.counts()
+        self.add_main(launches, ("fused",))
+        it, std = res["iterations"], res["std dev"]
+        conv = int((it < n_iter).sum())
+        print(f"  variant sweep OC3spar {n} x {nw} float32: staging {t_stage:.3f} s, sweep "
+              f"{wall:.3f} s, {n * nw / wall:.1f} solves/s; iterations {int(it.min())}-"
+              f"{int(it.max())}; K1 launches {launches['fused']}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        self.check(conv == n and bool(np.isfinite(std).all()) and launches["fused"] == n_iter,
+                   f"variant sweep: {conv}/{n} lanes converged before the cap, all finite, K1 "
+                   f"launched once a step")
+        self.record_batches["variant_wall_ms"] = 1e3 * wall
+
+        lanes = thetas[::n // 64]
+        _d, m64, rna64, env64, wave64, C64 = stage_design_base(path, dtype=torch.float64,
+                                                               device=self.dev, **kw)
+        args = (m64, rna64, env64, wave64, C64, lanes)
+        sub_k = sweep(*args, n_iter=n_iter, dtype=torch.float64, device=self.dev)
+        with plain_solve():
+            sub_p = sweep(*args, n_iter=n_iter, dtype=torch.float64, device=self.dev)
+        d = max(self._rel(sub_k[k], sub_p[k]) for k in ("std dev", "Xi_abs2"))
+        same = bool((sub_k["iterations"] == sub_p["iterations"]).all())
+        d32 = self._rel(std[::n // 64], sub_k["std dev"])
+        print(f"  64 lanes float64 ({len(lanes)} x {nw}): K1 vs the plain solve scale-rel "
+              f"{d:.3e} (std dev and |Xi|^2), iterations {'identical' if same else 'differ'}; "
+              f"float32 sweep vs float64 {d32:.3e}")
+        self.check(d <= 1e-10 and same,
+                   "variant sweep, 64 lanes float64: K1 == the plain solve (1e-10, identical "
+                   "iterations)")
+        self._profile(f"variant sweep {n} x {nw}", run, {"K1": ("solve6_kernel", ", true, ")},
+                      (self.record_batches, ("variant_wall_ms",)))
+
+    def _mixed_designs(self, per_family: int, rng):
+        """``per_family`` dicts of each shipped design with its platform
+        members' diameters scaled by one factor drawn in [0.95, 1.05]."""
+        import copy
+
+        from raft_tpu_torch.model import load_design
+
+        out = []
+        for name in ("OC3spar", "VolturnUS-S", "OC4semi", "OC4semi_2"):
+            base = load_design(DESIGNS / f"{name}.yaml")
+            for f in rng.uniform(0.95, 1.05, per_family):
+                d = copy.deepcopy(base)
+                for mem in d["platform"]["members"]:
+                    mem["d"] = (np.asarray(mem["d"], dtype=float) * f).tolist()
+                out.append(d)
+        return out
+
+    def phase_mixed_designs(self):
+        """``sweep_designs`` of 1,000 designs, 250 of each shipped platform
+        with its member diameters scaled in [0.95, 1.05], at 200 w (bucket
+        256), Hs 8 m / Tp 12 s, scan at 25 iterations, float32: staging and
+        solve timed apart, the solve profiled.  Then one lane of each family
+        in float64 against its solo run (the OC3 lane in a bucket with
+        VolturnUS-S lanes at another depth), K1 against the plain solve on
+        those buckets with the padded bins exactly zero, and the 250
+        VolturnUS-S dicts again with the nominal hull's BEM coefficients."""
+        from raft_tpu_torch.hydro.bem_io import interp_to_grid
+        from raft_tpu_torch.model import stage_design_base, stage_designs
+        from raft_tpu_torch.parallel.sweep import (_sweep_designs_bucket, forward_response,
+                                                   response_std, stage_north_star_bem,
+                                                   sweep_designs)
+
+        torch = self.torch
+        nw, n_iter = 200, 25
+        kw = dict(nw=nw, Hs=8.0, Tp=12.0, w_min=0.05, w_max=2.95)
+        rng = np.random.default_rng(20261017)
+        per = self.per_family
+        designs = self._mixed_designs(per, rng)
+        n = len(designs)
+        t0 = time.perf_counter()
+        staged = stage_designs(designs, dtype=torch.float32, device=self.dev, **kw)
+        torch.cuda.synchronize()
+        t_stage = time.perf_counter() - t0
+
+        def run():
+            return sweep_designs(staged=staged, n_iter=n_iter, return_xi=False,
+                                 dtype=torch.float32, device=self.dev)
+
+        self.zero_counts()
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        launches = self.counts()
+        self.add_main(launches, ("fused",))
+        bk, it, std = res["buckets"], res["iterations"], res["std dev"]
+        conv = int((it < n_iter).sum())
+        fam = it.reshape(4, -1)
+        print(f"  mixed designs {n} x {nw} float32: staging {t_stage:.3f} s (host build, one copy "
+              f"per bucket, batched mooring stiffness), solve {wall:.3f} s, {n * nw / wall:.1f} "
+              f"solves/s; buckets {bk['signatures']}, promotions {bk['promotions']}; iterations "
+              f"per family (min-max) {[(int(f.min()), int(f.max())) for f in fam]}; K1 launches "
+              f"{launches['fused']}")
+        self.check(bk["n_buckets"] == 2 and bk["promotions"] == 0
+                   and sorted(s["designs"] for s in bk["signatures"]) == [2 * per, 2 * per]
+                   and all(s["nw"] == 256 for s in bk["signatures"]),
+                   f"mixed designs: 2 buckets of {2 * per} lanes at nw 256, no promotion")
+        self.check(conv == n and bool(np.isfinite(std).all())
+                   and launches["fused"] == 2 * n_iter,
+                   f"mixed designs: {conv}/{n} lanes converged before the cap, all finite, K1 "
+                   f"launched once a step per bucket")
+        self.record_batches.update(mixed_stage_s=t_stage, mixed_wall_ms=1e3 * wall)
+        self._profile(f"mixed designs solve, {n} x {nw} in 2 buckets", run,
+                      {"K1": ("solve6_kernel", ", true, ")},
+                      (self.record_batches, ("mixed_wall_ms",)))
+
+        # one lane of each family (and 3 more of each) in float64
+        sub = [designs[per * f + j] for f in range(4) for j in range(min(4, per))]
+        k = len(sub) // 4
+        staged64 = stage_designs(sub, dtype=torch.float64, device=self.dev, **kw)
+        mixed = sweep_designs(staged=staged64, n_iter=n_iter, dtype=torch.float64,
+                              device=self.dev)
+        errs, same = [], True
+        for f in range(4):
+            _d, m, rna, env, wv, C = stage_design_base(sub[k * f], dtype=torch.float64,
+                                                       device=self.dev, **kw)
+            o = forward_response(m, rna, env, wv, C, n_iter=n_iter, dtype=torch.float64,
+                                 device=self.dev)
+            errs.append(self._rel(mixed["std dev"][k * f], response_std(o.Xi.abs2(), wv.w)))
+            same = same and int(o.n_iter) == int(mixed["iterations"][k * f])
+        depths = {tuple(b.sig): sorted(set(b.env.depth.tolist())) for b in staged64.values()}
+        print(f"  float64, one lane per family against its solo run (exact shapes, {nw} w): "
+              f"scale-rel {['%.3e' % e for e in errs]}, iterations "
+              f"{'identical' if same else 'differ'}; depths per bucket {depths}")
+        self.check(max(errs) <= 1e-10 and same,
+                   "mixed designs float64: each family's lane == its solo run (1e-10, identical "
+                   "iterations), the OC3 lane beside VolturnUS-S lanes at another depth")
+        zero_pad, d_plain, same_plain = True, 0.0, True
+        for b in staged64.values():
+            got = _sweep_designs_bucket(b, n_iter, True, torch.float64, self.dev)
+            with plain_solve():
+                ref = _sweep_designs_bucket(b, n_iter, True, torch.float64, self.dev)
+            zero_pad = zero_pad and bool((got["Xi_abs2"][:, b.nw:] == 0).all())
+            d_plain = max(d_plain, self._rel(got["Xi_abs2"], ref["Xi_abs2"]),
+                          self._rel(got["std dev"], ref["std dev"]))
+            same_plain = same_plain and bool((got["iterations"] == ref["iterations"]).all())
+        print(f"  K1 vs the plain solve on both float64 buckets ({2 * k} lanes x 256 w each, two "
+              f"depths in one): scale-rel {d_plain:.3e}, iterations "
+              f"{'identical' if same_plain else 'differ'}; padded bins exactly 0: {zero_pad}")
+        self.check(d_plain <= 1e-10 and same_plain and zero_pad,
+                   "mixed designs: K1 == the plain solve per bucket (1e-10, identical "
+                   "iterations), the padded bins exactly zero")
+
+        # the 250 VolturnUS-S dicts with the nominal hull's coefficients
+        coeffs = self.native_coeffs
+        if coeffs is None:
+            coeffs = stage_north_star_bem(nw=nw, nw_bem=48, mode="jax", cache=False,
+                                          dtype=torch.float64, device=self.dev,
+                                          return_diagnostics=True)[1]["coeffs"]
+        w_bem, A_c, B_c, F_c = coeffs
+        w = np.linspace(0.05, 2.95, nw)
+        bem = tuple(interp_to_grid(w_bem, x, w) for x in (A_c, B_c, F_c))
+        vus = designs[per:2 * per]
+        self.zero_counts()
+        t0 = time.perf_counter()
+        staged_b = stage_designs(vus, bems=[bem] * len(vus), dtype=torch.float32,
+                                 device=self.dev, **kw)
+        torch.cuda.synchronize()
+        t_stage_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_b = sweep_designs(staged=staged_b, n_iter=n_iter, return_xi=False,
+                              dtype=torch.float32, device=self.dev)
+        wall_b = time.perf_counter() - t0
+        launches = self.counts()
+        self.add_main(launches, ("fused",))
+        it_b = res_b["iterations"]
+        conv_b = int((it_b < n_iter).sum())
+        print(f"  {len(vus)} VolturnUS-S designs with the nominal hull's BEM ({'native' if self.native_coeffs is not None else 'card'} "
+              f"staging, 48 -> {nw} w) float32: staging {t_stage_b:.3f} s, solve {wall_b:.3f} s; "
+              f"iterations {int(it_b.min())}-{int(it_b.max())}; K1 launches {launches['fused']}")
+        self.check(conv_b == len(vus) and bool(np.isfinite(res_b["std dev"]).all())
+                   and launches["fused"] == n_iter,
+                   f"mixed designs with bems: {conv_b}/{len(vus)} converged, all finite, K1 "
+                   f"launched")
+
+    def phase_array_farm(self):
+        """``Model(VolturnUS-S, nTurbines=16, BEM="jax")``: 16 turbines on a
+        4 x 4 grid at 1,500 m, the default 59 w, float64, heading 30 deg,
+        every step timed; K3 once and K4 per chunk, K1 per iteration for
+        all turbines at once.  Turbine 0 against the single-turbine Model,
+        the last against a one-turbine array at its position, K1 against
+        the plain solve, K3/K4 against their plain versions, and the air
+        gap of turbine 0's Model at 4 deck points."""
+        from raft_tpu_torch.array import ArrayModel
+        from raft_tpu_torch.hydro import torch_bem
+        from raft_tpu_torch.model import Model, load_design
+
+        torch = self.torch
+        design = load_design(DESIGNS / "VolturnUS-S.yaml")
+        side = self.farm_side
+        pos = np.array([[1500.0 * i, 1500.0 * j] for i in range(side) for j in range(side)])
+        env = dict(Hs=8.0, Tp=12.0, V=10.0, beta=float(np.deg2rad(30.0)),
+                   Fthrust=float(design["turbine"]["Fthrust"]))
+        f64 = torch.float64
+        farm = Model(design, nTurbines=len(pos), positions=pos, BEM="jax", dtype=f64,
+                     device=self.dev)
+        farm.setEnv(**env)
+        self.zero_counts()
+        times = {}
+        for step, call in (("calcBEM", lambda: farm.calcBEM(cache=False)),
+                           ("calcSystemProps", farm.calcSystemProps),
+                           ("solveEigen", farm.solveEigen),
+                           ("calcMooringAndOffsets", farm.calcMooringAndOffsets),
+                           ("solveDynamics", farm.solveDynamics),
+                           ("calcOutputs", farm.calcOutputs)):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times[step] = time.perf_counter() - t0
+        launches = self.counts()
+        self.add_main(launches, ("fused", "rankine", "wave"))
+        resp = farm.results["response"]
+        n_chunks = -(-len(farm.w) // 2)
+        print(f"  farm of {len(pos)} VolturnUS-S, BEM='jax' ({farm.bem_diagnostics['panels']} panels -> "
+              f"{farm.bem_diagnostics['padded']}), {len(farm.w)} w, float64, beta 30 deg: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+              + f"; iterations {resp['iterations'].tolist()}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"    std dev turbine 0: {np.array2string(resp['std dev'][0], precision=5)}; "
+              f"natural frequencies [Hz] turbine 0: "
+              f"{np.array2string(farm.results['eigen']['frequencies'][0], precision=5)}")
+        self.check(bool(resp["converged"].all()) and bool(np.isfinite(resp["Xi per turbine"]).all())
+                   and farm._moor_batchable() and launches["rankine"] == 1
+                   and launches["wave"] == n_chunks and launches["fused"] == int(resp["iterations"].max()),
+                   f"farm: {len(pos)} turbines converged and finite, the mooring batched, K3 once, K4 "
+                   f"{n_chunks} times, K1 once an iteration")
+        self.record_batches["farm_s"] = times
+
+        bem = farm.bem
+        single = Model(design, BEM=bem, dtype=f64, device=self.dev)
+        single.setEnv(**env)
+        single.calcSystemProps()
+        single.solveEigen()
+        t0 = time.perf_counter()
+        single.calcMooringAndOffsets()
+        torch.cuda.synchronize()
+        t_moor1 = time.perf_counter() - t0
+        single.solveDynamics()
+        errs = [self._rel(resp["Xi per turbine"][0], single.results["response"]["Xi"]),
+                self._rel(farm.results["eigen"]["frequencies"][0],
+                          single.results["eigen"]["frequencies"]),
+                self._rel(farm.results["means"]["platform offset"][0],
+                          single.results["means"]["platform offset"])]
+        same = int(resp["iterations"][0]) == single.results["response"]["iterations"]
+        for t in (len(pos) - 1,):
+            one = ArrayModel(design, positions=pos[t:t + 1], BEM=bem, dtype=f64, device=self.dev)
+            one.setEnv(**env)
+            one.calcSystemProps()
+            one.calcMooringAndOffsets()
+            one.solveDynamics()
+            errs.append(self._rel(resp["Xi per turbine"][t],
+                                  one.results["response"]["Xi per turbine"][0]))
+            same = same and int(resp["iterations"][t]) == int(one.results["response"]["iterations"][0])
+        print(f"  one turbine's calcMooringAndOffsets (the unbatched Newton): {t_moor1:.3f} s "
+              f"against {times['calcMooringAndOffsets']:.3f} s for the farm's {len(pos)}")
+        print(f"  farm against one turbine (0: the single Model's Xi, eigen, offset; "
+              f"{len(pos) - 1}: a one-turbine array at its position): scale-rel "
+              f"{['%.3e' % e for e in errs]}, iterations {'identical' if same else 'differ'}")
+        self.check(max(errs) <= 1e-10 and same,
+                   "farm turbines == their single-turbine runs (1e-10, identical iterations)")
+
+        Xi_k = resp["Xi per turbine"]
+        it_k = resp["iterations"].copy()
+        with plain_solve():
+            farm.solveDynamics()
+        d_k1 = self._rel(Xi_k, farm.results["response"]["Xi per turbine"])
+        same_k1 = bool((it_k == farm.results["response"]["iterations"]).all())
+        plain = ArrayModel(design, positions=pos[:1], BEM="jax", dtype=f64, device=self.dev)
+        plain.setEnv(**env)
+        orig = torch_bem.rankine_assembly, torch_bem.wave_assembly
+        torch_bem.rankine_assembly, torch_bem.wave_assembly = (torch_bem.rankine_plain,
+                                                               torch_bem.wave_plain)
+        try:
+            plain.calcBEM(cache=False)
+        finally:
+            torch_bem.rankine_assembly, torch_bem.wave_assembly = orig
+        d_bem = max(torch_bem.parity_err(a, b) for a, b in zip(bem, plain.bem))
+        print(f"  farm: K1 vs the plain solve ({len(pos)} turbines x {len(farm.w)} w) scale-rel "
+              f"{d_k1:.3e}, iterations {'identical' if same_k1 else 'differ'}; K3/K4 vs their "
+              f"plain versions, A/B/F scale-rel {d_bem:.3e}")
+        self.check(d_k1 <= 1e-10 and same_k1 and d_bem <= 1e-10,
+                   "farm: K1 == the plain solve (1e-10, identical iterations), K3/K4 == plain "
+                   "(A/B/F 1e-10)")
+
+        pts = [[0.0, 0.0], [40.0, 0.0], [-20.0, 35.0], [-20.0, -35.0]]
+        t0 = time.perf_counter()
+        gap = single.airgap(pts, deck_z=15.0)
+        t_gap = time.perf_counter() - t0
+        print(f"  airgap of turbine 0's Model, deck 15 m, 4 points: sigma "
+              f"{np.array2string(gap['sigma rel elevation'], precision=4)} m, 3-sigma margins "
+              f"{np.array2string(gap['margin 3 sigma'], precision=4)} m ({t_gap * 1e3:.1f} ms)")
+        self.check(bool(np.isfinite(gap["sigma rel elevation"]).all())
+                   and bool((gap["sigma rel elevation"] > 0).all()),
+                   "airgap: finite, positive relative-elevation sigma at 4 points")
 
     def phase_solve_copies(self):
         """solve_panels copies nothing from the host and never waits for the
@@ -1939,6 +2295,9 @@ class Smoke:
                   ("optimize_design", self.phase_optimize),
                   ("BEM gradient", self.phase_bem_gradient),
                   ("DLC table", self.phase_dlc),
+                  ("variant sweep", self.phase_variant_sweep),
+                  ("mixed designs", self.phase_mixed_designs),
+                  ("array farm", self.phase_array_farm),
                   ("panel-solve copies", self.phase_solve_copies),
                   ("profile", self.phase_profile)]
         if only is not None:

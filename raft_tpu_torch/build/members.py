@@ -340,78 +340,98 @@ def _accumulate(design: dict, dls_max: float = 10.0,
     return acc
 
 
-def build_member_set(design: dict, device, dtype=torch.float64,
-                     dls_max: float = 10.0, pad_segments: int | None = None,
-                     pad_nodes: int | None = None, include_end_b: bool = False):
-    """Build the platform+tower :class:`MemberSet` of a design dict on
-    ``device``.
-
-    Same rows, padding and dtypes as ``raft_tpu.build.members.
-    build_member_set``: floats in ``dtype``, ids as int32 (padding -1),
-    flags and masks as bool; padded segments get length 1.
-    """
-    from raft_tpu_torch.core.types import MemberSet
-
+def member_counts(design: dict, dls_max: float = 10.0,
+                  include_end_b: bool = False) -> tuple[int, int]:
+    """Exact (segment, node) counts a design builds at: what the shape
+    bucket ladder (:mod:`raft_tpu_torch.build.buckets`) rounds up.  Host
+    numpy only."""
     acc = _accumulate(design, dls_max=dls_max, include_end_b=include_end_b)
+    return len(acc.seg["l"]), len(acc.node["dls"])
+
+
+#: MemberSet fields by kind: (name, accumulator key, trailing shape, numpy
+#: type, padding value); "l" is the segment length (padding 1, so divisions
+#: stay defined in masked rows)
+_SEG_FIELDS = (
+    ("seg_rA", "rA", (3,), np.float64, 0), ("seg_q", "q", (3,), np.float64, 0),
+    ("seg_R", "R", (3, 3), np.float64, 0), ("seg_l", "l", (), np.float64, 1),
+    ("seg_dA", "dA", (2,), np.float64, 0), ("seg_dB", "dB", (2,), np.float64, 0),
+    ("seg_diA", "diA", (2,), np.float64, 0), ("seg_diB", "diB", (2,), np.float64, 0),
+    ("seg_l_fill", "l_fill", (), np.float64, 0), ("seg_rho_fill", "rho_fill", (), np.float64, 0),
+    ("seg_rho_shell", "rho_shell", (), np.float64, 0), ("seg_circ", "circ", (), bool, 0),
+    ("seg_is_cap", "is_cap", (), bool, 0), ("seg_member", "member", (), np.int32, -1),
+    ("seg_type", "type", (), np.int32, 0),
+)
+_NODE_FIELDS = (
+    ("node_r", "r", (3,), np.float64, 0), ("node_q", "q", (3,), np.float64, 0),
+    ("node_p1", "p1", (3,), np.float64, 0), ("node_p2", "p2", (3,), np.float64, 0),
+    ("node_ds", "ds", (2,), np.float64, 0), ("node_drs", "drs", (2,), np.float64, 0),
+    ("node_dls", "dls", (), np.float64, 0), ("node_Cd_q", "Cd_q", (), np.float64, 0),
+    ("node_Cd_p1", "Cd_p1", (), np.float64, 0), ("node_Cd_p2", "Cd_p2", (), np.float64, 0),
+    ("node_Cd_end", "Cd_end", (), np.float64, 0), ("node_Ca_q", "Ca_q", (), np.float64, 0),
+    ("node_Ca_p1", "Ca_p1", (), np.float64, 0), ("node_Ca_p2", "Ca_p2", (), np.float64, 0),
+    ("node_Ca_end", "Ca_end", (), np.float64, 0), ("node_circ", "circ", (), bool, 0),
+    ("node_member", "member", (), np.int32, -1), ("node_potmod", "potmod", (), bool, 0),
+)
+
+
+def member_arrays(design: dict, dls_max: float = 10.0, pad_segments: int | None = None,
+                  pad_nodes: int | None = None, include_end_b: bool = False,
+                  _acc=None) -> dict:
+    """The padded :class:`MemberSet` of a design as host numpy arrays, by
+    field name (floats float64, ids int32 with padding -1, flags and masks
+    bool; padded segments get length 1).  A design batch stacks these on
+    the host and copies each field to the card once
+    (:func:`member_set_from_arrays`).  ``_acc``: this design's
+    :func:`_accumulate` result, when the caller (the bucket layer) has
+    already parsed the member list to measure it."""
+    acc = (_acc if _acc is not None
+           else _accumulate(design, dls_max=dls_max, include_end_b=include_end_b))
     S = len(acc.seg["l"])
     N = len(acc.node["dls"])
     Sp = pad_segments if pad_segments is not None else S
     Np = pad_nodes if pad_nodes is not None else N
     if Sp < S or Np < N:
         raise ValueError(f"padding too small: need >= ({S} segments, {N} nodes)")
+    out = {}
+    for rows, n, n_pad, fields in ((acc.seg, S, Sp, _SEG_FIELDS), (acc.node, N, Np, _NODE_FIELDS)):
+        for name, key, tail, dt, pad in fields:
+            a = np.full((n_pad, *tail), pad, dtype=dt)
+            a[:n] = np.array(rows[key])
+            out[name] = a
+    out["seg_mask"] = np.arange(Sp) < S
+    out["node_mask"] = np.arange(Np) < N
+    return out
 
-    def put(rows, n, n_pad, shape_tail, dt, pad_val):
-        out = np.full((n_pad, *shape_tail), pad_val, dtype=dt)
-        out[:n] = np.array(rows)
-        return torch.as_tensor(out, device=device)
 
-    def seg(key, shape_tail=(), dt=np.float64, pad_val=0):
-        t = put(acc.seg[key], S, Sp, shape_tail, dt, pad_val)
-        return t.to(dtype) if dt is np.float64 else t
+def member_set_from_arrays(arrays: dict, device, dtype=torch.float64):
+    """Host arrays of :func:`member_arrays` (one design, or a batch stacked
+    along a leading axis) -> :class:`MemberSet` on ``device``, floats in
+    ``dtype``: one copy per field."""
+    from raft_tpu_torch.core.types import MemberSet
 
-    def node(key, shape_tail=(), dt=np.float64, pad_val=0):
-        t = put(acc.node[key], N, Np, shape_tail, dt, pad_val)
-        return t.to(dtype) if dt is np.float64 else t
+    def put(a):
+        t = torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return t.to(dtype) if a.dtype == np.float64 else t
 
-    seg_l = np.ones(Sp)
-    seg_l[:S] = np.array(acc.seg["l"])
-    return MemberSet(
-        seg_rA=seg("rA", (3,)),
-        seg_q=seg("q", (3,)),
-        seg_R=seg("R", (3, 3)),
-        seg_l=torch.as_tensor(seg_l, device=device).to(dtype),
-        seg_dA=seg("dA", (2,)),
-        seg_dB=seg("dB", (2,)),
-        seg_diA=seg("diA", (2,)),
-        seg_diB=seg("diB", (2,)),
-        seg_l_fill=seg("l_fill"),
-        seg_rho_fill=seg("rho_fill"),
-        seg_rho_shell=seg("rho_shell"),
-        seg_circ=seg("circ", dt=bool),
-        seg_is_cap=seg("is_cap", dt=bool),
-        seg_member=seg("member", dt=np.int32, pad_val=-1),
-        seg_type=seg("type", dt=np.int32),
-        seg_mask=torch.as_tensor(np.arange(Sp) < S, device=device),
-        node_r=node("r", (3,)),
-        node_q=node("q", (3,)),
-        node_p1=node("p1", (3,)),
-        node_p2=node("p2", (3,)),
-        node_ds=node("ds", (2,)),
-        node_drs=node("drs", (2,)),
-        node_dls=node("dls"),
-        node_Cd_q=node("Cd_q"),
-        node_Cd_p1=node("Cd_p1"),
-        node_Cd_p2=node("Cd_p2"),
-        node_Cd_end=node("Cd_end"),
-        node_Ca_q=node("Ca_q"),
-        node_Ca_p1=node("Ca_p1"),
-        node_Ca_p2=node("Ca_p2"),
-        node_Ca_end=node("Ca_end"),
-        node_circ=node("circ", dt=bool),
-        node_member=node("member", dt=np.int32, pad_val=-1),
-        node_mask=torch.as_tensor(np.arange(Np) < N, device=device),
-        node_potmod=node("potmod", dt=bool),
-    )
+    return MemberSet(**{name: put(a) for name, a in arrays.items()})
+
+
+def build_member_set(design: dict, device, dtype=torch.float64,
+                     dls_max: float = 10.0, pad_segments: int | None = None,
+                     pad_nodes: int | None = None, include_end_b: bool = False,
+                     _acc=None):
+    """Build the platform+tower :class:`MemberSet` of a design dict on
+    ``device``.
+
+    Same rows, padding and dtypes as ``raft_tpu.build.members.
+    build_member_set``: floats in ``dtype``, ids as int32 (padding -1),
+    flags and masks as bool; padded segments get length 1.  ``_acc``: see
+    :func:`member_arrays`.
+    """
+    return member_set_from_arrays(
+        member_arrays(design, dls_max=dls_max, pad_segments=pad_segments, pad_nodes=pad_nodes,
+                      include_end_b=include_end_b, _acc=_acc), device, dtype)
 
 
 def build_rna(design: dict):

@@ -14,12 +14,24 @@ import torch
 Tensor = torch.Tensor
 
 
+def per_lane(x, n: int):
+    """``x`` with ``n`` trailing unit axes when it is a tensor with a lane
+    axis (a (B,) field of a design batch's Env or RNA), else unchanged: so a
+    per-lane scalar broadcasts against per-lane arrays with ``n`` more
+    axes."""
+    if isinstance(x, torch.Tensor) and x.ndim:
+        return x.reshape(x.shape + (1,) * n)
+    return x
+
+
 @dataclasses.dataclass
 class Env:
     """Environmental conditions (sea state + wind + constants).
 
     Fields are Python floats or 0-d tensors; either broadcasts like the
-    JAX package's weakly-typed scalars."""
+    JAX package's weakly-typed scalars.  In a design batch
+    (``model.stage_designs``) every field is a (B,) tensor, one entry per
+    lane."""
 
     rho: float = 1025.0
     g: float = 9.81
@@ -81,7 +93,8 @@ class MemberSet:
 
 @dataclasses.dataclass
 class RNA:
-    """Lumped rotor-nacelle-assembly properties (floats or 0-d tensors)."""
+    """Lumped rotor-nacelle-assembly properties (floats or 0-d tensors; (B,)
+    tensors in a design batch)."""
 
     mRNA: float = 0.0
     IxRNA: float = 0.0
@@ -127,7 +140,9 @@ class WaveState:
     """Discretized sea state on the frequency grid.
 
     ``beta``: optional heading overriding ``Env.beta``; ``freq_mask``:
-    optional (nw,) bool, False at bucket-padded bins (zero seed there)."""
+    optional (nw,) bool, False at bucket-padded bins (zero seed there).  In
+    a design batch ``k``, ``zeta`` and ``freq_mask`` are (B, nw) over the
+    one shared (nw,) grid ``w``: each lane has its own water depth."""
 
     w: Tensor
     k: Tensor

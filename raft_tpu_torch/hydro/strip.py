@@ -4,7 +4,8 @@
 Frequency is the leading data axis of assembled outputs: excitation is
 (..., nw, 6), node kinematics (..., N, nw, 3).  Every function broadcasts
 over a leading design axis; the frequency grid ``w`` is shared by all
-designs of a batch.
+designs of a batch, and the Env's fields may be (B,) tensors, one per
+lane (:func:`~raft_tpu_torch.core.types.per_lane`).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.transforms import (
     cross, translate_force_3to6, translate_matrix_3to6, vec_outer,
 )
-from raft_tpu_torch.core.types import Env, MemberSet, WaveState
+from raft_tpu_torch.core.types import Env, MemberSet, WaveState, per_lane
 from raft_tpu_torch.core.waves import wave_kinematics
 
 Tensor = torch.Tensor
@@ -34,9 +35,10 @@ def node_current(m: MemberSet, env: Env) -> Tensor:
     """Per-node steady-current velocity vectors (..., N, 3), power-law
     shear profile over the water column."""
     z = m.node_r[..., 2]
-    frac = torch.clamp((env.depth + z) / env.depth, 0.0, 1.0)
-    u = env.current * frac ** env.current_exp
-    ch = _t(env.current_heading, z)
+    depth = per_lane(env.depth, 1)
+    frac = torch.clamp((depth + z) / depth, 0.0, 1.0)
+    u = per_lane(env.current, 1) * frac ** per_lane(env.current_exp, 1)
+    ch = _t(per_lane(env.current_heading, 1), z)
     dirv = torch.stack([torch.cos(ch), torch.sin(ch), torch.zeros_like(ch)], dim=-1)
     return u[..., None] * dirv
 
@@ -81,7 +83,7 @@ def current_mean_force(m: MemberSet, env: Env) -> Tensor:
     U_p1 = (uc * m.node_p1).sum(-1)
     U_p2 = (uc * m.node_p2).sum(-1)
     a_q, a_p1, a_p2, a_end = _drag_areas(m)
-    half_rho = 0.5 * env.rho
+    half_rho = 0.5 * per_lane(env.rho, 1)
 
     def mean_drag(U, a, Cd):
         return half_rho * a * Cd * torch.abs(U) * U
@@ -107,16 +109,19 @@ class StripKin:
 
 def node_kinematics(m: MemberSet, wave: WaveState, env: Env) -> StripKin:
     """Wave kinematics at every strip node.  A ``wave.zeta`` with a leading
-    case axis (B, nw) makes each sea state a lane of one design's nodes
-    (outputs (B, N, ...)), each lane at its own heading when ``env.beta``
-    is a (B,) tensor; ``w`` and ``k`` stay one (nw,) grid."""
-    zeta, beta = wave.zeta, env.beta
+    lane axis (B, nw) makes each sea state a lane (outputs (B, N, ...)),
+    each at its own heading when ``env.beta`` is a (B,) tensor: the lanes
+    of one design's nodes (``k`` one (nw,) grid), or of a design batch,
+    whose ``k`` (B, nw) and Env fields (B,) carry each lane's own water
+    depth.  ``w`` stays one (nw,) grid."""
+    zeta, k = wave.zeta, wave.k
     if zeta.ndim > 1:
         zeta = zeta[..., None, :]
-        if isinstance(beta, torch.Tensor) and beta.ndim:
-            beta = beta[..., None, None]
+    if k.ndim > 1:
+        k = k[..., None, :]
     u, ud, pDyn = wave_kinematics(
-        zeta, wave.w, wave.k, env.depth, m.node_r, beta, env.rho, env.g)
+        zeta, wave.w, k, per_lane(env.depth, 2), m.node_r, per_lane(env.beta, 2),
+        per_lane(env.rho, 2), per_lane(env.g, 2))
     return StripKin(u=u.swapaxes(-1, -2), ud=ud.swapaxes(-1, -2), pDyn=pDyn)
 
 
@@ -154,7 +159,7 @@ def strip_added_mass(m: MemberSet, env: Env, exclude_potmod: bool = False) -> Te
     qq, p1p1, p2p2 = _direction_mats(m)
     v_side = _side_volume(m)
     v_end = _end_volume(m)
-    Amat = env.rho * (
+    Amat = per_lane(env.rho, 3) * (
         v_side[..., None, None]
         * (
             m.node_Ca_q[..., None, None] * qq
@@ -180,7 +185,7 @@ def strip_excitation(m: MemberSet, kin: StripKin, env: Env,
     qq, p1p1, p2p2 = _direction_mats(m)
     v_side = _side_volume(m)
     v_end = _end_volume(m)
-    Imat = env.rho * (
+    Imat = per_lane(env.rho, 3) * (
         v_side[..., None, None]
         * (
             m.node_Ca_q[..., None, None] * qq
@@ -239,7 +244,7 @@ def linearized_drag(m: MemberSet, kin: StripKin, Xi: Cx, wave: WaveState,
     U_p2 = (uc * m.node_p2).sum(-1)
 
     a_q, a_p1, a_p2, a_end = _drag_areas(m)
-    half_rho = 0.5 * env.rho
+    half_rho = 0.5 * per_lane(env.rho, 1)
     Bq = _gauss_drag_slope(U_q, vRMS_q) * half_rho * a_q * m.node_Cd_q
     Bp1 = _gauss_drag_slope(U_p1, vRMS_p1) * half_rho * a_p1 * m.node_Cd_p1
     Bp2 = _gauss_drag_slope(U_p2, vRMS_p2) * half_rho * a_p2 * m.node_Cd_p2

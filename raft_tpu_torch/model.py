@@ -13,25 +13,33 @@ and solve them with the host C++ panel solver
 ``dtype``); ``"auto"`` takes the card's route on CUDA and the native one
 on the CPU (``torch_bem.resolved_mode``).  A precomputed ``(A, B, F)``
 tuple is used as given.  Every other numeric step runs on ``device`` (the
-card by default) in ``dtype``.
+card by default) in ``dtype``.  ``Model(..., nTurbines=N)`` returns an
+:class:`~raft_tpu_torch.array.ArrayModel`.
+
+The staging of the batch entry points lives here too, as in the JAX
+package: :func:`stage_design_base` (one design to the forward pipeline's
+inputs) and :func:`stage_designs` (a mixed design list into shape buckets,
+each a :class:`DesignBatch` stacked lane-leading).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from raft_tpu_torch.build.members import build_member_set, build_rna
+from raft_tpu_torch.build.members import build_member_set, build_rna, member_set_from_arrays
 from raft_tpu_torch.core.device import resolve_device
-from raft_tpu_torch.core.types import Env, WaveState
+from raft_tpu_torch.core.types import RNA, Env, WaveState
 from raft_tpu_torch.core.waves import jonswap, wave_number
 from raft_tpu_torch.hydro.strip import (
     current_mean_force, node_kinematics, strip_added_mass, strip_excitation,
 )
 from raft_tpu_torch.mooring.system import (
-    fairlead_tensions, mooring_force, mooring_stiffness, parse_mooring,
-    solve_equilibrium, tension_jacobian,
+    fairlead_tensions, mooring_arrays, mooring_force, mooring_from_arrays, mooring_stiffness,
+    parse_mooring, solve_equilibrium, tension_jacobian,
 )
-from raft_tpu_torch.parallel.sweep import stage_bem
+from raft_tpu_torch.parallel.sweep import _bem_device_layout, _stage_zeta, stage_bem
 from raft_tpu_torch.solve.dynamics import LinearCoeffs, solve_dynamics
 from raft_tpu_torch.solve.eigen import diagonal_estimates, eigen_with_bem, solve_eigen
 from raft_tpu_torch.statics import assemble_statics
@@ -51,22 +59,40 @@ class Model:
     None (strip theory only), ``"native"`` (host C++ panel solve),
     ``"jax"`` (on-device panel solve) or ``"auto"`` (either, by device and
     ``RAFT_TPU_BEM``), each run at ``calcSystemProps``, or a precomputed
-    (A[6, 6, nw], B[6, 6, nw], F[6, nw]) tuple.
+    (A[6, 6, nw], B[6, 6, nw], F[6, nw]) tuple.  ``pad_segments`` /
+    ``pad_nodes`` pad the member arrays (masked rows).  ``nTurbines`` other
+    than 1 returns an :class:`~raft_tpu_torch.array.ArrayModel` of that many
+    turbines at ``positions`` ((nT, 2) plan coordinates; default
+    ``design["array"]["positions"]``, else all at the origin).
     """
 
-    def __init__(self, design: dict, w=None, depth: float | None = None,
-                 nTurbines: int = 1, BEM=None, dtype=torch.float64, device=None):
+    def __new__(cls, design: dict = None, w=None, depth: float | None = None,
+                nTurbines: int = 1, BEM=None, positions=None,
+                pad_segments: int | None = None, pad_nodes: int | None = None,
+                dtype=torch.float64, device=None):
         if nTurbines != 1:
-            raise NotImplementedError(
-                "nTurbines != 1 (ArrayModel) comes with the scenario-batch slice "
-                "(ROADMAP.md, queue 1)")
+            from raft_tpu_torch.array import ArrayModel
+
+            if positions is None:
+                positions = (design or {}).get("array", {}).get("positions")
+            return ArrayModel(design, positions=positions, w=w, depth=depth, nT=nTurbines,
+                              BEM=BEM, dtype=dtype, device=device)
+        return super().__new__(cls)
+
+    def __init__(self, design: dict, w=None, depth: float | None = None,
+                 nTurbines: int = 1, BEM=None, positions=None,
+                 pad_segments: int | None = None, pad_nodes: int | None = None,
+                 dtype=torch.float64, device=None):
+        if positions is not None:
+            raise ValueError("positions is only meaningful with nTurbines > 1")
         if isinstance(BEM, str) and BEM not in ("native", "jax", "auto"):
             raise ValueError(f"BEM={BEM!r}: expected 'native', 'jax', 'auto', or a "
                              "precomputed (A, B, F) tuple")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.design = design
-        self.members = build_member_set(design, self.device, dtype)
+        self.members = build_member_set(design, self.device, dtype, pad_segments=pad_segments,
+                                         pad_nodes=pad_nodes)
         self.rna = build_rna(design)
         moor = design.get("mooring")
         yaw_stiff = float(design.get("turbine", {}).get("yaw_stiffness", 0.0))
@@ -360,8 +386,43 @@ class Model:
         return self.results
 
     def airgap(self, points, deck_z: float):
-        raise NotImplementedError(
-            "airgap comes with the scenario-batch slice (ROADMAP.md, queue 1)")
+        """Relative wave elevation and air-gap margin at deck points.
+
+        Linear deck-clearance check: the relative elevation at plan point
+        p = (x, y) is the incident elevation minus the structure's vertical
+        motion there, ``eta_rel(w) = zeta e^{-i k (x cos beta + y sin beta)}
+        - u_z(p, w)`` with ``u_z = Xi_heave + Xi_roll y - Xi_pitch x``
+        (small-angle rigid body).  The 3-sigma air gap is ``deck_z +
+        z_offset - 3 sigma_rel``; negative means waves can reach the deck.
+
+        ``points``: (np, 2) plan coordinates [m]; ``deck_z``: underside of
+        the deck above SWL [m].  Returns per-point sigma and margins (host
+        numpy) and stores them under ``results["airgap"]``."""
+        if self.rao is None:
+            raise RuntimeError("run solveDynamics first")
+        pts = np.atleast_2d(np.asarray(points, dtype=float))
+        if pts.ndim != 2 or pts.shape[-1] != 2:
+            raise ValueError(f"points must be (np, 2) plan coordinates [x, y]; got shape "
+                             f"{pts.shape}")
+        w = _np(self.w)
+        k = _np(self.wave.k)
+        zeta = _np(self.wave.zeta)
+        beta = float(self.env.beta)
+        Xi = self.rao.Xi.to_complex()                               # (nw, 6)
+        dw = float(w[1] - w[0]) if len(w) > 1 else 1.0
+        phase_lag = np.exp(-1j * k[None, :] * (
+            pts[:, 0, None] * np.cos(beta) + pts[:, 1, None] * np.sin(beta)))   # (np, nw)
+        eta = zeta[None, :] * phase_lag
+        u_z = Xi[None, :, 2] + Xi[None, :, 3] * pts[:, 1, None] - Xi[None, :, 4] * pts[:, 0, None]
+        sigma = np.sqrt((np.abs(eta - u_z) ** 2).sum(axis=1) * dw)          # (np,)
+        z_off = np.zeros(len(pts))
+        if self.r6_eq is not None:
+            r6 = _np(self.r6_eq)
+            z_off = r6[2] + r6[3] * pts[:, 1] - r6[4] * pts[:, 0]
+        out = {"points": pts, "sigma rel elevation": sigma,
+               "margin 3 sigma": deck_z + z_off - 3.0 * sigma, "deck_z": float(deck_z)}
+        self.results["airgap"] = out
+        return out
 
     def plot(self, *args, **kwargs):
         raise NotImplementedError(
@@ -427,6 +488,237 @@ def load_design(fname) -> dict:
 
     with open(fname) as f:
         return yaml.safe_load(f)
+
+
+def _staged_wave(nw: int, w_min: float, w_max: float, depth, Hs: float, Tp: float,
+                 nw_pad: int | None = None, dtype=torch.float64, device=None) -> WaveState:
+    """The one staged-grid recipe of :func:`stage_design_base` and
+    :func:`stage_designs`: ``nw`` JONSWAP bins on [w_min, w_max], plus, when
+    ``nw_pad`` exceeds ``nw``, bucket padding that extends the grid past
+    ``w_max`` at the same spacing with ``zeta = 0`` and a ``freq_mask``
+    marking the physical bins (the padded bins then carry exactly zero
+    response through the solve; see :mod:`raft_tpu_torch.build.buckets`).
+    ``depth``: a float, or a (B, 1) tensor for a design batch's
+    wavenumbers (``k`` (B, nw)).  Runs on ``device`` (the card by
+    default)."""
+    dev = resolve_device(device)
+    nw = int(nw)
+    nw_p = nw if nw_pad is None else int(nw_pad)
+    if nw_p < nw:
+        raise ValueError(f"nw_pad={nw_p} smaller than nw={nw}")
+    if nw_p > nw and nw < 2:
+        raise ValueError("frequency padding needs nw >= 2 to fix the spacing")
+    w_host = np.linspace(w_min, w_max, nw)
+    if nw_p > nw:
+        dw = w_host[1] - w_host[0]
+        w_host = np.concatenate([w_host, w_host[-1] + dw * np.arange(1, nw_p - nw + 1)])
+    w = torch.as_tensor(w_host, device=dev).to(dtype)
+    zeta = torch.sqrt(jonswap(w, Hs, Tp))
+    mask = None
+    if nw_p > nw:
+        mask = torch.as_tensor(np.arange(nw_p) < nw, device=dev)
+        zeta = zeta * mask                    # exact zeros at padded bins
+    return WaveState(w=w, k=wave_number(w, depth), zeta=zeta, freq_mask=mask)
+
+
+@dataclasses.dataclass
+class _HostStage:
+    """One design's staging on the host: padded member arrays, bucket
+    class, RNA, water depth and mooring arrays (None without mooring)."""
+
+    members: dict
+    sig: object
+    rna: RNA
+    depth: float
+    moor: dict | None
+
+
+def _stage_host(design: dict, nw: int, with_mooring: bool, bucket) -> _HostStage:
+    """The host half of the one per-design staging recipe shared by
+    :func:`stage_design_base` and :func:`stage_designs`.  ``bucket``:
+    ``None`` exact shapes, ``True`` bucketize, or an explicit
+    :class:`~raft_tpu_torch.build.buckets.BucketSig` (self-healing
+    promotion applies)."""
+    from raft_tpu_torch.build import buckets as _buckets
+    from raft_tpu_torch.build.members import member_arrays
+
+    sig = None
+    if bucket is None:
+        arrays = member_arrays(design)
+    elif isinstance(bucket, _buckets.BucketSig):
+        arrays, sig = _buckets.bucketed_member_arrays(design, bucket)
+    else:
+        arrays, sig = _buckets.bucketed_member_arrays(design, nw=nw)
+    moor = None
+    if with_mooring:
+        moor = mooring_arrays(design["mooring"], yaw_stiffness=design["turbine"]["yaw_stiffness"])
+    return _HostStage(members=arrays, sig=sig, rna=build_rna(design),
+                      depth=float(design["mooring"]["water_depth"]), moor=moor)
+
+
+def _batched_stiffness(moors: list, dtype, dev) -> torch.Tensor:
+    """Undisplaced mooring stiffness of every lane, (B, 6, 6): the lanes
+    are grouped by line count, each group stacked on the host, copied once
+    and linearized in one batched call."""
+    C = torch.empty((len(moors), 6, 6), dtype=dtype, device=dev)
+    groups: dict = {}
+    for i, mo in enumerate(moors):
+        groups.setdefault(mo["r_anchor"].shape, []).append(i)
+    for idx in groups.values():
+        stacked = {key: np.stack([moors[i][key] for i in idx]) for key in moors[idx[0]]}
+        sys_b = mooring_from_arrays(stacked, dev, dtype)
+        C[torch.as_tensor(idx, device=dev)] = mooring_stiffness(
+            sys_b, torch.zeros((len(idx), 6), dtype=dtype, device=dev))
+    return C
+
+
+def stage_design_base(fname, nw: int, Hs: float, Tp: float, w_min: float, w_max: float,
+                      with_mooring: bool = True, bucket=None, dtype=torch.float64, device=None):
+    """One design (YAML path or dict) staged to the forward pipeline's
+    inputs: ``(design, members, rna, env, wave, C_moor)`` on ``device`` (the
+    card by default) in ``dtype``.
+
+    ``with_mooring=False`` skips the mooring parse and stiffness (``C_moor``
+    is then None).  ``bucket``: ``None`` (default) builds the design at its
+    exact shapes; ``True`` rounds the member axes and the frequency grid up
+    to their shape-bucket classes
+    (:func:`raft_tpu_torch.build.buckets.bucketize`); an explicit
+    :class:`~raft_tpu_torch.build.buckets.BucketSig` pins the class
+    (self-healing promotion applies)."""
+    dev = resolve_device(device)
+    design = load_design(fname)
+    h = _stage_host(design, nw, with_mooring, bucket)
+    wave = _staged_wave(nw, w_min, w_max, h.depth, Hs, Tp,
+                        nw_pad=None if h.sig is None else h.sig.nw, dtype=dtype, device=dev)
+    C_moor = None
+    if h.moor is not None:
+        C_moor = mooring_stiffness(mooring_from_arrays(h.moor, dev, dtype),
+                                   torch.zeros(6, dtype=dtype, device=dev))
+    return (design, member_set_from_arrays(h.members, dev, dtype), h.rna,
+            Env(Hs=Hs, Tp=Tp, depth=h.depth), wave, C_moor)
+
+
+@dataclasses.dataclass
+class DesignBatch:
+    """One shape bucket's staged designs, stacked lane-leading.
+
+    ``members`` has a leading lane axis of length ``len(fnames)``, ``rna``
+    and ``env`` (B,) tensor fields, ``wave`` ``k``/``zeta``/``freq_mask``
+    (B, nw_pad) over one shared grid ``w``, ``C_moor`` (B, 6, 6) (None
+    without mooring) and ``bem`` (A[B, nw, 6, 6], B[...], F Cx[B, nw, 6])
+    or None: one batched :func:`~raft_tpu_torch.parallel.sweep.
+    forward_response` solves the whole bucket.  ``indices`` maps lanes back
+    to positions in the caller's design list; ``nw`` is the physical
+    (unpadded) bin count; ``promotions`` the class promotions this batch's
+    staging performed."""
+
+    sig: object
+    fnames: list
+    indices: list
+    members: object
+    rna: RNA
+    env: Env
+    wave: WaveState
+    C_moor: object
+    bem: object = None
+    nw: int = 0
+    promotions: int = 0
+
+
+def _stack_trees(trees, dtype, dev):
+    """Dataclasses of host scalars (RNA, Env) -> one of the same type with
+    each field a (B,) tensor on ``dev``, copied once."""
+    cls = type(trees[0])
+    return cls(**{f.name: torch.as_tensor(np.array([getattr(t, f.name) for t in trees],
+                                                   dtype=float), device=dev).to(dtype)
+                  for f in dataclasses.fields(cls)})
+
+
+def stage_designs(fnames, nw: int, Hs: float, Tp: float, w_min: float, w_max: float,
+                  with_mooring: bool = True, bems=None, dtype=torch.float64,
+                  device=None) -> dict:
+    """Stage a mixed design list into shape buckets, stacked lane-leading.
+
+    Each design (YAML path or dict) is bucketized
+    (:func:`raft_tpu_torch.build.buckets.bucketize`, honoring
+    ``RAFT_TPU_BUCKETS``) and built padded to its class on the host
+    (self-healing promotion included), with its own water depth, mooring
+    and padded frequency grid, by the recipe of :func:`stage_design_base`.
+    The designs are grouped by :class:`~raft_tpu_torch.build.buckets.
+    BucketSig`; each group is stacked on the host and copied to ``device``
+    (the card by default) once, its mooring stiffness linearized in one
+    batched call per line count.  Returns ``{sig: DesignBatch}``.
+
+    ``bems``: optional per-design raw BEM tuples (``A[6, 6, nw]``,
+    ``B[6, 6, nw]``, ``F[6, nw]`` complex, on the physical grid), all
+    designs or none: zero-padded on the bucket grid, staged
+    frequency-leading, the excitation zeta-scaled (zero at padded bins)."""
+    from raft_tpu_torch.build import buckets as _buckets
+
+    dev = resolve_device(device)
+    fnames = list(fnames)
+    if bems is not None:
+        bems = list(bems)
+        if len(bems) != len(fnames):
+            raise ValueError(f"bems has {len(bems)} entries for {len(fnames)} designs")
+        if any(b is None for b in bems):
+            raise ValueError("bems must cover every design or be None: a bucket mixing BEM and "
+                             "strip-only lanes would need two different programs")
+    rows: dict = {}
+    promo: dict = {}
+    for i, fn in enumerate(fnames):
+        p0 = _buckets.promotion_count()
+        h = _stage_host(load_design(fn), nw, with_mooring, bucket=True)
+        rows.setdefault(h.sig, []).append((i, fn, h))
+        promo[h.sig] = promo.get(h.sig, 0) + (_buckets.promotion_count() - p0)
+
+    out: dict = {}
+    for sig, group in rows.items():
+        idx, names, hs = zip(*group)
+        depth = np.array([h.depth for h in hs])
+        members = member_set_from_arrays(
+            {key: np.stack([h.members[key] for h in hs]) for key in hs[0].members}, dev, dtype)
+        env = _stack_trees([Env(Hs=Hs, Tp=Tp, depth=d) for d in depth], dtype, dev)
+        wave = _staged_wave(nw, w_min, w_max, env.depth[:, None], Hs, Tp, nw_pad=sig.nw,
+                            dtype=dtype, device=dev)
+        B = len(hs)
+        wave = dataclasses.replace(
+            wave, zeta=wave.zeta.expand(B, -1),
+            freq_mask=None if wave.freq_mask is None else wave.freq_mask.expand(B, -1))
+        C_moor = None if hs[0].moor is None else _batched_stiffness([h.moor for h in hs],
+                                                                    dtype, dev)
+        bem = None
+        if bems is not None:
+            bem = _stage_bem_padded([bems[i] for i in idx], wave, nw)
+        out[sig] = DesignBatch(sig=sig, fnames=list(names), indices=list(idx), members=members,
+                               rna=_stack_trees([h.rna for h in hs], dtype, dev), env=env,
+                               wave=wave, C_moor=C_moor, bem=bem, nw=int(nw),
+                               promotions=promo[sig])
+    return out
+
+
+def _stage_bem_padded(bems, wave: WaveState, nw: int):
+    """A bucket's raw host BEM tuples (one per lane, each A[6, 6, nw],
+    B[6, 6, nw], F[6, nw] complex on the physical grid) -> the bucket
+    grid's staged device layout (A[B, nw_pad, 6, 6], B[...], F Cx[B,
+    nw_pad, 6]).  Padding is the only step owned here: the host arrays are
+    zero-padded past the physical bins, stacked, and routed through the
+    device-layout and zeta-scaling recipe of
+    :func:`raft_tpu_torch.parallel.sweep.stage_bem`, so a bucketed BEM lane
+    cannot drift from a solo staging.  The excitation at padded bins is
+    exactly zero (zeta is zero there)."""
+    nw_p = int(wave.w.shape[-1])
+    padded = []
+    for bem in bems:
+        A_h, B_h, F_h = (np.asarray(x) for x in bem)
+        if A_h.shape[-1] != nw:
+            raise ValueError(f"BEM arrays carry {A_h.shape[-1]} frequency bins; the staged grid "
+                             f"has {nw} physical bins")
+        tail = ((0, 0),) * (A_h.ndim - 1) + ((0, nw_p - nw),)
+        padded.append((np.pad(A_h, tail), np.pad(B_h, tail),
+                       np.pad(F_h, ((0, 0), (0, nw_p - nw)))))
+    stacked = tuple(np.stack(x) for x in zip(*padded))
+    return _stage_zeta(_bem_device_layout(stacked, wave.zeta.dtype, wave.zeta.device), wave.zeta)
 
 
 def run_raft(fname_design, fname_env=None, plot: bool = False, w=None,

@@ -41,10 +41,12 @@ def scale_mooring(sys: MooringSystem, theta) -> MooringSystem:
     return dataclasses.replace(sys, props=props, r_anchor=r_anchor)
 
 
-def parse_mooring(mooring: dict, device, dtype=torch.float64, rho: float = 1025.0,
-                  g: float = 9.81, yaw_stiffness: float = 0.0) -> MooringSystem:
-    """Build a :class:`MooringSystem` from the design-YAML ``mooring`` dict
-    on ``device`` (fixed <-> vessel lines; w = g (m_lin - rho pi/4 d^2))."""
+def mooring_arrays(mooring: dict, rho: float = 1025.0, g: float = 9.81,
+                   yaw_stiffness: float = 0.0) -> dict:
+    """The :class:`MooringSystem` of a design-YAML ``mooring`` dict as host
+    numpy arrays by field (fixed <-> vessel lines; w = g (m_lin - rho pi/4
+    d^2)).  A design batch stacks these on the host and copies them once
+    (:func:`mooring_from_arrays`)."""
     pts = {p["name"]: p for p in mooring["points"]}
     types = {t["name"]: t for t in mooring["line_types"]}
     anchors, fairs, Ls, ws, EAs, CBs = [], [], [], [], [], []
@@ -63,17 +65,57 @@ def parse_mooring(mooring: dict, device, dtype=torch.float64, rho: float = 1025.
         ws.append(g * (m_lin - rho * np.pi / 4.0 * d * d))
         EAs.append(float(t["stiffness"]))
         CBs.append(float(t.get("seabed_friction", t.get("cb", 0.0))))
+    f = lambda x: np.asarray(x, dtype=float)  # noqa: E731
+    return {"r_anchor": f(anchors), "r_fair_body": f(fairs), "L": f(Ls), "w": f(ws),
+            "EA": f(EAs), "CB": f(CBs), "depth": f(float(mooring.get("water_depth", 300.0))),
+            "yaw_stiffness": f(float(yaw_stiffness))}
 
-    def ten(x):
-        return torch.as_tensor(np.asarray(x, dtype=float), device=device).to(dtype)
+
+def mooring_from_arrays(arrays: dict, device, dtype=torch.float64) -> MooringSystem:
+    """Host arrays of :func:`mooring_arrays` (one system, or several with
+    the same line count stacked along a leading axis) -> a
+    :class:`MooringSystem` on ``device``."""
+    def ten(key):
+        return torch.as_tensor(arrays[key], device=device).to(dtype)
 
     return MooringSystem(
-        r_anchor=ten(anchors),
-        r_fair_body=ten(fairs),
-        props=LineProps(L=ten(Ls), w=ten(ws), EA=ten(EAs), CB=ten(CBs)),
-        depth=ten(float(mooring.get("water_depth", 300.0))),
-        yaw_stiffness=ten(float(yaw_stiffness)),
-    )
+        r_anchor=ten("r_anchor"), r_fair_body=ten("r_fair_body"),
+        props=LineProps(L=ten("L"), w=ten("w"), EA=ten("EA"), CB=ten("CB")),
+        depth=ten("depth"), yaw_stiffness=ten("yaw_stiffness"))
+
+
+def parse_mooring(mooring: dict, device, dtype=torch.float64, rho: float = 1025.0,
+                  g: float = 9.81, yaw_stiffness: float = 0.0) -> MooringSystem:
+    """Build a :class:`MooringSystem` from the design-YAML ``mooring`` dict
+    on ``device`` (fixed <-> vessel lines; w = g (m_lin - rho pi/4 d^2))."""
+    return mooring_from_arrays(mooring_arrays(mooring, rho=rho, g=g, yaw_stiffness=yaw_stiffness),
+                               device, dtype)
+
+
+def stack_systems(systems) -> MooringSystem:
+    """Per-turbine systems of one line count -> one system with a leading
+    turbine axis on every field (for the batched functions below)."""
+    def st(get):
+        return torch.stack([get(s) for s in systems])
+
+    return MooringSystem(
+        r_anchor=st(lambda s: s.r_anchor), r_fair_body=st(lambda s: s.r_fair_body),
+        props=LineProps(L=st(lambda s: s.props.L), w=st(lambda s: s.props.w),
+                        EA=st(lambda s: s.props.EA), CB=st(lambda s: s.props.CB)),
+        depth=st(lambda s: s.depth), yaw_stiffness=st(lambda s: s.yaw_stiffness))
+
+
+def _per_system(fn, sys: MooringSystem, *args):
+    """``fn(one system, *one lane of args)`` over the leading axis of a
+    stacked system (:func:`stack_systems`) in one batched call
+    (``torch.func.vmap``, the counterpart of the JAX package's
+    ``jax.vmap`` over a stacked MooringSystem)."""
+    def one(r_anchor, r_fair_body, L, w, EA, CB, depth, yaw, *a):
+        return fn(MooringSystem(r_anchor, r_fair_body, LineProps(L, w, EA, CB), depth, yaw), *a)
+
+    p = sys.props
+    return torch.func.vmap(one)(sys.r_anchor, sys.r_fair_body, p.L, p.w, p.EA, p.CB, sys.depth,
+                                sys.yaw_stiffness, *args)
 
 
 def _rotation(r6: Tensor) -> Tensor:
@@ -116,7 +158,10 @@ def mooring_force(sys: MooringSystem, r6: Tensor) -> Tensor:
 
 def mooring_stiffness(sys: MooringSystem, r6: Tensor) -> Tensor:
     """Linearized 6x6 mooring stiffness C = -dF/dr6 about r6, plus the yaw
-    spring."""
+    spring.  A stacked system with ``r6`` (nT, 6) gives (nT, 6, 6) in one
+    batched call."""
+    if r6.ndim > 1:
+        return _per_system(mooring_stiffness, sys, r6)
     C = -jacfwd(lambda x: mooring_force(sys, x))(r6)
     C = C.clone()
     C[5, 5] += sys.yaw_stiffness
@@ -124,7 +169,10 @@ def mooring_stiffness(sys: MooringSystem, r6: Tensor) -> Tensor:
 
 
 def fairlead_tensions(sys: MooringSystem, r6: Tensor) -> Tensor:
-    """Fairlead tension magnitude per line (nl,)."""
+    """Fairlead tension magnitude per line (nl,); (nT, nl) for a stacked
+    system with ``r6`` (nT, 6)."""
+    if r6.ndim > 1:
+        return _per_system(fairlead_tensions, sys, r6)
     return line_states(sys, r6).Tf
 
 
@@ -136,7 +184,13 @@ def tension_jacobian(sys: MooringSystem, r6: Tensor) -> Tensor:
 def solve_equilibrium(sys: MooringSystem, F_const: Tensor, C_body: Tensor,
                       r6_init: Tensor | None = None, iters: int = 40):
     """Mean-offset equilibrium F_const - C_body r6 + F_moor(r6) = 0 by a
-    fixed-iteration damped Newton; returns (r6_eq, residual norm)."""
+    fixed-iteration damped Newton; returns (r6_eq, residual norm).  A
+    stacked system with ``F_const`` (nT, 6) and ``C_body`` (nT, 6, 6)
+    solves every turbine in one batched Newton: (nT, 6), (nT,)."""
+    if F_const.ndim > 1:
+        init = () if r6_init is None else (r6_init,)
+        return _per_system(lambda s, f, c, *r: solve_equilibrium(s, f, c, *r, iters=iters),
+                           sys, F_const, C_body, *init)
     dtype, dev = sys.r_anchor.dtype, sys.r_anchor.device
     r6 = torch.zeros(6, dtype=dtype, device=dev) if r6_init is None else r6_init
 

@@ -1,11 +1,15 @@
-"""Design-batch and sea-state-batch forward pipeline, the DLC table and the
-north-star variant sweep (port of ``raft_tpu.parallel.sweep``:
-``scale_diameters``, ``forward_response``, ``response_std``, ``stage_bem``,
-``grad_response_std``, ``make_wave_states``, ``sweep_sea_states``,
-``spread_sea_state``, ``mixed_sea_state``, ``directional_response``).
+"""Design-batch and sea-state-batch forward pipeline, the DLC table, the
+variant and mixed-design sweeps and the north-star variant sweep (port of
+``raft_tpu.parallel.sweep``: ``scale_diameters``, ``forward_response``,
+``response_std``, ``stage_bem``, ``grad_response_std``,
+``make_wave_states``, ``sweep_sea_states``, ``spread_sea_state``,
+``mixed_sea_state``, ``directional_response``, ``sweep``,
+``sweep_designs``).
 
-A design batch is a MemberSet with a leading axis; a sea-state batch is a
-WaveState whose ``zeta`` (and ``beta``) carry a leading case axis.
+A design batch is a MemberSet with a leading axis (and, for mixed designs,
+the per-lane Env, RNA, wave and mooring of ``model.stage_designs``); a
+sea-state batch is a WaveState whose ``zeta`` (and ``beta``) carry a
+leading case axis.
 ``forward_response`` runs statics, strip hydrodynamics and the batched
 drag-linearized fixed point for every lane at once (the job ``jax.vmap``
 does in the JAX package).  :func:`sweep_north_star` is ``bench.py::north_star``'s
@@ -59,13 +63,15 @@ def _t(a, dtype, dev) -> Tensor:
 
 
 def _bem_device_layout(bem, dtype, dev):
-    """Host layout (A[6, 6, nw], B[6, 6, nw], F[6, nw] complex) ->
-    frequency-leading (A[nw, 6, 6], B[nw, 6, 6], F_re[nw, 6], F_im[nw, 6])
-    on ``dev`` in ``dtype``, the excitation not yet zeta-scaled."""
+    """Host layout (A[..., 6, 6, nw], B[..., 6, 6, nw], F[..., 6, nw]
+    complex) -> frequency-leading (A[..., nw, 6, 6], B[..., nw, 6, 6],
+    F_re[..., nw, 6], F_im[..., nw, 6]) on ``dev`` in ``dtype``, the
+    excitation not yet zeta-scaled; a leading axis is a design batch's
+    lanes."""
     A_bem, B_bem, F_bem = bem
-    Fb = np.moveaxis(np.asarray(F_bem), -1, 0)           # (nw, 6) complex, host
-    return (_t(np.moveaxis(np.asarray(A_bem), -1, 0), dtype, dev),
-            _t(np.moveaxis(np.asarray(B_bem), -1, 0), dtype, dev),
+    Fb = np.moveaxis(np.asarray(F_bem), -1, -2)          # (..., nw, 6) complex, host
+    return (_t(np.moveaxis(np.asarray(A_bem), -1, -3), dtype, dev),
+            _t(np.moveaxis(np.asarray(B_bem), -1, -3), dtype, dev),
             _t(Fb.real, dtype, dev), _t(Fb.imag, dtype, dev))
 
 
@@ -125,12 +131,20 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
                      tik: float = 0.0, dtype=torch.float64, device=None) -> RAOResult:
     """Design (batch) -> RAO solve: statics, strip hydro, drag fixed point.
 
-    ``members`` may carry a leading design axis, ``wave`` (and its grid)
-    then shared by every lane.  Or ``wave`` may carry a leading case axis
-    (``zeta`` (B, nw), ``beta`` (B,) or None, as :func:`make_wave_states`
-    builds it; ``w`` and ``k`` one grid, (nw,) or rows of it) for one
-    design: each sea state is then a lane with its own heading and drag
-    linearization (the JAX package vmaps this function over cases).
+    Three kinds of lanes, each the job ``jax.vmap`` does in the JAX package:
+
+    * ``members`` with a leading design axis and one shared (nw,) wave
+      (variants of one design, e.g. :func:`sweep`);
+    * one design and a ``wave`` with a leading case axis (``zeta`` (B, nw),
+      ``beta`` (B,) or None, as :func:`make_wave_states` builds it; ``w``
+      and ``k`` one grid, (nw,) or rows of it, at the design's one depth):
+      each sea state a lane with its own heading and drag linearization;
+    * a design batch (``model.stage_designs``): ``members`` with a lane
+      axis, Env and RNA fields (B,) tensors, ``k``, ``zeta`` and
+      ``freq_mask`` (B, nw) over one shared grid ``w``, ``C_moor``
+      (B, 6, 6) and ``bem`` (B, nw, ...): each lane keeps its own water
+      depth and wavenumbers.
+
     ``bem``: optional pre-staged ``(A, B, F)`` with A, B (..., nw, 6, 6)
     and F a Cx (..., nw, 6) on the spectral-amplitude basis; the potMod
     members then leave the Morison added mass and excitation.
@@ -141,13 +155,12 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     """
     dev = resolve_device(device)
     require_on(dev, dtype, node_r=members.node_r, w=wave.w, zeta=wave.zeta, C_moor=C_moor)
-    if wave.zeta.ndim > 1:
-        if members.node_r.ndim > 2:
-            raise ValueError("a case axis on the wave and a design axis on the members do not "
-                             "combine: solve the designs one at a time")
-        nw = wave.w.shape[-1]
-        wave = dataclasses.replace(wave, w=wave.w.reshape(-1, nw)[0],
-                                   k=wave.k.reshape(-1, nw)[0])
+    nw = wave.w.shape[-1]
+    if wave.w.ndim > 1:
+        wave = dataclasses.replace(wave, w=wave.w.reshape(-1, nw)[0])
+    if wave.zeta.ndim > 1 and members.node_r.ndim == 2:
+        # sea-state lanes of one design: one depth, so one row of wavenumbers
+        wave = dataclasses.replace(wave, k=wave.k.reshape(-1, nw)[0])
     if wave.beta is not None:
         env = dataclasses.replace(env, beta=wave.beta)
     exclude = bem is not None
@@ -157,7 +170,6 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     F = strip_excitation(members, kin, env, exclude_potmod=exclude)
     if bem is not None:
         F = F + bem[2]
-    nw = wave.w.shape[-1]
     MA = stat.M_struc + A
     M = MA[..., None, :, :].expand(*F.re.shape[:-2], nw, 6, 6)
     B = torch.zeros_like(M)
@@ -368,6 +380,170 @@ def directional_response(members: MemberSet, rna: RNA, env: Env, waves_dir: Wave
     return {"std dev": np.sqrt((per["std dev"] ** 2).sum(axis=0)),
             "nacelle accel std dev": float(np.sqrt((per["nacelle accel std dev"] ** 2).sum())),
             "per direction": per}
+
+
+# ---------------------------------------------------- design-variant batches
+
+
+def _apply_lanes(apply_fn, members: MemberSet, thetas: Tensor) -> MemberSet:
+    """``apply_fn(members, theta)`` of each row of ``thetas`` as one
+    MemberSet with a leading lane axis: ``torch.func.vmap`` over the
+    variant map, where the JAX package vmaps the whole forward pipeline
+    (the pipeline itself takes the lane axis directly)."""
+    names = [f.name for f in dataclasses.fields(members)]
+
+    def one(theta):
+        m = apply_fn(members, theta)
+        return tuple(getattr(m, n) for n in names)
+
+    fields = torch.func.vmap(one)(thetas)
+    return MemberSet(**dict(zip(names, fields)))
+
+
+def sweep(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor: Tensor, thetas,
+          apply_fn=scale_diameters, mesh=None, n_iter: int = 25, return_xi: bool = True,
+          health: bool = False, escalate: bool = True, dtype=torch.float64,
+          device=None) -> dict:
+    """A batch of variants of one staged design in one batched solve.
+
+    ``thetas``: (B, ...) design parameters; ``apply_fn(members, theta)``
+    makes each variant (mapped over the rows, :func:`_apply_lanes`).  Each
+    variant is a lane of :func:`forward_response` (scan driver, ``n_iter``
+    steps), with the design's RNA, environment, wave and mooring shared.
+    Returns numpy arrays, as the JAX package: ``"std dev"`` (B, 6),
+    ``"iterations"`` (B,) and, with ``return_xi``, ``"Xi_abs2"`` (B, nw, 6);
+    ``return_xi=False`` reduces the std dev on the device, so only the
+    (B, 6) statistics and the iteration counts leave it.
+
+    Not ported: ``mesh`` (sharding over devices) and ``health`` /
+    ``escalate`` (lane quarantine and the escalation ladder) raise
+    ``NotImplementedError`` (ROADMAP.md, queue 1, item 7); nor the AOT
+    executable registry and the ``obs`` spans around the call: the batched
+    solve runs directly."""
+    for name, given in (("mesh", mesh is not None), ("health", bool(health))):
+        if given:
+            raise NotImplementedError(
+                f"sweep({name}=...): multi-device sharding and lane health (with escalate) "
+                f"come with {_OPERATIONS_ITEM}")
+    dev = resolve_device(device)
+    th = torch.as_tensor(thetas, device=dev).to(dtype)
+    with torch.no_grad():
+        m = _apply_lanes(apply_fn, members, th)
+        out = forward_response(m, rna, env, wave, C_moor, n_iter=n_iter, dtype=dtype, device=dev)
+        abs2 = out.Xi.abs2()
+        sigma = response_std(abs2, wave.w)
+    res = {"std dev": _host(sigma), "iterations": _host(out.n_iter)}
+    if return_xi:
+        res["Xi_abs2"] = _host(abs2)
+    return res
+
+
+def _sweep_designs_bucket(batch, n_iter: int, return_xi: bool, dtype, dev) -> dict:
+    """One shape bucket's stacked designs (a ``model.DesignBatch``) as one
+    batched :func:`forward_response`: every per-design tensor carries the
+    lane axis (the JAX package vmaps its per-design function over them).
+    Returns numpy: ``"std dev"`` (B, 6), ``"iterations"`` (B,) and, with
+    ``return_xi``, ``"Xi_abs2"`` (B, nw_pad, 6)."""
+    B = len(batch.fnames)
+    C_moor = (batch.C_moor if batch.C_moor is not None
+              else torch.zeros((B, 6, 6), dtype=dtype, device=dev))
+    with torch.no_grad():
+        out = forward_response(batch.members, batch.rna, batch.env, batch.wave, C_moor,
+                               bem=batch.bem, n_iter=n_iter, dtype=dtype, device=dev)
+        abs2 = out.Xi.abs2()
+        sigma = response_std(abs2, batch.wave.w)
+    res = {"std dev": _host(sigma), "iterations": _host(out.n_iter)}
+    if return_xi:
+        res["Xi_abs2"] = _host(abs2)
+    return res
+
+
+def sweep_designs(fnames=None, nw: int = 100, Hs: float = 8.0, Tp: float = 12.0,
+                  w_min: float = 0.05, w_max: float = 2.95, with_mooring: bool = True,
+                  bems=None, staged: dict | None = None, n_iter: int = 25,
+                  return_xi: bool = True, health: bool = False, escalate: bool = True,
+                  chunk: int | None = None, pipeline_depth: int | None = None, mesh=None,
+                  dtype=torch.float64, device=None) -> dict:
+    """A mixed batch of different platform designs, one batched solve per
+    shape bucket.
+
+    The designs (YAML paths or dicts) are bucketized into a small ladder of
+    padded shape classes (:mod:`raft_tpu_torch.build.buckets`, override by
+    ``RAFT_TPU_BUCKETS``) and staged lane-leading per bucket
+    (:func:`raft_tpu_torch.model.stage_designs`: per-design water depth,
+    mooring stiffness, masked member padding, zero-response frequency
+    padding); each bucket then solves as one :func:`forward_response`
+    (scan driver, ``n_iter`` steps).  ``staged``: a prebuilt
+    ``stage_designs`` result (the staging arguments are then ignored);
+    ``bems``: optional per-design raw BEM tuples, staged padded.
+
+    Returns numpy arrays in the caller's original design order:
+    ``"designs"``, ``"std dev"`` (D, 6), ``"iterations"`` (D,),
+    ``"Xi_abs2"`` (D, nw, 6) trimmed to the physical bins (with
+    ``return_xi``), and a ``"buckets"`` block (ladder, signatures, lane
+    counts, promotions of this staging).
+
+    Not ported (ROADMAP.md, queue 1, item 7): ``chunk`` /
+    ``pipeline_depth`` (pipelined chunks), ``mesh`` (sharding over
+    devices) and ``health`` / ``escalate`` raise ``NotImplementedError``;
+    the AOT executable registry and the ``obs`` spans, ledger and
+    publication around each bucket are left out: the batched solve runs
+    directly."""
+    from raft_tpu_torch.build import buckets as _buckets
+    from raft_tpu_torch.model import stage_designs
+
+    for name, given in (("chunk", chunk is not None),
+                        ("pipeline_depth", pipeline_depth is not None),
+                        ("mesh", mesh is not None), ("health", bool(health))):
+        if given:
+            raise NotImplementedError(
+                f"sweep_designs({name}=...): pipelined chunks, multi-device sharding and lane "
+                f"health (with escalate) come with {_OPERATIONS_ITEM}")
+    dev = resolve_device(device)
+    if staged is None:
+        if fnames is None:
+            raise ValueError("sweep_designs needs a design list (fnames) or a prebuilt staged= "
+                             "dict")
+        staged = stage_designs(fnames, nw=nw, Hs=Hs, Tp=Tp, w_min=w_min, w_max=w_max,
+                               with_mooring=with_mooring, bems=bems, dtype=dtype, device=dev)
+    elif bems is not None:
+        raise ValueError("bems cannot be applied to a prebuilt staged= dict (staging already "
+                         "fixed each batch's BEM layout): pass bems to stage_designs (or to "
+                         "sweep_designs with fnames)")
+    batches = list(staged.values())
+    if not batches:
+        raise ValueError("no designs staged")
+    D = sum(len(b.fnames) for b in batches)
+    nw_phys = batches[0].nw
+    per_bucket = [_sweep_designs_bucket(b, n_iter, return_xi, dtype, dev) for b in batches]
+
+    def scatter(key, trim_nw=False):
+        first = per_bucket[0][key]
+        out = np.zeros((D,) + first.shape[1:], dtype=first.dtype)
+        for b, res in zip(batches, per_bucket):
+            out[np.asarray(b.indices)] = res[key]
+        if trim_nw and out.ndim >= 3:
+            out = out[:, :nw_phys]
+        return out
+
+    names = [None] * D
+    for b in batches:
+        for i, fn in zip(b.indices, b.fnames):
+            names[i] = fn
+    result = {"designs": names, "std dev": scatter("std dev"),
+              "iterations": scatter("iterations")}
+    if return_xi:
+        result["Xi_abs2"] = scatter("Xi_abs2", trim_nw=True)
+    result["buckets"] = {
+        "ladder": _buckets.ladder_salt()[1],
+        "n_designs": D,
+        "n_buckets": len(batches),
+        "signatures": [{"segments": b.sig.segments, "nodes": b.sig.nodes, "nw": b.sig.nw,
+                        "designs": len(b.fnames)} for b in batches],
+        # this staging's promotions, not the process-wide counter
+        "promotions": sum(b.promotions for b in batches),
+    }
+    return result
 
 
 def north_star_grid(n_designs: int) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Statics assembly: MemberSet + RNA + Env -> 6-DOF rigid-body coefficients
-(port of ``raft_tpu.statics``).  Broadcasts over a leading design axis."""
+(port of ``raft_tpu.statics``).  Broadcasts over a leading design axis,
+with the Env's and RNA's fields (B,) tensors there."""
 from __future__ import annotations
 
 import math
@@ -12,7 +13,7 @@ from raft_tpu_torch.core.transforms import (
     translate_force_3to6,
     translate_matrix_6to6,
 )
-from raft_tpu_torch.core.types import Env, MemberSet, RigidBodyCoeffs, RNA
+from raft_tpu_torch.core.types import Env, MemberSet, RigidBodyCoeffs, RNA, per_lane
 
 Tensor = torch.Tensor
 
@@ -69,7 +70,7 @@ def segment_inertia(m: MemberSet):
 def segment_hydrostatics(m: MemberSet, env: Env):
     """Per-segment buoyancy force F6, stiffness C6 and waterplane terms
     (crossing / submerged / dry by mask; caps contribute nothing)."""
-    rho, g = env.rho, env.g
+    rho, g = per_lane(env.rho, 1), per_lane(env.g, 1)
     rA0 = m.seg_rA
     rB0 = m.seg_rA + m.seg_q * m.seg_l[..., None]
     flip = rA0[..., 2] > rB0[..., 2]
@@ -174,7 +175,7 @@ def assemble_statics(m: MemberSet, rna: RNA, env: Env) -> RigidBodyCoeffs:
     zero = torch.zeros_like(mass)
 
     W_struc = translate_force_3to6(
-        center, torch.stack([zero, zero, -g * mass], dim=-1)).sum(dim=-2)
+        center, torch.stack([zero, zero, -per_lane(g, 1) * mass], dim=-1)).sum(dim=-2)
     M_struc = M6.sum(dim=-3)
     Sum_M_center = (mass[..., None] * center).sum(dim=-2)
 

@@ -135,6 +135,28 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         # a kernel argument made on an entry point's default device
         cuda6.solve_cx(Cx(torch.eye(6, device=resolve_device()), torch.zeros(6, 6)),
                        Cx(torch.ones(6), torch.zeros(6)))
+    # the variant and mixed-design sweeps, the design staging, the bucketed
+    # member build and the arrays
+    from raft_tpu_torch.array import ArrayModel, stack_fowts
+    from raft_tpu_torch.build.buckets import build_bucketed_member_set
+    from raft_tpu_torch.model import _staged_wave, stage_design_base, stage_designs
+    from raft_tpu_torch.parallel.sweep import sweep, sweep_designs
+
+    path = ROOT / "raft_tpu" / "designs" / "OC3spar.yaml"
+    kw = dict(nw=8, Hs=8.0, Tp=12.0, w_min=0.05, w_max=2.95)
+    for call in (lambda: sweep(*args, [1.0, 1.1]),
+                 lambda: sweep_designs([path], **kw),
+                 lambda: sweep_designs(staged=stage_designs([path], device="cpu", **kw)),
+                 lambda: stage_designs([path], **kw),
+                 lambda: stage_design_base(path, **kw),
+                 lambda: _staged_wave(8, 0.05, 2.95, 320.0, 8.0, 12.0),
+                 lambda: build_bucketed_member_set(design),
+                 lambda: stack_fowts([design]),
+                 lambda: ArrayModel(design, nT=2),
+                 lambda: Model(design, nTurbines=2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert isinstance(Model(design, nTurbines=2, device="cpu"), ArrayModel)
     assert resolve_device("cpu").type == "cpu"
 
 

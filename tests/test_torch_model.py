@@ -39,15 +39,19 @@ def test_run_raft_matches_jax(name):
 
 
 def test_unported_options_name_their_slice(capsys):
+    from raft_tpu_torch.array import ArrayModel
+
     design = load_design("raft_tpu/designs/OC3spar.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(design, device="cpu", nTurbines=2)
+    # arrays and the air gap are ported (tests/test_torch_array*.py,
+    # tests/test_torch_airgap.py)
+    assert isinstance(Model(design, device="cpu", nTurbines=2), ArrayModel)
     # BEM="native" is ported (tests/test_torch_native_bem*.py)
     assert Model(design, device="cpu", BEM="native").bem_mode == "native"
     m = Model(design, device="cpu")
-    for call in (lambda: m.airgap([[0.0, 0.0]], 10.0), m.plot):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(RuntimeError, match="solveDynamics"):
+        m.airgap([[0.0, 0.0]], 10.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.plot()
     m.setEnv(Hs=6.0, Tp=10.0)
     m.calcSystemProps()
     m.solveEigen()
