@@ -10,7 +10,8 @@ result line):
 
 1. device: CUDA is required; prints the card's name and power limit;
 2. build: compiles kernels K1/K2 (``csrc/solve6.cu``), K3
-   (``csrc/bem_rankine.cu``) and K4 (``csrc/bem_wave.cu``) of
+   (``csrc/bem_rankine.cu``) and K4 (``csrc/bem_wave.cu``; each with
+   float64, float32 and bfloat16 entries) of
    ``raft_tpu_torch`` with one nvcc each, all at once, prints ptxas'
    registers and spills (kept beside each library, so a run that only loads
    a built library prints them too), and builds (or loads) the BEM
@@ -107,17 +108,42 @@ result line):
    nTurbines=16, BEM="jax")`` on a 4 x 4 grid at 1,500 m, 59 w, float64,
    every step timed; turbines against single-turbine runs, K1 and K3/K4
    against their plain versions, ``airgap`` at 4 deck points;
-21. panel-solve copies: one solve and the refined solve's backward under
+21. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
+   (VolturnUS-S, 1,024 class; OC4semi with its lid, 2,048) and K4 (every
+   chunk of the 48-w staging) against their plain versions on the same
+   bf16 inputs, elementwise within one bf16 step of the plain output plus
+   ``TOL_BEM["float32"]`` max|plain| (two K3 calls the same bits), each
+   timed against its f32 entry in turns with its bound; then the card's
+   staging of the nominal hull with the bf16 assembly (its K3/K4 bf16
+   launches counted) in turns with the f32 staging: A and B within 0.1 of
+   it, F's gap and the gaps to native printed, the refinement residual
+   below 1e-4;
+22. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
+   the card against the CPU; a Capytaine dataset written from the card's
+   panel solve of VolturnUS-S read back through ``Model(BEM=
+   load_capytaine_nc(...))`` against ``Model(BEM=(A, B, F))``; a Nemoh mesh
+   of that hull through ``nemoh_to_pnl``;
+23. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
+   ``RAFT_TPU_BEM=jax`` at full width (850 panels, 59 w), with the f32
+   precision (the Model's BEM in float64) and with ``RAFT_TPU_BEM_PRECISION=
+   bf16`` (float32, bf16 assembly), in process with K1/K3/K4 launches
+   counted and in a subprocess on the default device, held against each
+   other, the bf16-to-f32 gap printed; ``sweep``, ``dlc`` (with and
+   without ``--bem``) and ``optimize`` at small counts, five subprocesses
+   at once with ``--plot`` into a temporary directory (where matplotlib is
+   not installed, ``--plot`` must exit non-zero naming it);
+24. panel-solve copies: one solve and the refined solve's backward under
    the profiler, no host-device copy and no synchronisation inside; two
    ``bem_fn`` steps after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-22. the sweeps and one gradient chunk again under ``torch.profiler``: device
+25. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    gradient chunk must run at least 75 device operations fewer than the same
    chunk with the adjoint's transposed copies, profiled in the same call.
 
-Every BEM solve here passes ``cache=False``, so each phase runs its
-solver and no result is read from the on-disk cache.
+Every BEM solve here passes ``cache=False`` (the CLI phase's runs each get
+a result cache of their own in a temporary directory), so each phase runs
+its solver and no result is read from an earlier run's cache.
 
 ``--phases a,b`` runs only the named phases (for debugging; the names are
 those printed after ``==``).  The last lines are the kernels JSON record,
@@ -173,6 +199,15 @@ TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
 # source panel, point of a level that some pair of its column needs); per
 # contribution, one point source (potential + normal derivative)
 K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB = 22, 28, 22
+# the bf16 entries of K3/K4 against their plain versions on the same bf16
+# inputs, elementwise: both compute in float32 (TOL_BEM["float32"] apart)
+# and round once to bf16, so where their float32 results straddle a
+# rounding boundary the two land one bf16 step apart, and a step is up to
+# 2^-7 of the value (2^-8 is half a step, the rounding error of one side)
+BF16_STEP = 2.0 ** -7
+# the bf16 staging's A and B against the f32 staging: the JAX package's bound
+# for its bf16 mode against its f32 (tests/test_bem_tiles.py)
+BF16_PARITY = 0.1
 # a pair with a level of 36 or more points (level ids above 1) is a near
 # pair: bem_rankine.cu's kFarLevel, for the check of its near-pass count
 K3_FAR_LEVEL = 1
@@ -230,7 +265,10 @@ def k2_bound_ms(n: int, itemsize: int, dtype_name: str):
 def k3_work(c, diag, panel_mask, lid_surface, itemsize: int, dtype_name: str) -> dict:
     """Pairs per level (``hist``), contributions per pair, near pairs (a
     level of 36 or more points), operations and bytes of K3's function on
-    these inputs, and its bound (``bound_ms``, ``bound_by``)."""
+    these inputs, and its bound (``bound_ms``, ``bound_by``).  ``itemsize``
+    is the storage's (2 for the bf16 entry), ``dtype_name`` the arithmetic's
+    (``"float32"`` for bf16: bf16 storage is computed in float32, so there
+    is no bf16 peak to count against)."""
     import torch
 
     from raft_tpu_torch.hydro import torch_bem
@@ -260,7 +298,8 @@ def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name
     """Operations and bytes of one K4 call on these inputs (each pair's
     region of the wave integrals, per image and frequency), and its bound:
     ``bound_ms``, ``bound_by``, ``ops_ms``, ``bytes_ms`` and ``regions``,
-    the image evaluations per region."""
+    the image evaluations per region.  ``itemsize`` and ``dtype_name`` as in
+    :func:`k3_work` (2 and ``"float32"`` for the bf16 entry)."""
     import torch
 
     from raft_tpu_torch.hydro import wavetable
@@ -309,6 +348,51 @@ def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name
             "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes, "regions": regions}
 
 
+def write_capytaine_nc(path, w, A, B, F):
+    """A Capytaine-layout classic NetCDF dataset: A, B (6, 6, nw) and the
+    excitation F (6, nw) as the diffraction force, a zero Froude-Krylov
+    force, one heading."""
+    import warnings
+
+    from scipy.io import netcdf_file
+
+    dofs = ["Surge", "Sway", "Heave", "Roll", "Pitch", "Yaw"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        f = netcdf_file(str(path), "w")
+        f.createDimension("omega", len(w))
+        for dim, size in (("radiating_dof", 6), ("influenced_dof", 6), ("wave_direction", 1),
+                          ("complex", 2), ("string5", 5)):
+            f.createDimension(dim, size)
+        f.createVariable("omega", "d", ("omega",))[:] = w
+        for name in ("radiating_dof", "influenced_dof"):
+            v = f.createVariable(name, "c", (name, "string5"))
+            for i, d in enumerate(dofs):
+                v[i] = np.frombuffer(d.ljust(5)[:5].encode(), dtype="S1")
+        for name, arr in (("added_mass", A), ("radiation_damping", B)):
+            f.createVariable(name, "d", ("omega", "radiating_dof", "influenced_dof"))[:] = \
+                np.asarray(arr).transpose(2, 0, 1)
+        for name, arr in (("diffraction_force", F), ("Froude_Krylov_force", np.zeros_like(F))):
+            v = f.createVariable(name, "d", ("complex", "omega", "wave_direction",
+                                             "influenced_dof"))
+            v[0] = np.asarray(arr).real.T[:, None, :]
+            v[1] = np.asarray(arr).imag.T[:, None, :]
+        f.close()
+
+
+def write_nemoh_mesh(path, panels):
+    """A Nemoh mesh file of (n, 4, 3) panels: one node per vertex."""
+    verts = np.asarray(panels).reshape(-1, 3)
+    with open(path, "w") as f:
+        f.write("2 0\n")
+        for i, v in enumerate(verts, 1):
+            f.write(f"{i} {v[0]:.9f} {v[1]:.9f} {v[2]:.9f}\n")
+        f.write("0 0.0 0.0 0.0\n")
+        for p in range(len(panels)):
+            f.write(" ".join(str(4 * p + k + 1) for k in range(4)) + "\n")
+        f.write("0 0 0 0\n")
+
+
 def tie_systems(n: int, rng) -> np.ndarray:
     """(n, 6, 6) complex systems whose pivot search ties: at column 0 rows 0
     and 1 (the pivot row itself in the tie), at column 2 rows 3 and 5 (row
@@ -345,8 +429,8 @@ def print_ptxas(name: str, log: str):
     kind = ""
     for line in log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"_kernelI([df])(?:Lb([01])E)?(?:Lb([01])E)?", line)
-            kind = "" if m is None else ("f64" if m[1] == "d" else "f32")
+            m = re.search(r"_kernelI(d|f|13__nv_bfloat16)(?:Lb([01])E)?(?:Lb([01])E)?", line)
+            kind = "" if m is None else {"d": "f64", "f": "f32"}.get(m[1], "bf16")
             if m is not None and m[2] is not None:
                 kind += (" fused" if m[2] == "1" else " plain") + (" adjoint" if m[3] == "1" else "")
         elif "registers" in line or "spill" in line:
@@ -398,6 +482,8 @@ class Smoke:
         self.record_native: dict = {}
         self.native_coeffs = None
         self.record_batches: dict = {}
+        self.record_bf16: dict = {}
+        self.record_cli: dict = {}
         self._cases: dict = {}
         self.dev = torch.device("cuda")
         self._flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=self.dev)
@@ -2035,6 +2121,416 @@ class Smoke:
                    and bool((gap["sigma rel elevation"] > 0).all()),
                    "airgap: finite, positive relative-elevation sigma at 4 points")
 
+    # ---------------------------------------------------- bf16 assembly
+
+    def _bf16_held(self, got, ref, what: str):
+        """Hold bf16 kernel outputs against their plain version's, elementwise:
+        |kernel - plain| <= BF16_STEP |plain| + TOL_BEM["float32"] max|plain|.
+        Returns (largest share of the bound used, elements past the half-step
+        bound 2^-8 |plain| + ..., largest absolute difference)."""
+        torch = self.torch
+        worst, over_half, ab = 0.0, 0, 0.0
+        tol = TOL_BEM["float32"]["wave" if "K4" in what else "rankine"]
+        for g, r in zip(got, ref):
+            g, r = g.float(), r.float()
+            d = (g - r).abs()
+            floor = tol * float(r.abs().max())
+            worst = max(worst, float((d / (BF16_STEP * r.abs() + floor).clamp(min=1e-30)).max()))
+            over_half += int((d > BF16_STEP / 2 * r.abs() + floor).sum())
+            ab = max(ab, float(d.max()))
+            if not bool(torch.isfinite(g).all()):
+                worst = float("inf")
+        return worst, over_half, ab
+
+    def _turns(self, fa, fb, reps: int = 10):
+        """Mean device times of fa and fb timed in turns: a, b, b, a."""
+        ta = self.time_ms(fa, reps)
+        tb = self.time_ms(fb, reps)
+        tb = 0.5 * (tb + self.time_ms(fb, reps))
+        ta = 0.5 * (ta + self.time_ms(fa, reps))
+        return ta, tb
+
+    def phase_bf16(self):
+        """The bf16 entries of K3 and K4 (``RAFT_TPU_BEM_PRECISION=bf16``)
+        against their plain versions on the same bf16 inputs, elementwise
+        within one bf16 step of the plain output plus TOL_BEM["float32"]:
+        K3 on VolturnUS-S (1,024 class) and OC4semi with its lid (2,048),
+        two calls the same bits; K4 on every chunk of the north star's
+        48-w staging; each bf16 entry timed against its f32 entry in turns,
+        with its bound (storage 2 bytes, float32 operations).  Then the
+        card's staging of the nominal hull with the bf16 assembly (K3/K4
+        bf16 launches counted: a main path) against the f32 staging
+        (parity_err <= 0.1), against native (printed) and its refinement
+        residual (< 1e-4)."""
+        from raft_tpu_torch.core import cuda_bem
+        from raft_tpu_torch.hydro import torch_bem
+        from raft_tpu_torch.parallel.sweep import stage_north_star_bem
+
+        torch = self.torch
+        bf = torch.bfloat16
+        for name, lid in (("VolturnUS-S", False), ("OC4semi", True)):
+            case = self._bem_case(name, lid, torch.float32)
+            args32, quad32 = case["args"], case["quad"]
+            args = tuple(a if a.dtype == torch.bool else a.to(bf) for a in args32)
+            quad = torch_bem.stage_quad(bf, self.dev)
+            got = cuda_bem.rankine_assembly(*args, quad=quad)
+            again = cuda_bem.rankine_assembly(*args, quad=quad)
+            ref = torch_bem.rankine_plain(*args, quad=quad)
+            torch.cuda.synchronize()
+            worst, over_half, ab = self._bf16_held(got, ref, "K3")
+            same = all(torch.equal(g, h) for g, h in zip(got, again))
+            self.check(worst <= 1.0 and same and all(g.dtype == bf for g in got),
+                       f"K3 bf16 {case['label']}: within one bf16 step + {TOL_BEM['float32']['rankine']:.0e}"
+                       f" max|plain| (largest share of the bound {worst:.3f}; {over_half} "
+                       f"elements past half a step); two calls the same bits ({same})")
+            up = tuple(a if a.dtype == torch.bool else a.float() for a in args)
+            wk = k3_work(up[1], up[4], up[5], up[6], 2, "float32")
+            ms32, ms16 = self._turns(lambda: cuda_bem.rankine_assembly(*args32, quad=quad32),
+                                     lambda: cuda_bem.rankine_assembly(*args, quad=quad))
+            plain_ms = self.time_ms(lambda: torch_bem.rankine_plain(*args, quad=quad), reps=2)
+            print(f"  K3 bf16 n={case['n']}: kernel {ms16:.4f} ms against f32 {ms32:.4f} ms in "
+                  f"turns, plain {plain_ms:.2f} ms, bound {wk['bound_ms']:.4f} ms "
+                  f"({wk['bound_by']}; 2-byte storage, float32 operations); max abs diff "
+                  f"{ab:.3e}")
+            if name == "VolturnUS-S":
+                self.records["rankine_bf16"] = {
+                    "max_abs_err": ab, "ms": ms16, "plain_ms": plain_ms,
+                    "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"], "library_ms": None,
+                    "f32_ms": ms32}
+
+        # K4 on every chunk of the staging grid, bf16 inputs as solve_panels casts them
+        ms16, ms32, plain_ms, bound, t_ops, t_bytes = [], [], [], [], 0.0, 0.0
+        worst_all, over_all, ab_all = 0.0, 0, 0.0
+        case = self._bem_case("VolturnUS-S", False, torch.float32)
+        depth = case["depth"]
+        rb = cuda_bem.rankine_assembly(*(a if a.dtype == torch.bool else a.to(bf)
+                                         for a in case["args"]),
+                                       quad=torch_bem.stage_quad(bf, self.dev))
+        chunks = self._staging_chunks(torch.float32)
+        tab16 = torch_bem._cast(chunks[0][0][7], bf)
+        for idx, (wargs32, kw, wc) in enumerate(chunks):
+            _R_pot, _R_dn, c, nrm, area, pm, ls, _tab, k, fd = wargs32
+            wargs = (rb[0], rb[1], c.to(bf), nrm.to(bf), area.to(bf), pm.to(bf), ls, tab16,
+                     k.to(bf), torch_bem._cast(fd, bf))
+            got = cuda_bem.wave_assembly(*wargs, **kw)
+            ref = torch_bem.wave_plain(*wargs, **kw)
+            worst, over_half, ab = self._bf16_held(got, ref, "K4")
+            worst_all, over_all, ab_all = max(worst_all, worst), over_all + over_half, max(ab_all, ab)
+            a32, a16 = self._turns(lambda: cuda_bem.wave_assembly(*wargs32, **kw),
+                                   lambda: cuda_bem.wave_assembly(*wargs, **kw), reps=3)
+            ms32.append(a32)
+            ms16.append(a16)
+            plain_ms.append(self.time_ms(lambda: torch_bem.wave_plain(*wargs, **kw), reps=1))
+            wk = k4_work(c, area, ls, k, fd, depth, 2, "float32")
+            bound.append(wk["bound_ms"])
+            t_ops, t_bytes = t_ops + wk["ops_ms"], t_bytes + wk["bytes_ms"]
+            print(f"  K4 bf16 staging chunk {idx:2d}: w {wc[0]:.4f}-{wc[-1]:.4f}; kernel "
+                  f"{a16:.4f} ms against f32 {a32:.4f} ms in turns, bound {wk['bound_ms']:.4f} ms; "
+                  f"largest share of the bound {worst:.3f}, {over_half} past half a step")
+        self.check(worst_all <= 1.0,
+                   f"K4 bf16 on all {len(ms16)} staging chunks: within one bf16 step + "
+                   f"{TOL_BEM['float32']['wave']:.0e} max|plain| (largest share {worst_all:.3f}; "
+                   f"{over_all} elements past half a step)")
+        print(f"  K4 bf16 staging grid: kernel {np.mean(ms16):.4f} ms per chunk against f32 "
+              f"{np.mean(ms32):.4f} ms in turns, plain {np.mean(plain_ms):.2f} ms, bound "
+              f"{np.mean(bound):.4f} ms (operations {t_ops / len(ms16):.4f}, bytes "
+              f"{t_bytes / len(ms16):.4f}); max abs diff {ab_all:.3e}")
+        self.records["wave_bf16"] = {
+            "max_abs_err": ab_all, "ms": float(np.mean(ms16)),
+            "plain_ms": float(np.mean(plain_ms)), "bound_ms": float(np.mean(bound)),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "f32_ms": float(np.mean(ms32))}
+
+        # the card's staging of the nominal hull with the bf16 assembly (a main
+        # path: its first run's launches counted), in turns with the f32 one
+        stage, walls = {}, {"f32": [], "bf16": []}
+        for turn, prec in enumerate(("f32", "bf16", "bf16", "f32")):
+            self.zero_counts()
+            t0 = time.perf_counter()
+            _staged, diag = stage_north_star_bem(
+                nw=self.nw, nw_bem=48, mode="jax", cache=False, dtype=torch.float32,
+                device=self.dev, return_diagnostics=True, precision=prec)
+            torch.cuda.synchronize()
+            walls[prec].append(time.perf_counter() - t0)
+            if prec not in stage:
+                stage[prec] = diag
+                diag["launches"] = {k: v for k, v in self.counts().items() if v}
+            if turn == 1:
+                self.add_main(self.counts(), ("rankine_bf16", "wave_bf16"))
+        d16, d32 = stage["bf16"], stage["f32"]
+        d16["wall"], d32["wall"] = np.mean(walls["bf16"]), np.mean(walls["f32"])
+        errs = [torch_bem.parity_err(a, b) for a, b in zip(d16["coeffs"][1:], d32["coeffs"][1:])]
+        native = self.native_coeffs
+        if native is None:
+            _s, dn = stage_north_star_bem(nw=self.nw, nw_bem=48, mode="native", cache=False,
+                                          dtype=torch.float64, device=self.dev,
+                                          return_diagnostics=True)
+            native = self.native_coeffs = dn["coeffs"]
+        errs_n = [torch_bem.parity_err(a, b) for a, b in zip(d16["coeffs"][1:], native[1:])]
+        errs_n32 = [torch_bem.parity_err(a, b) for a, b in zip(d32["coeffs"][1:], native[1:])]
+        print(f"  card staging float32, bf16 assembly: {d16['wall']:.3f} s, launches "
+              f"{d16['launches']}, refinement residual {d16['max_residual']:.2e}; f32 assembly "
+              f"{d32['wall']:.3f} s, launches {d32['launches']}, residual "
+              f"{d32['max_residual']:.2e}")
+        print(f"    bf16 against f32 parity_err A {errs[0]:.3e}, B {errs[1]:.3e}, F {errs[2]:.3e}; "
+              f"against native: bf16 A {errs_n[0]:.3e}, B {errs_n[1]:.3e}, F {errs_n[2]:.3e}; "
+              f"f32 A {errs_n32[0]:.3e}, B {errs_n32[1]:.3e}, F {errs_n32[2]:.3e}")
+        self.record_bf16 = {"stage_s": d16["wall"], "stage_f32_s": d32["wall"],
+                            "vs_f32": errs, "vs_native": errs_n, "f32_vs_native": errs_n32}
+        # A and B at the JAX package's bound for its bf16 mode against its f32
+        # (tests/test_bem_tiles.py holds A at 0.1).  F is printed: at this hull's
+        # size its bf16 error comes from the geometry rounded to bf16 (coordinates
+        # of 32-64 m in steps of 0.25 m), which the JAX package's mode rounds
+        # alike; python3 -m raft_tpu_torch.tools.bf16_error splits it by source
+        self.check(max(errs[:2]) <= BF16_PARITY and d16["max_residual"] < 1e-4
+                   and d16["precision"] == "bf16" and d16["assembly_dtype"] == str(bf)
+                   and d16["launches"].get("rankine_bf16") == 1
+                   and d16["launches"].get("wave_bf16") == 24
+                   and "rankine" not in d16["launches"] and "wave" not in d16["launches"],
+                   f"card staging with the bf16 assembly: A and B within {BF16_PARITY} of the "
+                   f"f32 staging (F {errs[2]:.3f}, printed), residual < 1e-4, K3 bf16 once and "
+                   f"K4 bf16 once per chunk, no f32 launch")
+
+    # ---------------------------------------------------------- BEM inputs
+
+    def phase_bem_inputs(self):
+        """The BEM inputs on the card: a WEIS-array design
+        (``io/weis.py``) through the Model on the card against the CPU
+        (1e-10); a Capytaine dataset written from the card's panel solve of
+        VolturnUS-S and read back through ``Model(BEM=load_capytaine_nc)``
+        against ``Model(BEM=(A, B, F))`` (1e-12); a Nemoh mesh of that hull
+        through ``nemoh_to_pnl`` against ``write_pnl`` of the same panels."""
+        import tempfile
+
+        from raft_tpu_torch.hydro import bem_io, capy, mesh
+        from raft_tpu_torch.io.weis import design_from_weis, member_from_arrays, \
+            mooring_from_arrays
+        from raft_tpu_torch.model import Model, load_design
+
+        torch = self.torch
+        spar = member_from_arrays(
+            "spar", [0, 0, -120], [0, 0, 10], [9.4, 9.4, 6.5, 6.5], [0.027],
+            stations=[-120, -12, -4, 10], potMod=False, Cd=0.8, Ca=1.0, rho_shell=8500,
+            l_fill=[52.0, 0, 0], rho_fill=[1860.0, 0, 0])
+        tower = member_from_arrays("tower", [0, 0, 10], [0, 0, 87.6], [6.5, 3.87],
+                                   [0.027, 0.019], mtype=1, Cd=0.0, Ca=0.0)
+        ang = np.deg2rad([0, 120, 240])
+        moor = mooring_from_arrays(
+            320.0, np.stack([853.87 * np.cos(ang), 853.87 * np.sin(ang), np.full(3, -320.0)], -1),
+            np.stack([5.2 * np.cos(ang), 5.2 * np.sin(ang), np.full(3, -70.0)], -1), [902.2] * 3,
+            diameter=0.09, mass_density=77.7066, stiffness=384.243e6)
+        design = design_from_weis(
+            [spar], tower, {"mRNA": 350000, "IxRNA": 3.5e7, "IrRNA": 2.6e7, "xCG_RNA": 0,
+                            "hHub": 90.0, "Fthrust": 800e3, "yaw_stiffness": 9.834e7}, moor)
+
+        def run(dev, **kw):
+            m = Model(kw.pop("design", design), device=dev, **kw)
+            m.setEnv(Hs=8.0, Tp=12.0, Fthrust=float(m.design["turbine"]["Fthrust"]))
+            m.calcSystemProps()
+            m.solveEigen()
+            m.calcMooringAndOffsets()
+            m.solveDynamics()
+            m.calcOutputs()
+            return m.results
+
+        self.zero_counts()
+        rg = run("cuda")
+        grew = self.counts()["fused"]
+        rc = run("cpu")
+        d_f = self._rel(rg["eigen"]["frequencies"], rc["eigen"]["frequencies"])
+        d_s = self._rel(rg["response"]["std dev"], rc["response"]["std dev"])
+        same_it = rg["response"]["iterations"] == rc["response"]["iterations"]
+        print(f"  WEIS-array spar design: card against cpu, fn {d_f:.2e}, std {d_s:.2e}, "
+              f"iterations {rg['response']['iterations']}/{rc['response']['iterations']}, "
+              f"K1 launches {grew}")
+        self.check(d_f <= 1e-10 and d_s <= 1e-10 and same_it and grew > 0,
+                   "design_from_weis: Model on the card == on the CPU (1e-10), K1 launched")
+
+        volt = load_design(DESIGNS / "VolturnUS-S.yaml")
+        m = Model(volt, BEM="jax", device="cuda")
+        m.setEnv(Hs=8.0, Tp=12.0)
+        A, B, F = m.calcBEM(cache=False)
+        w = m.w.cpu().numpy()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "volturn.nc"
+            write_capytaine_nc(path, w, A, B, F)
+            A_c, B_c, F_c = capy.load_capytaine_nc(str(path))
+            r_file = run("cuda", design=volt, BEM=(A_c, B_c, F_c))
+            r_tuple = run("cuda", design=volt, BEM=(A, B, F))
+            exact = all(np.array_equal(x, y) for x, y in ((A_c, A), (B_c, B), (F_c, F)))
+            d_f = self._rel(r_file["eigen"]["frequencies"], r_tuple["eigen"]["frequencies"])
+            d_s = self._rel(r_file["response"]["std dev"], r_tuple["response"]["std dev"])
+            print(f"  Capytaine dataset from the card's solve ({len(w)} w): read back exactly "
+                  f"{exact}; Model(BEM=load_capytaine_nc) against Model(BEM=(A, B, F)): fn "
+                  f"{d_f:.2e}, std {d_s:.2e}")
+            self.check(d_f <= 1e-12 and d_s <= 1e-12,
+                       "Model(BEM=load_capytaine_nc(...)) == Model(BEM=(A, B, F)) (1e-12)")
+
+            panels = mesh.mesh_design(volt, dz_max=3.0, da_max=2.0)
+            nemoh = Path(tmp) / "hull.nemoh"
+            write_nemoh_mesh(nemoh, panels)
+            got = mesh.read_pnl(bem_io.nemoh_to_pnl(str(nemoh), str(Path(tmp) / "a.pnl")))
+            mesh.write_pnl(str(Path(tmp) / "b.pnl"), panels)
+            want = mesh.read_pnl(str(Path(tmp) / "b.pnl"))
+            d = float(np.abs(got - want).max())
+            print(f"  Nemoh mesh of {len(panels)} panels -> nemoh_to_pnl: max diff {d:.2e} "
+                  f"against write_pnl of the same panels")
+            self.check(got.shape == want.shape and d == 0.0,
+                       "nemoh_to_pnl round trip == write_pnl of the same panels")
+
+    # ------------------------------------------------------------------ CLI
+
+    def _cli_start(self, args, env_extra, cwd=None):
+        """Start ``python3 -m raft_tpu_torch.cli`` on the default device in a
+        subprocess: (process, start time)."""
+        import os
+
+        env = {**os.environ, "PYTHONPATH": str(ROOT), **env_extra}
+        return (subprocess.Popen([sys.executable, "-m", "raft_tpu_torch.cli", *args], cwd=cwd,
+                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True), time.perf_counter())
+
+    def _cli_wait(self, started, timeout=600):
+        """Wait for a started CLI process (killed past ``timeout`` s): (exit
+        code, last stdout line parsed as JSON or None, wall s, stderr tail)."""
+        proc, t0 = started
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        wall = time.perf_counter() - t0
+        last = None
+        lines = out.strip().splitlines()
+        if lines:
+            try:
+                last = json.loads(lines[-1])
+            except ValueError:
+                last = None
+        return proc.returncode, last, wall, err[-2000:]
+
+    def _cli(self, args, env_extra, cwd=None):
+        return self._cli_wait(self._cli_start(args, env_extra, cwd))
+
+    def phase_cli(self):
+        """The port's CLI on the card: ``analyze volturn --bem --json`` with
+        ``RAFT_TPU_BEM=jax``, the slice's full-width path (850 panels, 1,024
+        class, 59 w), once with the f32 precision (the Model solves its BEM
+        in float64) and once with ``RAFT_TPU_BEM_PRECISION=bf16`` (float32,
+        bf16 assembly): in process, launches counted (main paths), and in a
+        subprocess on the default device, held against the in-process run;
+        the bf16-to-f32 gap printed.  Then ``sweep``, ``dlc`` and
+        ``optimize`` at small counts and ``--plot`` into a temporary
+        directory, each in a subprocess whose exit code must be 0."""
+        import contextlib as _ctx
+        import io
+        import os
+        import tempfile
+
+        from raft_tpu_torch import cli
+
+        torch = self.torch
+        runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for prec in ("f32", "bf16"):
+                env = {"RAFT_TPU_BEM": "jax", "RAFT_TPU_BEM_PRECISION": prec,
+                       "RAFT_TPU_TORCH_CACHE_DIR": str(Path(tmp) / f"cache-in-{prec}")}
+                saved = {k: os.environ.get(k) for k in env}
+                os.environ.update(env)
+                try:
+                    self.zero_counts()
+                    out = io.StringIO()
+                    t0 = time.perf_counter()
+                    with _ctx.redirect_stdout(out):
+                        res = cli.main(["volturn", "--bem", "--json"])
+                    torch.cuda.synchronize()
+                    t_in = time.perf_counter() - t0
+                    launches = {k: v for k, v in self.counts().items() if v}
+                    self.add_main(self.counts(), ("fused", "rankine", "wave", "rankine_bf16",
+                                                  "wave_bf16"))
+                finally:
+                    for k, v in saved.items():
+                        if v is None:
+                            os.environ.pop(k, None)
+                        else:
+                            os.environ[k] = v
+                env["RAFT_TPU_TORCH_CACHE_DIR"] = str(Path(tmp) / f"cache-sub-{prec}")
+                rc, last, wall, err = self._cli(["volturn", "--bem", "--json"], env)
+                runs[prec] = (res, last, t_in, wall, launches)
+                ok = rc == 0 and last is not None
+                d_p = d_s = float("inf")
+                if ok:
+                    d_p = self._rel(np.asarray(last["eigen"]["periods"]), res["eigen"]["periods"])
+                    d_s = self._rel(np.asarray(last["response"]["std dev"]),
+                                    res["response"]["std dev"])
+                want = ({"rankine_bf16", "wave_bf16", "fused"} if prec == "bf16"
+                        else {"rankine", "wave", "fused"})
+                print(f"  cli volturn --bem --json, RAFT_TPU_BEM=jax, precision {prec}: in "
+                      f"process {t_in:.2f} s, launches {launches}; subprocess rc {rc}, "
+                      f"{wall:.2f} s; subprocess against in-process: periods {d_p:.2e}, "
+                      f"std {d_s:.2e}")
+                if not ok:
+                    print(err)
+                self.check(ok and d_p <= 1e-9 and d_s <= 1e-9 and set(launches) == want
+                           and res["response"]["converged"],
+                           f"cli analyze volturn --bem ({prec}): subprocess == in-process "
+                           f"(1e-9), kernels {sorted(want)} launched, converged")
+            r32, r16 = runs["f32"][0], runs["bf16"][0]
+            g_p = self._rel(r16["eigen"]["periods"], r32["eigen"]["periods"])
+            g_s = self._rel(r16["response"]["std dev"], r32["response"]["std dev"])
+            print(f"  bf16 assembly against f32: eigen periods {g_p:.3e}, std dev {g_s:.3e} "
+                  f"(scale-relative)")
+            print(f"    periods f32  {np.array2string(r32['eigen']['periods'], precision=4)}")
+            print(f"    periods bf16 {np.array2string(r16['eigen']['periods'], precision=4)}")
+            self.record_cli = {p: {"in_process_s": runs[p][2], "subprocess_s": runs[p][3]}
+                               for p in runs}
+            self.record_cli["gap"] = {"periods": g_p, "std": g_s}
+
+            # the other subcommands and --plot, all started at once
+            cases = Path(tmp) / "cases.csv"
+            cases.write_text("# Hs,Tp,beta_deg\n6,10,0\n8,12,0\n8,12,30\n4,8,30\n")
+            small = ["--wmin", "0.05", "--wmax", "3.0", "--dw", "0.1"]
+            plot_dir = Path(tmp) / "plots"
+            plot_dir.mkdir()
+            jobs = [(args, self._cli_start(args, {
+                        "RAFT_TPU_BEM": "jax",
+                        "RAFT_TPU_TORCH_CACHE_DIR": str(Path(tmp) / f"cache-{i}")}))
+                    for i, args in enumerate((
+                        ["sweep", "volturn", "-n", "16", *small],
+                        ["dlc", "volturn", "--cases", str(cases), *small],
+                        ["dlc", "volturn", "--cases", str(cases), "--bem", *small],
+                        ["optimize", "volturn", "--steps", "2", *small]))]
+            plot_job = self._cli_start(["oc3", "--plot", *small], {}, cwd=plot_dir)
+            for args, job in jobs:
+                rc, last, wall, err = self._cli_wait(job)
+                vals = [] if last is None else [v for k, v in last.items()
+                                                if k in ("std dev", "history")]
+                finite = last is not None and all(np.isfinite(np.asarray(v, float)).all()
+                                                  for v in vals)
+                print(f"  cli {' '.join(args[:2])}{' --bem' if '--bem' in args else ''}: rc {rc}, "
+                      f"{wall:.2f} s (five processes at once), keys "
+                      f"{sorted(last) if last else None}")
+                if rc != 0:
+                    print(err)
+                self.check(rc == 0 and finite, f"cli {args[0]} exits 0 with finite JSON output")
+
+            rc, _last, wall, err = self._cli_wait(plot_job)
+            pngs = sorted(p.name for p in plot_dir.glob("*.png"))
+            print(f"  cli oc3 --plot: rc {rc}, {wall:.2f} s, wrote {pngs}")
+            try:
+                import matplotlib  # noqa: F401
+            except ImportError:
+                # the plots are drawn by matplotlib on the host; where it is
+                # not installed --plot must fail naming it, after the analysis
+                print("  matplotlib is not installed on this machine: --plot cannot draw here")
+                self.check(rc != 0 and "matplotlib" in err and not pngs,
+                           "cli --plot without matplotlib exits non-zero naming it")
+            else:
+                if rc != 0:
+                    print(err)
+                self.check(rc == 0 and pngs == ["raft_tpu_platform.png", "raft_tpu_raos.png"],
+                           "cli --plot writes the platform and RAO figures")
+
     def phase_solve_copies(self):
         """solve_panels copies nothing from the host and never waits for the
         device.  Under the profiler, every CUDA runtime call counted: one
@@ -2298,6 +2794,9 @@ class Smoke:
                   ("variant sweep", self.phase_variant_sweep),
                   ("mixed designs", self.phase_mixed_designs),
                   ("array farm", self.phase_array_farm),
+                  ("bf16 assembly", self.phase_bf16),
+                  ("BEM inputs", self.phase_bem_inputs),
+                  ("CLI", self.phase_cli),
                   ("panel-solve copies", self.phase_solve_copies),
                   ("profile", self.phase_profile)]
         if only is not None:
@@ -2344,6 +2843,16 @@ class Smoke:
              "replaces": "raft_tpu/core/pallas_bem.py:255",
              "launches": self.main_launches["wave"],
              **{k: self.records["wave"][k] for k in fields}},
+            {"name": "bem_rankine_bf16", "route": "cuda",
+             "source": "raft_tpu_torch/csrc/bem_rankine.cu",
+             "replaces": "raft_tpu/core/pallas_bem.py:103",
+             "launches": self.main_launches["rankine_bf16"],
+             **{k: self.records["rankine_bf16"][k] for k in fields}},
+            {"name": "bem_wave_bf16", "route": "cuda",
+             "source": "raft_tpu_torch/csrc/bem_wave.cu",
+             "replaces": "raft_tpu/core/pallas_bem.py:255",
+             "launches": self.main_launches["wave_bf16"],
+             **{k: self.records["wave_bf16"][k] for k in fields}},
         ]
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi())

@@ -77,10 +77,6 @@ def _phase_kin(kin: StripKin, ph: Cx) -> StripKin:
     return StripKin(u=kin.u * ph3, ud=kin.ud * ph3, pDyn=kin.pDyn * ph2)
 
 
-#: the ROADMAP item that holds the plots
-_PLOT_ITEM = "ROADMAP.md, queue 1, item 6"
-
-
 class ArrayModel:
     """N mooring-coupled FOWTs analyzed as one stacked batch (nDOF = 6N).
 
@@ -210,11 +206,12 @@ class ArrayModel:
     def calcBEM(self, dz_max: float = 3.0, da_max: float = 2.0, irr: bool = False,
                 headings=None, cache: bool = True):
         """One panel solve of the shared hull, staged to every turbine (cf.
-        ``Model.calcBEM``: the host C++ solver, or the card's K3/K4 route).
+        ``Model.calcBEM``: the host C++ solver, or the card's K3/K4 route, in
+        float32 with the bf16 assembly under ``RAFT_TPU_BEM_PRECISION=bf16``).
         ``headings``: optional heading grid [rad]; later ``setEnv(beta=...)``
         calls re-stage the excitation by interpolation."""
         from raft_tpu_torch.hydro.mesh import mesh_design, mesh_lid
-        from raft_tpu_torch.hydro.torch_bem import solve_bem_any
+        from raft_tpu_torch.hydro.torch_bem import model_solve_dtype, solve_bem_any
         from raft_tpu_torch.model import interp_heading_excitation
 
         panels = mesh_design(self.designs[0], dz_max=dz_max, da_max=da_max)
@@ -222,8 +219,8 @@ class ArrayModel:
             return None
         lid = mesh_lid(self.designs[0], da_max=da_max) if irr else None
         solve = dict(rho=float(self.env.rho), g=float(self.env.g), depth=self.depth, lid=lid,
-                     mode=self.bem_mode, cache=cache, dtype=self.dtype, device=self.device,
-                     return_diagnostics=True)
+                     mode=self.bem_mode, cache=cache, dtype=model_solve_dtype(self.dtype),
+                     device=self.device, return_diagnostics=True)
         w = _np(self.w)
         if headings is not None:
             beta = float(self.env.beta)
@@ -457,8 +454,34 @@ class ArrayModel:
                 print("    response std dev:", " ".join(f"{x:9.4g}" for x in s))
         print("=" * 40)
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError(f"plot comes with the Model/CLI slice ({_PLOT_ITEM})")
+    def plot(self, ax=None, hideGrid: bool = False, n_ring: int = 24):
+        """Wireframes of every turbine at its plan position (host numpy
+        copies of the stacked members).  Returns the axes."""
+        import matplotlib.pyplot as plt
 
-    def plot_raos(self, *args, **kwargs):
-        raise NotImplementedError(f"plot_raos comes with the Model/CLI slice ({_PLOT_ITEM})")
+        from raft_tpu_torch.model import plot_member_wireframe
+
+        if ax is None:
+            fig = plt.figure(figsize=(9, 9))
+            ax = fig.add_subplot(projection="3d")
+        for t in range(self.nT):
+            m_t = dataclasses.replace(self.members, **{
+                f.name: getattr(self.members, f.name)[t]
+                for f in dataclasses.fields(self.members)
+                if getattr(self.members, f.name) is not None})
+            plot_member_wireframe(ax, m_t, offset=self.positions[t], n_ring=n_ring)
+        if hideGrid:
+            ax.set_axis_off()
+        return ax
+
+    def plot_raos(self, axes=None):
+        """2 x 3 grid of per-DOF RAO magnitude curves, one line per turbine
+        (the layout of :meth:`raft_tpu_torch.model.Model.plot_raos`,
+        :func:`raft_tpu_torch.model.plot_rao_grid`)."""
+        from raft_tpu_torch.model import plot_rao_grid
+
+        if "response" not in self.results:
+            raise RuntimeError("run solveDynamics() before plot_raos()")
+        resp = self.results["response"]
+        return plot_rao_grid(np.asarray(resp["w"]), np.asarray(resp["RAO magnitude"]),
+                             axes=axes)

@@ -26,6 +26,12 @@
   warp at a time (one node per lane), builds the fit terms from one
   rsqrt, and loops each thread over the chunk's frequencies.
 
+Each kernel has three entries: float64, float32 and bfloat16 storage
+(``RAFT_TPU_BEM_PRECISION=bf16``: the inputs and outputs in bfloat16, the
+arithmetic in float32, each output rounded once; the plain versions give
+bfloat16 the same meaning).  Their launches are counted apart
+(``"rankine_bf16"``, ``"wave_bf16"``).
+
 Both wrappers dispatch on the tensors' device: CPU tensors take the plain
 versions (:func:`raft_tpu_torch.hydro.torch_bem.rankine_plain`,
 ``wave_plain``), CUDA tensors launch the kernel or raise; under grad mode
@@ -45,7 +51,9 @@ from raft_tpu_torch.core import nvcc
 Tensor = torch.Tensor
 
 #: kernel launches per wrapper (never the plain path)
-LAUNCHES = {"rankine": 0, "wave": 0}
+LAUNCHES = {"rankine": 0, "wave": 0, "rankine_bf16": 0, "wave_bf16": 0}
+#: the C entries' suffix for each storage dtype
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
 RANKINE = nvcc.Spec("bem_rankine", "bem_rankine.cu")
 WAVE = nvcc.Spec("bem_wave", "bem_wave.cu")
@@ -61,19 +69,19 @@ def build() -> dict:
     """Compile (once per source hash) and load both kernel libraries."""
     if not _libs:
         nvcc.compile_all([RANKINE, WAVE])
-        lib = nvcc.load(RANKINE, {"bem_rankine_f32": _RANKINE_SIG,
-                                  "bem_rankine_f64": _RANKINE_SIG})
-        for fn in (lib.bem_rankine_workspace_f32, lib.bem_rankine_workspace_f64):
+        lib = nvcc.load(RANKINE, {f"bem_rankine_{x}": _RANKINE_SIG for x in _SUFFIX.values()})
+        for x in _SUFFIX.values():
+            fn = getattr(lib, f"bem_rankine_workspace_{x}")
             fn.argtypes, fn.restype = [_I], _I
         _libs["rankine"] = lib
-        _libs["wave"] = nvcc.load(WAVE, {"bem_wave_f32": _WAVE_SIG, "bem_wave_f64": _WAVE_SIG})
+        _libs["wave"] = nvcc.load(WAVE, {f"bem_wave_{x}": _WAVE_SIG for x in _SUFFIX.values()})
     return _libs
 
 
 def _checked(dev: torch.device, dtype, **tensors) -> dict:
     """Contiguous tensors on ``dev`` in ``dtype`` (bools are cast), or raise."""
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    if dtype not in _SUFFIX:
+        raise ValueError(f"dtype must be float32, float64 or bfloat16, got {dtype}")
     out = {}
     for name, t in tensors.items():
         if t.device != dev:
@@ -140,18 +148,17 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
     R_pot = torch.empty((n, n), dtype=dtype, device=dev)
     R_dn = torch.empty_like(R_pot)
     lib = build()["rankine"]
-    f64 = dtype == torch.float64
-    words = (lib.bem_rankine_workspace_f64 if f64 else lib.bem_rankine_workspace_f32)(n)
+    words = getattr(lib, f"bem_rankine_workspace_{_SUFFIX[dtype]}")(n)
     if words < 0:
         raise RuntimeError("bem_rankine: the launch could not be planned on this device")
     work = torch.empty(words, dtype=torch.int32, device=dev)
-    fn = lib.bem_rankine_f64 if f64 else lib.bem_rankine_f32
+    fn = getattr(lib, f"bem_rankine_{_SUFFIX[dtype]}")
     err = fn(*(a[k].data_ptr() for k in ("pans", "c", "nrm", "area", "diag", "mask")),
              lids.data_ptr(), *(a[k].data_ptr() for k in ("spot", "us", "vs", "wf")),
              n, R_pot.data_ptr(), R_dn.data_ptr(), work.data_ptr(), words,
              None if near_count is None else near_count.data_ptr(), nvcc.stream_of(dev))
     nvcc.check(err, "bem_rankine")
-    LAUNCHES["rankine"] += 1
+    LAUNCHES["rankine_bf16" if dtype == torch.bfloat16 else "rankine"] += 1
     return R_pot, R_dn
 
 
@@ -200,7 +207,7 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
     if nf == 0:
         return tuple(outs)
     lib = build()["wave"]
-    fn = lib.bem_wave_f64 if dtype == torch.float64 else lib.bem_wave_f32
+    fn = getattr(lib, f"bem_wave_{_SUFFIX[dtype]}")
     ptr = {key: t.data_ptr() for key, t in a.items()}
     err = fn(ptr["Rp"], ptr["Rdn"], ptr["c"], ptr["nrm"], ptr["area"], ptr["mask"],
              ptr["lids"], ptr["I0"], ptr["I1"], ptr["node_s"], ptr["node_w"], ptr["coef"],
@@ -209,5 +216,5 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
              nl, n, nf, int(bool(finite_depth)), float(depth),
              *(o.data_ptr() for o in outs), nvcc.stream_of(dev))
     nvcc.check(err, "bem_wave")
-    LAUNCHES["wave"] += 1
+    LAUNCHES["wave_bf16" if dtype == torch.bfloat16 else "wave"] += 1
     return tuple(outs)

@@ -64,7 +64,19 @@
 //     allocates (bem_rankine_workspace_* words of int32); near_count (may
 //     be null) receives the number of near pairs, for a check against the
 //     plain version's levels; the path passes null.
+//   * Storage and arithmetic types are separate template arguments (S, T):
+//     f64 and f32 store and compute in one type; the bf16 entry
+//     (RAFT_TPU_BEM_PRECISION=bf16) loads __nv_bfloat16, computes in float
+//     and rounds each output once with __float2bfloat16_rn, the plain
+//     version's bf16 (upcast, compute in float32, round).  Hopper's bf16
+//     arithmetic is paired FMA without transcendental units, so the sqrt,
+//     rsqrt and division stay float.  The shared-memory tiles hold the
+//     arithmetic type: each staged value is read by every row or column of
+//     its tile, so it is converted once, when staged, and the inner loops
+//     run as in f32 (the bf16 saving is in the global loads and the two
+//     n x n stores, half of f32's bytes).
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -99,6 +111,14 @@ __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double rsqrt_of(double a) { return rsqrt(a); }
 __device__ __forceinline__ float rsqrt_of(float a) { return rsqrtf(a); }
+
+// storage -> arithmetic type (bf16 is computed in float), and the store back
+__device__ __forceinline__ double up(double x) { return x; }
+__device__ __forceinline__ float up(float x) { return x; }
+__device__ __forceinline__ float up(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(double* p, double x) { *p = x; }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // sqrt(x^2 + y^2 + z^2 + 1e-20), rounded as torch_bem._safe_norm rounds it
 template <typename T>
@@ -160,13 +180,13 @@ __device__ __forceinline__ void contrib(T cx, T cy, T cz, T nx, T ny, T nz,
 }
 
 // exact self term on the diagonal, column mask, store
-template <typename T>
+template <typename S, typename T>
 __device__ __forceinline__ void finish(int i, int j, int n, T pot, T dn, T spot, T lid, T mask,
-                                       T* __restrict__ R_pot, T* __restrict__ R_dn) {
+                                       S* __restrict__ R_pot, S* __restrict__ R_dn) {
   if (i == j) pot = pot + spot * (T(1) + lid);
   const size_t o = static_cast<size_t>(i) * n + j;
-  R_pot[o] = pot * mask;
-  R_dn[o] = dn * mask;
+  store(R_pot + o, pot * mask);
+  store(R_dn + o, dn * mask);
 }
 
 // a near pair: tile k of its block's sequence (high 16 bits); row | col << 5 |
@@ -187,14 +207,14 @@ __device__ __forceinline__ int list_of(const int* start, int lo, int hi, int e) 
 
 // At most 80 registers a thread, so three blocks share an SM: unbounded,
 // the far pass's two rows in flight leave room for two in f64.
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __restrict__ nrm,
-               const T* __restrict__ area, const T* __restrict__ diag,
-               const T* __restrict__ mask, const bool* __restrict__ lids,
-               const T* __restrict__ spot, const T* __restrict__ us,
-               const T* __restrict__ vs, const T* __restrict__ wf, int n, int cap,
-               T* __restrict__ R_pot, T* __restrict__ R_dn, int* work,
+rankine_kernel(const S* __restrict__ pans, const S* __restrict__ c, const S* __restrict__ nrm,
+               const S* __restrict__ area, const S* __restrict__ diag,
+               const S* __restrict__ mask, const bool* __restrict__ lids,
+               const S* __restrict__ spot, const S* __restrict__ us,
+               const S* __restrict__ vs, const S* __restrict__ wf, int n, int cap,
+               S* __restrict__ R_pot, S* __restrict__ R_dn, int* work,
                int* __restrict__ near_count) {
   __shared__ Shared<T> s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -204,9 +224,9 @@ rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __r
   unsigned* list = reinterpret_cast<unsigned*>(work + blocks) + static_cast<size_t>(b) * cap;
 
   if (tid < kNQFar) {
-    s.u[tid] = us[tid];
-    s.v[tid] = vs[tid];
-    s.w[tid] = wf[tid];
+    s.u[tid] = up(us[tid]);
+    s.v[tid] = up(vs[tid]);
+    s.w[tid] = up(wf[tid]);
   }
   if (tid == 0) s.count = 0;
 
@@ -215,17 +235,17 @@ rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __r
     const int i0 = (tile / tiles_j) * kRows, j0 = (tile % tiles_j) * kCols;
     const int ni = min(kRows, n - i0), nj = min(kCols, n - j0);
     __syncthreads();                         // the previous tile is done with s
-    for (int e = tid; e < 12 * nj; e += kThreads) s.p[e % 12][e / 12] = pans[12 * j0 + e];
-    for (int e = tid; e < 3 * nj; e += kThreads) s.cj[e % 3][e / 3] = c[3 * j0 + e];
+    for (int e = tid; e < 12 * nj; e += kThreads) s.p[e % 12][e / 12] = up(pans[12 * j0 + e]);
+    for (int e = tid; e < 3 * nj; e += kThreads) s.cj[e % 3][e / 3] = up(c[3 * j0 + e]);
     for (int e = tid; e < 3 * ni; e += kThreads) {
-      s.ci[e % 3][e / 3] = c[3 * i0 + e];
-      s.ni[e % 3][e / 3] = nrm[3 * i0 + e];
+      s.ci[e % 3][e / 3] = up(c[3 * i0 + e]);
+      s.ni[e % 3][e / 3] = up(nrm[3 * i0 + e]);
     }
     if (tid < nj) {
-      s.area[tid] = area[j0 + tid];
-      s.diag[tid] = diag[j0 + tid];
-      s.mask[tid] = mask[j0 + tid];
-      s.spot[tid] = spot[j0 + tid];
+      s.area[tid] = up(area[j0 + tid]);
+      s.diag[tid] = up(diag[j0 + tid]);
+      s.mask[tid] = up(mask[j0 + tid]);
+      s.spot[tid] = up(spot[j0 + tid]);
       s.lid[tid] = lids[j0 + tid];
     }
     __syncthreads();
@@ -306,9 +326,9 @@ rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __r
   __syncthreads();
   if (tid == 0) lengths[b] = s.count;
   for (int q = kNQFar + tid; q < kNQ; q += kThreads) {
-    s.u[q] = us[q];
-    s.v[q] = vs[q];
-    s.w[q] = wf[q];
+    s.u[q] = up(us[q]);
+    s.v[q] = up(vs[q]);
+    s.w[q] = up(wf[q]);
   }
   cg::this_grid().sync();
 
@@ -342,12 +362,12 @@ rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __r
     const int sel_d = static_cast<int>((code >> 10) & 7u) - 1;
     const int sel_i = static_cast<int>((code >> 13) & 7u) - 1;
     // everything the pair reads, issued together
-    const T cix = c[3 * i], ciy = c[3 * i + 1], ciz = c[3 * i + 2];
-    const T nix = nrm[3 * i], niy = nrm[3 * i + 1], niz = nrm[3 * i + 2];
+    const T cix = up(c[3 * i]), ciy = up(c[3 * i + 1]), ciz = up(c[3 * i + 2]);
+    const T nix = up(nrm[3 * i]), niy = up(nrm[3 * i + 1]), niz = up(nrm[3 * i + 2]);
     T p[12];
 #pragma unroll
-    for (int e2 = 0; e2 < 12; ++e2) p[e2] = pans[12 * j + e2];
-    const T area_j = area[j], spot_j = spot[j], mask_j = mask[j];
+    for (int e2 = 0; e2 < 12; ++e2) p[e2] = up(pans[12 * j + e2]);
+    const T area_j = up(area[j]), spot_j = up(spot[j]), mask_j = up(mask[j]);
     const T lid_j = lids[j] ? T(1) : T(0);
     // the next pair's list entry, while this one computes
     const int e_next = e + warps;
@@ -383,13 +403,14 @@ rankine_kernel(const T* __restrict__ pans, const T* __restrict__ c, const T* __r
 
 // blocks of one launch (all resident at once, as a cooperative launch
 // needs), its tiles' near-list capacity per block, and the workspace words
-template <typename T>
+template <typename S, typename T>
 cudaError_t plan(long long n, int& blocks, int& cap, long long& words) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rankine_kernel<T>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rankine_kernel<S, T>, kThreads,
+                                                        0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = ((n + kCols - 1) / kCols) * ((n + kRows - 1) / kRows);
@@ -404,7 +425,7 @@ cudaError_t plan(long long n, int& blocks, int& cap, long long& words) {
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename S, typename T>
 int launch(const void* pans, const void* c, const void* nrm, const void* area,
            const void* diag, const void* mask, const void* lids, const void* spot,
            const void* us, const void* vs, const void* wf, long long n,
@@ -413,31 +434,31 @@ int launch(const void* pans, const void* c, const void* nrm, const void* area,
   if (n == 0) return 0;
   int blocks = 0, cap = 0;
   long long words = 0;
-  cudaError_t err = plan<T>(n, blocks, cap, words);
+  cudaError_t err = plan<S, T>(n, blocks, cap, words);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (work_words < words) return static_cast<int>(cudaErrorInvalidValue);
-  const T *a_pans = static_cast<const T*>(pans), *a_c = static_cast<const T*>(c),
-          *a_nrm = static_cast<const T*>(nrm), *a_area = static_cast<const T*>(area),
-          *a_diag = static_cast<const T*>(diag), *a_mask = static_cast<const T*>(mask),
-          *a_spot = static_cast<const T*>(spot), *a_us = static_cast<const T*>(us),
-          *a_vs = static_cast<const T*>(vs), *a_wf = static_cast<const T*>(wf);
+  const S *a_pans = static_cast<const S*>(pans), *a_c = static_cast<const S*>(c),
+          *a_nrm = static_cast<const S*>(nrm), *a_area = static_cast<const S*>(area),
+          *a_diag = static_cast<const S*>(diag), *a_mask = static_cast<const S*>(mask),
+          *a_spot = static_cast<const S*>(spot), *a_us = static_cast<const S*>(us),
+          *a_vs = static_cast<const S*>(vs), *a_wf = static_cast<const S*>(wf);
   const bool* a_lids = static_cast<const bool*>(lids);
   int a_n = static_cast<int>(n), a_cap = cap;
-  T *a_pot = static_cast<T*>(R_pot), *a_dn = static_cast<T*>(R_dn);
+  S *a_pot = static_cast<S*>(R_pot), *a_dn = static_cast<S*>(R_dn);
   int *a_work = static_cast<int*>(work), *a_count = static_cast<int*>(near_count);
   void* args[] = {&a_pans, &a_c, &a_nrm, &a_area, &a_diag, &a_mask, &a_lids, &a_spot,
                   &a_us, &a_vs, &a_wf, &a_n, &a_cap, &a_pot, &a_dn, &a_work, &a_count};
-  err = cudaLaunchCooperativeKernel((const void*)rankine_kernel<T>, dim3(blocks),
+  err = cudaLaunchCooperativeKernel((const void*)rankine_kernel<S, T>, dim3(blocks),
                                     dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename S, typename T>
 long long workspace(long long n) {
   int blocks = 0, cap = 0;
   long long words = 0;
-  return plan<T>(n, blocks, cap, words) == cudaSuccess ? words : -1;
+  return plan<S, T>(n, blocks, cap, words) == cudaSuccess ? words : -1;
 }
 
 }  // namespace
@@ -445,16 +466,17 @@ long long workspace(long long n) {
 extern "C" {
 
 // int32 words of the workspace a launch at n panels needs (-1 on a CUDA error)
-long long bem_rankine_workspace_f32(long long n) { return workspace<float>(n); }
-long long bem_rankine_workspace_f64(long long n) { return workspace<double>(n); }
+long long bem_rankine_workspace_f32(long long n) { return workspace<float, float>(n); }
+long long bem_rankine_workspace_f64(long long n) { return workspace<double, double>(n); }
+long long bem_rankine_workspace_bf16(long long n) { return workspace<__nv_bfloat16, float>(n); }
 
 int bem_rankine_f32(const void* pans, const void* c, const void* nrm, const void* area,
                     const void* diag, const void* mask, const void* lids, const void* spot,
                     const void* us, const void* vs, const void* wf, long long n,
                     void* R_pot, void* R_dn, void* work, long long work_words,
                     void* near_count, void* stream) {
-  return launch<float>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n, R_pot, R_dn,
-                       work, work_words, near_count, stream);
+  return launch<float, float>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n, R_pot,
+                              R_dn, work, work_words, near_count, stream);
 }
 
 int bem_rankine_f64(const void* pans, const void* c, const void* nrm, const void* area,
@@ -462,8 +484,17 @@ int bem_rankine_f64(const void* pans, const void* c, const void* nrm, const void
                     const void* us, const void* vs, const void* wf, long long n,
                     void* R_pot, void* R_dn, void* work, long long work_words,
                     void* near_count, void* stream) {
-  return launch<double>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n, R_pot, R_dn,
-                        work, work_words, near_count, stream);
+  return launch<double, double>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n, R_pot,
+                                R_dn, work, work_words, near_count, stream);
+}
+
+int bem_rankine_bf16(const void* pans, const void* c, const void* nrm, const void* area,
+                     const void* diag, const void* mask, const void* lids, const void* spot,
+                     const void* us, const void* vs, const void* wf, long long n,
+                     void* R_pot, void* R_dn, void* work, long long work_words,
+                     void* near_count, void* stream) {
+  return launch<__nv_bfloat16, float>(pans, c, nrm, area, diag, mask, lids, spot, us, vs, wf, n,
+                                      R_pot, R_dn, work, work_words, near_count, stream);
 }
 
 }  // extern "C"

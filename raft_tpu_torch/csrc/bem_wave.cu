@@ -59,6 +59,20 @@
 // fuse products and sums, except where the region of a pair is decided
 // (R, rho), which rounds each operation as the plain version does, so
 // every pair takes the plain version's region.
+//
+// Storage and arithmetic types are separate template arguments (S, T): f64
+// and f32 store and compute in one type; the bf16 entry
+// (RAFT_TPU_BEM_PRECISION=bf16: R_pot, R_dn, the geometry, the tables, the
+// node tables, k and the fit arrays all in bf16, as the JAX package passes
+// them) loads __nv_bfloat16, computes in float and rounds each of the four
+// outputs once with __float2bfloat16_rn, the plain version's bf16 (upcast,
+// compute in float32, round).  Hopper's bf16 arithmetic is paired FMA
+// without transcendental units, so the log, atan2, exp, sincos and rsqrt
+// stay float.  The shared-memory arrays (series coefficients, fit terms,
+// node sums) hold the arithmetic type: they are read in every inner loop
+// and converted once when staged.  What bf16 saves is bytes: the two n x n
+// inputs and the four nf x n x n outputs at half of f32's size.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -176,10 +190,25 @@ __device__ __forceinline__ void sin_cos(float x, float& s, float& c) { sincosf(x
 __device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
 __device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
 
-template <typename T>
+// storage -> arithmetic type (bf16 is computed in float), the read-only
+// cached load, and the store back
+__device__ __forceinline__ double up(double x) { return x; }
+__device__ __forceinline__ float up(float x) { return x; }
+__device__ __forceinline__ float up(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ double ldg(const double* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __bfloat162float(__ushort_as_bfloat16(bits));
+}
+__device__ __forceinline__ void store(double* p, double x) { *p = x; }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+template <typename S, typename T>
 struct Table {
-  const T* I0;
-  const T* I1;
+  const S* I0;
+  const S* I1;
   int nx, ns;
   T xmax, smax, fx_div, fs_div, far_thr, deep_thr;
 };
@@ -284,8 +313,8 @@ __device__ __forceinline__ void near_finish(T X, T Y, T ez, const T (&a)[2], T& 
 }
 
 // (I0, I1) at X >= 0, Y <= 0 outside the near region: table, far or deep
-template <typename T>
-__device__ void region_integrals(T X, T Y, const Table<T>& tab, T& i0, T& i1) {
+template <typename S, typename T>
+__device__ void region_integrals(T X, T Y, const Table<S, T>& tab, T& i0, T& i1) {
   const T s = log1p(-Y);
   if (X >= tab.far_thr) {
     const T eY = exp(Y);
@@ -309,12 +338,12 @@ __device__ void region_integrals(T X, T Y, const Table<T>& tab, T& i0, T& i1) {
   const int is = min(max(static_cast<int>(fs), 0), tab.ns - 2);
   const T ts = fs - static_cast<T>(is);
   const int o = ix * tab.ns + is;
-  const T* I0 = tab.I0;
-  const T* I1 = tab.I1;
-  const T l0 = (T(1) - tx) * ((T(1) - ts) * __ldg(I0 + o) + ts * __ldg(I0 + o + 1))
-               + tx * ((T(1) - ts) * __ldg(I0 + o + tab.ns) + ts * __ldg(I0 + o + tab.ns + 1));
-  const T l1 = (T(1) - tx) * ((T(1) - ts) * __ldg(I1 + o) + ts * __ldg(I1 + o + 1))
-               + tx * ((T(1) - ts) * __ldg(I1 + o + tab.ns) + ts * __ldg(I1 + o + tab.ns + 1));
+  const S* I0 = tab.I0;
+  const S* I1 = tab.I1;
+  const T l0 = (T(1) - tx) * ((T(1) - ts) * ldg(I0 + o) + ts * ldg(I0 + o + 1))
+               + tx * ((T(1) - ts) * ldg(I0 + o + tab.ns) + ts * ldg(I0 + o + tab.ns + 1));
+  const T l1 = (T(1) - tx) * ((T(1) - ts) * ldg(I1 + o) + ts * ldg(I1 + o + 1))
+               + tx * ((T(1) - ts) * ldg(I1 + o + tab.ns) + ts * ldg(I1 + o + tab.ns + 1));
   const T r2 = X * X + Y * Y;
   i0 = l0 + T(-0.5) * log(fmax(r2, T(1e-30)));
   const T r2c = fmax(r2, T(1e-30));
@@ -338,8 +367,8 @@ struct Pair {
   T (*acc)[4][2];             // this warp's node sums (shared memory)
 };
 
-template <typename T>
-__device__ void wave_deep(T k, const Pair<T>& p, const Table<T>& tab, Cplx<T>& G, Cplx<T>& gx,
+template <typename S, typename T>
+__device__ void wave_deep(T k, const Pair<T>& p, const Table<S, T>& tab, Cplx<T>& G, Cplx<T>& gx,
                           Cplx<T>& gy, Cplx<T>& gz) {
   const T R_use = p.R_use;
   const T v = p.zP + p.zQ;
@@ -373,9 +402,9 @@ __device__ void wave_deep(T k, const Pair<T>& p, const Table<T>& tab, Cplx<T>& G
   gy.im = dR_im * p.uy_deep;
 }
 
-template <typename T>
+template <typename S, typename T>
 __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double h,
-                        const Pair<T>& p, const Table<T>& tab, Cplx<T>& G, Cplx<T>& gx,
+                        const Pair<T>& p, const Table<S, T>& tab, Cplx<T>& G, Cplx<T>& gx,
                         Cplx<T>& gy, Cplx<T>& gz) {
   const T R_use = p.R_use, zP = p.zP, zQ = p.zQ;
   const T h2 = T(2.0 * h), h4 = T(4.0 * h);
@@ -480,17 +509,17 @@ __device__ void wave_fd(T k0, T A0, const T* lam, const T* afit, int nl, double 
   gz.im = gim_z;
 }
 
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(32 * kWarps)
-wave_kernel(const T* __restrict__ Rp, const T* __restrict__ Rdn, const T* __restrict__ c,
-            const T* __restrict__ nrm, const T* __restrict__ area, const T* __restrict__ mask,
-            const T* __restrict__ lids, Table<T> tab, const T* __restrict__ node_s,
-            const T* __restrict__ node_w, const T* __restrict__ coef,
-            const T* __restrict__ ks, const T* __restrict__ k0s, const T* __restrict__ A0s,
-            const T* __restrict__ active, const T* __restrict__ lam,
-            const T* __restrict__ afit, int nl, int n, int nf, int finite_depth,
-            double depth, T* __restrict__ Sre, T* __restrict__ Sim, T* __restrict__ Dre,
-            T* __restrict__ Dim) {
+wave_kernel(const S* __restrict__ Rp, const S* __restrict__ Rdn, const S* __restrict__ c,
+            const S* __restrict__ nrm, const S* __restrict__ area, const S* __restrict__ mask,
+            const S* __restrict__ lids, Table<S, T> tab, const S* __restrict__ node_s,
+            const S* __restrict__ node_w, const S* __restrict__ coef,
+            const S* __restrict__ ks, const S* __restrict__ k0s, const S* __restrict__ A0s,
+            const S* __restrict__ active, const S* __restrict__ lam,
+            const S* __restrict__ afit, int nl, int n, int nf, int finite_depth,
+            double depth, S* __restrict__ Sre, S* __restrict__ Sim, S* __restrict__ Dre,
+            S* __restrict__ Dim) {
   __shared__ T s_coef[kNSeries];
   __shared__ T s_lam[kFreqBlock * kMaxNL];
   __shared__ T s_afit[kFreqBlock * kMaxNL];
@@ -498,12 +527,12 @@ wave_kernel(const T* __restrict__ Rp, const T* __restrict__ Rdn, const T* __rest
   const int f0 = blockIdx.z * kFreqBlock;
   const int nfb = min(kFreqBlock, nf - f0);
   const int tid = threadIdx.y * 32 + threadIdx.x;
-  if (tid < kNSeries) s_coef[tid] = coef[tid];
+  if (tid < kNSeries) s_coef[tid] = up(coef[tid]);
   if (finite_depth) {
     for (int e = tid; e < nfb * nl; e += 32 * kWarps) {
       const int f = e / nl, m = e % nl;
-      s_lam[f * kMaxNL + m] = lam[static_cast<size_t>(f0 + f) * nl + m];
-      s_afit[f * kMaxNL + m] = afit[static_cast<size_t>(f0 + f) * nl + m];
+      s_lam[f * kMaxNL + m] = up(lam[static_cast<size_t>(f0 + f) * nl + m]);
+      s_afit[f * kMaxNL + m] = up(afit[static_cast<size_t>(f0 + f) * nl + m]);
     }
   }
   __syncthreads();
@@ -515,15 +544,15 @@ wave_kernel(const T* __restrict__ Rp, const T* __restrict__ Rdn, const T* __rest
   const int ic = min(i, n - 1), jc = min(j, n - 1);
   Pair<T> p;
   p.live = i < n && j < n;
-  const T cix = c[3 * ic], ciy = c[3 * ic + 1];
-  const T cjx = c[3 * jc], cjy = c[3 * jc + 1];
-  p.zP = c[3 * ic + 2];
-  p.zQ = c[3 * jc + 2];
-  const T area_j = area[jc];
+  const T cix = up(c[3 * ic]), ciy = up(c[3 * ic + 1]);
+  const T cjx = up(c[3 * jc]), cjy = up(c[3 * jc + 1]);
+  p.zP = up(c[3 * ic + 2]);
+  p.zQ = up(c[3 * jc + 2]);
+  const T area_j = up(area[jc]);
   p.dx = cix - cjx;
   p.dy = ciy - cjy;
   p.R = sqrt(add_rn(add_rn(mul_rn(p.dx, p.dx), mul_rn(p.dy, p.dy)), T(1e-20)));
-  p.diag_lid = ic == jc && lids[jc] > T(0.5);
+  p.diag_lid = ic == jc && up(lids[jc]) > T(0.5);
   const T R_eff = T(0.4) * sqrt(fmax(area_j, T(1e-14)));
   p.R_use = p.diag_lid ? R_eff : p.R;
   const bool posR = p.R > T(1e-12), posU = p.R_use > T(1e-12);
@@ -533,38 +562,38 @@ wave_kernel(const T* __restrict__ Rp, const T* __restrict__ Rdn, const T* __rest
   p.ux_fd = posU ? p.dx / Rs : T(0);
   p.uy_fd = posU ? p.dy / Rs : T(0);
   const int q = threadIdx.x & (kNodes - 1);
-  p.s_q = node_s[q];
-  p.w_q = node_w[q];
+  p.s_q = up(node_s[q]);
+  p.w_q = up(node_w[q]);
   p.ws_q = p.w_q * p.s_q;
   p.coef = s_coef;
   p.acc = s_acc[threadIdx.y];
-  const T m = mask[jc];
-  const T n0 = nrm[3 * ic], n1 = nrm[3 * ic + 1], n2 = nrm[3 * ic + 2];
+  const T m = up(mask[jc]);
+  const T n0 = up(nrm[3 * ic]), n1 = up(nrm[3 * ic + 1]), n2 = up(nrm[3 * ic + 2]);
   const size_t ij = static_cast<size_t>(ic) * n + jc;
-  const T rp = Rp[ij], rdn = Rdn[ij];
+  const T rp = up(Rp[ij]), rdn = up(Rdn[ij]);
 #pragma unroll 1
   for (int fl = 0; fl < nfb; ++fl) {
     const int f = f0 + fl;
     Cplx<T> G, gx, gy, gz;
-    if (finite_depth && active[f] > T(0.5)) {
-      wave_fd(k0s[f], A0s[f], s_lam + fl * kMaxNL, s_afit + fl * kMaxNL, nl, depth, p, tab,
-              G, gx, gy, gz);
+    if (finite_depth && up(active[f]) > T(0.5)) {
+      wave_fd(up(k0s[f]), up(A0s[f]), s_lam + fl * kMaxNL, s_afit + fl * kMaxNL, nl, depth, p,
+              tab, G, gx, gy, gz);
     } else {
-      wave_deep(ks[f], p, tab, G, gx, gy, gz);
+      wave_deep(up(ks[f]), p, tab, G, gx, gy, gz);
     }
     if (p.live) {
       const size_t o = static_cast<size_t>(f) * n * n + ij;
-      Sre[o] = (rp + G.re * area_j) * m;
-      Sim[o] = (G.im * area_j) * m;
+      store(Sre + o, (rp + G.re * area_j) * m);
+      store(Sim + o, (G.im * area_j) * m);
       const T proj_re = gx.re * n0 + gy.re * n1 + gz.re * n2;
       const T proj_im = gx.im * n0 + gy.im * n1 + gz.im * n2;
-      Dre[o] = (rdn + proj_re * area_j) * m;
-      Dim[o] = (proj_im * area_j) * m;
+      store(Dre + o, (rdn + proj_re * area_j) * m);
+      store(Dim + o, (proj_im * area_j) * m);
     }
   }
 }
 
-template <typename T>
+template <typename S, typename T>
 int launch(const void* Rp, const void* Rdn, const void* c, const void* nrm, const void* area,
            const void* mask, const void* lids, const void* I0, const void* I1,
            const void* node_s, const void* node_w, const void* coef, long long nx,
@@ -573,9 +602,9 @@ int launch(const void* Rp, const void* Rdn, const void* c, const void* nrm, cons
            long long n, long long nf, long long finite_depth, double depth, void* Sre,
            void* Sim, void* Dre, void* Dim, void* stream) {
   if (nl > kMaxNL) return static_cast<int>(cudaErrorInvalidValue);
-  Table<T> tab;
-  tab.I0 = static_cast<const T*>(I0);
-  tab.I1 = static_cast<const T*>(I1);
+  Table<S, T> tab;
+  tab.I0 = static_cast<const S*>(I0);
+  tab.I1 = static_cast<const S*>(I1);
   tab.nx = static_cast<int>(nx);
   tab.ns = static_cast<int>(ns);
   tab.xmax = T(xmax);
@@ -588,15 +617,15 @@ int launch(const void* Rp, const void* Rdn, const void* c, const void* nrm, cons
   const dim3 grid(static_cast<unsigned>((n + 31) / 32),
                   static_cast<unsigned>((n + kWarps - 1) / kWarps),
                   static_cast<unsigned>((nf + kFreqBlock - 1) / kFreqBlock));
-  wave_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(Rp), static_cast<const T*>(Rdn), static_cast<const T*>(c),
-      static_cast<const T*>(nrm), static_cast<const T*>(area), static_cast<const T*>(mask),
-      static_cast<const T*>(lids), tab, static_cast<const T*>(node_s),
-      static_cast<const T*>(node_w), static_cast<const T*>(coef), static_cast<const T*>(ks),
-      static_cast<const T*>(k0s), static_cast<const T*>(A0s), static_cast<const T*>(active),
-      static_cast<const T*>(lam), static_cast<const T*>(afit), static_cast<int>(nl),
+  wave_kernel<S, T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(Rp), static_cast<const S*>(Rdn), static_cast<const S*>(c),
+      static_cast<const S*>(nrm), static_cast<const S*>(area), static_cast<const S*>(mask),
+      static_cast<const S*>(lids), tab, static_cast<const S*>(node_s),
+      static_cast<const S*>(node_w), static_cast<const S*>(coef), static_cast<const S*>(ks),
+      static_cast<const S*>(k0s), static_cast<const S*>(A0s), static_cast<const S*>(active),
+      static_cast<const S*>(lam), static_cast<const S*>(afit), static_cast<int>(nl),
       static_cast<int>(n), static_cast<int>(nf), static_cast<int>(finite_depth), depth,
-      static_cast<T*>(Sre), static_cast<T*>(Sim), static_cast<T*>(Dre), static_cast<T*>(Dim));
+      static_cast<S*>(Sre), static_cast<S*>(Sim), static_cast<S*>(Dre), static_cast<S*>(Dim));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -616,7 +645,8 @@ extern "C" {
   Rp, Rdn, c, nrm, area, mask, lids, I0, I1, node_s, node_w, coef, nx, ns, xmax, smax, ks, \
       k0s, A0s, active, lam, afit, nl, n, nf, finite_depth, depth, Sre, Sim, Dre, Dim, stream
 
-int bem_wave_f32(BEM_WAVE_ARGS) { return launch<float>(BEM_WAVE_PASS); }
-int bem_wave_f64(BEM_WAVE_ARGS) { return launch<double>(BEM_WAVE_PASS); }
+int bem_wave_f32(BEM_WAVE_ARGS) { return launch<float, float>(BEM_WAVE_PASS); }
+int bem_wave_f64(BEM_WAVE_ARGS) { return launch<double, double>(BEM_WAVE_PASS); }
+int bem_wave_bf16(BEM_WAVE_ARGS) { return launch<__nv_bfloat16, float>(BEM_WAVE_PASS); }
 
 }  // extern "C"

@@ -6,11 +6,14 @@ or a grid) and ``.hst`` (hydrostatics) readers, their writers, the
 WAMIT nondimensionalization both ways, and the interpolation onto the
 model's frequency grid: what a user needs to stage HAMS or WAMIT output as
 ``Model(BEM=(A, B, F))``, and the format of the host solver's validation
-fixtures (``tests/data/cylinder``, ``tests/data/cyl_fd``).  The HAMS
-project and control writers and the NEMOH readers come with a later slice
-(ROADMAP.md, queue 1, item 5).
+fixtures (``tests/data/cylinder``, ``tests/data/cyl_fd``).  Then the HAMS
+project files (the directory tree, ``Input/Hydrostatic.in`` and
+``Input/ControlFile.in``, byte for byte the JAX package's) and the Nemoh
+mesh reader and its ``.pnl`` converter.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -190,3 +193,111 @@ def write_wamit3(path: str, w, F, rho=1025.0, g=9.81, ulen=1.0, heading=0.0):
                             f"{abs(x):13.6E} {np.degrees(np.angle(x)):13.6E} "
                             f"{x.real:13.6E} {x.imag:13.6E}\n")
     return path
+
+
+# ------------------------------------------------------ HAMS project files
+
+
+def create_project_dirs(project_dir: str):
+    """The HAMS project tree under ``project_dir``: ``Input`` and
+    ``Output`` with its HAMS, Hydrostar and WAMIT format folders."""
+    for sub in ("Input", "Output", "Output/Hams_format", "Output/Hydrostar_format",
+                "Output/Wamit_format"):
+        os.makedirs(os.path.join(project_dir, sub), exist_ok=True)
+
+
+def write_hydrostatic_file(project_dir: str, cog=(0.0, 0.0, 0.0), mass=None, damping=None,
+                           kHydro=None, kExt=None):
+    """Write ``Input/Hydrostatic.in``: the centre of gravity and the 6 x 6
+    mass, external damping, hydrostatic and external restoring matrices
+    (zeros where not given).  Returns the path."""
+    mats = [np.zeros((6, 6)) if M is None else np.asarray(M) for M in (mass, damping, kHydro, kExt)]
+    path = os.path.join(project_dir, "Input", "Hydrostatic.in")
+    with open(path, "w") as f:
+        f.write(" Center of Gravity:\n")
+        f.write(f"  {cog[0]:>12.6E}  {cog[1]:>12.6E}  {cog[2]:>12.6E}\n")
+        for name, M in zip(("Body Mass Matrix:", "External Linear Damping Matrix:",
+                            "Hydrostatic Restoring Matrix:", "External Restoring Matrix:"), mats):
+            f.write(f" {name}\n")
+            for row in M:
+                f.write("".join(f"  {x:>12.6E}" for x in row) + "\n")
+    return path
+
+
+def write_control_file(project_dir: str, water_depth: float = 50.0, num_freqs: int = 30,
+                       min_freq: float = 0.2, d_freq: float = 0.2, num_headings: int = 1,
+                       min_heading: float = 0.0, d_heading: float = 0.0, num_threads: int = 8,
+                       irr: int = 0):
+    """Write ``Input/ControlFile.in``.  The frequency count is written
+    negative: the list is of angular frequencies (the HAMS convention).
+    Returns the path."""
+    lines = [
+        "   --------------HAMS Control file---------------", "",
+        f"   Waterdepth  {water_depth}D0", "",
+        "   #Start Definition of Wave Frequencies",
+        f"    0_inf_frequency_limits      {irr}",
+        "    Input_frequency_type        3",
+        "    Output_frequency_type       3",
+        f"    Number_of_frequencies      -{abs(num_freqs)}",
+        f"    Minimum_frequency_Wmin      {min_freq}D0",
+        f"    Frequency_step              {d_freq}D0",
+        "   #End Definition of Wave Frequencies", "",
+        "   #Start Definition of Wave Headings",
+        f"    Number_of_headings          {num_headings}",
+        f"    Minimum_heading             {min_heading}D0",
+        f"    Heading_step                {d_heading}D0",
+        "   #End Definition of Wave Headings", "",
+        "    Reference_body_center   0.000000  0.000000  0.000000",
+        "    Reference_body_length   1.0D0",
+        "    Wave-diffrac-solution   2",
+        f"    If_remove_irr_freq      {irr}",
+        f"    Number of threads       {num_threads}", "",
+        "   #Start Definition of Pressure and/or Elevation",
+        "    Number_of_field_points     0",
+        "   #End Definition of Pressure and/or Elevation", "",
+        "   ----------End HAMS Control file---------------",
+    ]
+    path = os.path.join(project_dir, "Input", "ControlFile.in")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+# ------------------------------------------------------------- Nemoh meshes
+
+
+def read_nemoh_mesh(path: str) -> np.ndarray:
+    """Read a Nemoh mesh (``.nemoh``/``.dat``) into (n, 4, 3) panels: the
+    header line, node lines ``id x y z`` up to an id of 0, then panel lines
+    of four node ids up to four zeros."""
+    nodes = {}
+    panels = []
+    in_nodes = True
+    with open(path) as f:
+        f.readline()                    # header, e.g. "2 0"
+        for ln in f:
+            parts = ln.split()
+            if not parts:
+                continue
+            if in_nodes:
+                if len(parts) >= 4:
+                    idx = int(parts[0])
+                    if idx == 0:
+                        in_nodes = False
+                        continue
+                    nodes[idx] = [float(parts[1]), float(parts[2]), float(parts[3])]
+            else:
+                ids = [int(p) for p in parts[:4]]
+                if all(i == 0 for i in ids):
+                    break
+                panels.append([nodes[i] for i in ids])
+    return np.asarray(panels)
+
+
+def nemoh_to_pnl(nemoh_path: str, pnl_path: str):
+    """Convert a Nemoh mesh file to the HAMS ``.pnl`` format; returns
+    ``pnl_path``."""
+    from raft_tpu_torch.hydro.mesh import write_pnl
+
+    write_pnl(pnl_path, read_nemoh_mesh(nemoh_path))
+    return pnl_path

@@ -44,6 +44,16 @@ quadrature points, wave-integral evaluations, near nodes and fit terms
 recomputed in the backward pass (``_remat``), and the refined solve has
 its implicit-function rule (:func:`solve_refined`).
 
+**Precision.** ``RAFT_TPU_BEM_PRECISION`` (:func:`bem_precision`, or the
+``precision=`` argument): ``bf16`` runs the assembly stage (K3, K4 or
+their plain versions) on bfloat16 inputs with bfloat16 outputs when the
+solve's dtype is float32, as the JAX package's knob does; the factor, the
+refinement, the right-hand sides and the contractions stay in the solve's
+dtype, and S, Dn are cast up at the same boundary.  A float64 solve
+ignores the knob.  The plain versions give bf16 the kernels' meaning:
+upcast to float32, compute, round each output once to bfloat16 (the JAX
+package's XLA route rounds after every operation instead).
+
 **Routing.** :func:`solve_bem_any` sends a solve to this on-device route
 (mode ``"jax"``) or to the host C++ solver
 (:mod:`raft_tpu_torch.hydro.native_bem`, mode ``"native"``); ``"auto"``
@@ -90,6 +100,8 @@ PANEL_CLASSES = (64, 128, 256, 512, 768, 1024, 1536, 2048)
 LEVELS = (1, 3, 6, 12, 24)
 #: E1 series terms of the near quadrature
 N_SERIES = 12
+#: the assembly-precision knob: ``f32`` (default) | ``bf16``
+PRECISION_ENV = "RAFT_TPU_BEM_PRECISION"
 
 _PI = float(np.pi)
 _TWO_PI = float(2.0 * np.pi)
@@ -115,6 +127,56 @@ def pad_panel_count(n_total: int) -> int:
             return c
     raise ValueError(f"{n_total} panels exceed the largest class "
                      f"{PANEL_CLASSES[-1]}; mesh coarser (dz_max, da_max)")
+
+
+_precision_warned = False
+
+
+def bem_precision(env: str | None = None) -> str:
+    """The ``RAFT_TPU_BEM_PRECISION`` knob (or ``env`` in its place):
+    ``"bf16"`` for bf16 or bfloat16, ``"f32"`` otherwise, as in the JAX
+    package.  ``bf16`` runs the assembly stage in bfloat16 on a float32
+    solve (:func:`solve_panels`); a value other than empty, f32, float32,
+    bf16 or bfloat16 warns once and is ``f32``."""
+    global _precision_warned
+    raw = os.environ.get(PRECISION_ENV, "") if env is None else env
+    val = raw.strip().lower()
+    if val in ("", "f32", "float32"):
+        return "f32"
+    if val in ("bf16", "bfloat16"):
+        return "bf16"
+    if not _precision_warned:
+        _precision_warned = True
+        warnings.warn(f"{PRECISION_ENV}={raw!r} is not one of f32|bf16; using f32", stacklevel=2)
+    return "f32"
+
+
+def assembly_dtype(precision: str | None, dtype):
+    """The assembly stage's dtype for a solve in ``dtype``: bfloat16 when
+    ``precision`` (None reads the knob) resolves to ``bf16`` and the solve
+    is float32, else ``dtype`` (the JAX package's rule)."""
+    prec = bem_precision(precision)
+    return torch.bfloat16 if prec == "bf16" and dtype == torch.float32 else dtype
+
+
+def model_solve_dtype(dtype):
+    """The dtype of ``Model.calcBEM``'s on-device panel solve for a model in
+    ``dtype``: float32 when ``RAFT_TPU_BEM_PRECISION`` resolves to ``bf16``
+    (a float32 solve with the bf16 assembly, what the JAX package's Model,
+    which always solves in float32, does under the knob), else ``dtype``."""
+    return torch.float32 if bem_precision() == "bf16" else dtype
+
+
+def _cast(x, dtype):
+    """Tensors in ``x`` (a tensor, or a tuple or dict of them, or None)
+    cast to ``dtype``; other leaves as they are."""
+    if isinstance(x, Tensor):
+        return x.to(dtype) if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        return tuple(_cast(v, dtype) for v in x)
+    if isinstance(x, dict):
+        return {key: _cast(v, dtype) for key, v in x.items()}
+    return x
 
 
 def _remat(fn, *args):
@@ -361,8 +423,16 @@ def rankine_plain(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: Tens
     columns; ``self_pot`` is the exact self potential, on the diagonal
     (doubled for a lid panel at z = 0); masked-out source columns are 0.
     ``quad``: the subdivision points ``(us, vs, wf)`` staged by
-    :func:`stage_tables` (``tab["quad"]``), or None to stage them here."""
+    :func:`stage_tables` (``tab["quad"]``), or None to stage them here.
+
+    bfloat16 inputs (the ``bf16`` assembly of :func:`solve_panels`) are
+    cast up to float32, summed there and the two outputs rounded once to
+    bfloat16, as kernel K3's bf16 entry does."""
     dtype, dev = c.dtype, c.device
+    if dtype == torch.bfloat16:
+        quad = stage_quad(dtype, dev) if quad is None else quad
+        f32 = _cast((pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot), torch.float32)
+        return _cast(rankine_plain(*f32, quad=_cast(quad, torch.float32)), torch.bfloat16)
     n = c.shape[0]
     sel_d, sel_i = pair_levels(c, diag, lid_surface)
     lv = quad_points()[3]
@@ -537,7 +607,15 @@ def wave_plain(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor
     evaluated densely and selected with ``where``.  ``fd_active``, the
     chunk's branches as host booleans (:func:`stage_inputs`), spares the
     read of ``fd["active"]`` from the device.  The -2 pi diagonal shift and
-    the lid-row swap stay with the caller."""
+    the lid-row swap stay with the caller.
+
+    bfloat16 inputs are cast up to float32, computed there and the four
+    outputs rounded once to bfloat16, as kernel K4's bf16 entry does."""
+    if c.dtype == torch.bfloat16:
+        up = _cast((R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab, k, fd),
+                   torch.float32)
+        return _cast(wave_plain(*up, finite_depth=finite_depth, depth=depth,
+                                fd_active=fd_active), torch.bfloat16)
     n = c.shape[0]
     nf = k.shape[0]
     dev = c.device
@@ -715,7 +793,7 @@ ASSEMBLIES = ("kernels", "plain")
 def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, fd_active,
                  rho: float = 1025.0, g: float = 9.81, depth: float = 0.0,
                  finite_depth: bool = False, assembly: str = "kernels",
-                 dtype=torch.float64, device=None):
+                 precision: str | None = None, dtype=torch.float64, device=None):
     """Padded panels -> ``(A, B, F, resid)`` (port of ``jax_bem.solve_panels``).
 
     Every input is a tensor already on ``device`` in ``dtype``, the solve's
@@ -735,6 +813,16 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
     evaluation, near-quadrature node and fit term is recomputed in the
     backward pass rather than kept, and the refined solve has its
     implicit-function rule (:func:`solve_refined`).
+
+    ``precision`` (``"f32"`` | ``"bf16"`` | None, which reads
+    ``RAFT_TPU_BEM_PRECISION``): with ``bf16`` and a float32 solve the
+    assembly stage runs in bfloat16 (:func:`assembly_dtype`).  The panel
+    geometry, the self potentials and the lid flags are computed in
+    ``dtype`` and cast down, with the tables (once per call), the
+    wavenumbers and the fit arrays; K3/K4 (or their plain versions) take
+    and return bfloat16, and S, Dn are cast up to ``dtype`` before the
+    factor, so the LU, the refinement, the right-hand sides and the
+    contractions run in ``dtype``.
 
     Returns A, B (nw, 6, 6) with [j, k] = force j per unit mode-k motion,
     F a Cx (nw, nb, 6), and resid (nw,), the largest relative residual of
@@ -756,9 +844,13 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
     hull_mask = panel_mask * (1.0 - lid_mask)
     lid_surface = (lid_mask > 0.5) & (torch.abs(c[:, 2]) < 1e-6 * torch.clamp(diag, min=1e-9))
     self_pot = self_potential(pans, c, nrm)
+    a_dtype = assembly_dtype(precision, dtype)
+    # the assembly stage's inputs, cast down once in the bf16 mode (a no-op otherwise)
+    pans_a, c_a, nrm_a, area_a, diag_a, mask_a, spot_a, tab_a = _cast(
+        (pans, c, nrm, area, diag, panel_mask, self_pot, tab), a_dtype)
     rankine = rankine_assembly if assembly == "kernels" else rankine_plain
-    R_pot, R_dn = rankine(pans, c, nrm, area, diag, panel_mask, lid_surface, self_pot,
-                          quad=tab["quad"])
+    R_pot, R_dn = rankine(pans_a, c_a, nrm_a, area_a, diag_a, mask_a, lid_surface, spot_a,
+                          quad=tab_a["quad"])
 
     nvec6 = torch.cat([nrm, torch.linalg.cross(c, nrm)], dim=1)      # (n, 6)
     Wn = nvec6 * (hull_mask * area)[:, None]                          # (n, 6)
@@ -774,15 +866,15 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
         om = w[sl]
         nf = om.shape[0]
         k = om * om / g
-        fd_c = {key: val[sl] for key, val in fd.items()} if finite_depth else None
+        fd_c = _cast({key: val[sl] for key, val in fd.items()}, a_dtype) if finite_depth else None
+        wargs = (R_pot, R_dn, c_a, nrm_a, area_a, mask_a, lid_surface, tab_a, k.to(a_dtype), fd_c)
         if assembly == "kernels":
-            S_re, S_im, Dn_re, Dn_im = wave_assembly(
-                R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab, k, fd_c,
-                finite_depth=finite_depth, depth=depth)
+            parts = wave_assembly(*wargs, finite_depth=finite_depth, depth=depth)
         else:
-            S_re, S_im, Dn_re, Dn_im = wave_plain(
-                R_pot, R_dn, c, nrm, area, panel_mask, lid_surface, tab, k, fd_c,
-                finite_depth=finite_depth, depth=depth, fd_active=fd_active[sl])
+            parts = wave_plain(*wargs, finite_depth=finite_depth, depth=depth,
+                               fd_active=fd_active[sl])
+        # the assembly -> solve dtype boundary (the bf16 mode casts up here)
+        S_re, S_im, Dn_re, Dn_im = (x.to(dtype) for x in parts)
         M_re = torch.where(lid_row, S_re, Dn_re - _TWO_PI * eye)
         M_im = torch.where(lid_row, S_im, Dn_im)
 
@@ -861,7 +953,10 @@ def make_bem_fn(panels, w, *, rho: float = 1025.0, g: float = 9.81, depth: float
     ``device`` in ``dtype`` here, once; each call warps the staged panels
     and solves with ``assembly="plain"`` (the kernels have no backward, as
     the JAX package's Pallas tiles have none), so gradients flow through
-    the panel geometry, the influence assembly and the refined solve."""
+    the panel geometry, the influence assembly and the refined solve.  Its
+    solve leaves ``precision`` to ``RAFT_TPU_BEM_PRECISION``, as the JAX
+    package's does: under ``bf16`` a float32 ``bem_fn`` assembles in
+    bfloat16, and the gradient passes through the casts."""
     dev = resolve_device(device)
     padded, panel_mask, lid_mask = pad_mesh(panels, lid)
     w_np = np.ascontiguousarray(np.atleast_1d(w), dtype=np.float64)
@@ -932,20 +1027,23 @@ def _table_digest(tab: dict) -> str:
 def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
                   beta=0.0, depth: float = 0.0, lid: np.ndarray | None = None,
                   cache: bool = True, dtype=torch.float64, device=None,
-                  return_diagnostics: bool = False):
+                  return_diagnostics: bool = False, precision: str | None = None):
     """On-device panel solve with the JAX package's ``solve_bem_jax``
     contract: returns numpy (A[6, 6, nw], B[6, 6, nw], F), F[6, nw] complex
     for a scalar heading or F[nb, 6, nw] for a grid.  With
     ``return_diagnostics`` a fourth item gives the panel counts, the
     largest refinement residual, the route (``"kernels"`` on the card,
-    ``"plain"`` on the CPU), whether the result came from the cache and the
-    wall-clock (ending in a device synchronisation).
+    ``"plain"`` on the CPU), the precision and the assembly's dtype, whether
+    the result came from the cache and the wall-clock (ending in a device
+    synchronisation).  ``precision``: see :func:`solve_panels` (None reads
+    ``RAFT_TPU_BEM_PRECISION``).
 
     With ``cache`` results are content-cached on disk in the ``torch-bem-jax``
     namespace of :func:`raft_tpu_torch.hydro.native_bem.result_cache_key`,
-    salted with the route, the dtype, ``N_REFINE``, the wave tables and the
-    hash of the route's sources: a result of the plain version is never
-    served to a call on the card."""
+    salted with the route, the dtype, the resolved precision, ``N_REFINE``,
+    the wave tables and the hash of the route's sources: a result of the
+    plain version is never served to a call on the card, nor a bf16 result
+    to an f32 call."""
     from raft_tpu_torch.hydro import native_bem
 
     dev = resolve_device(device)
@@ -957,6 +1055,8 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
     depth_f = float(depth) if depth and depth > 0 else -1.0
     finite_depth = depth_f > 0
     route = "kernels" if dev.type == "cuda" else "plain"
+    prec = bem_precision(precision)
+    a_dtype = assembly_dtype(prec, dtype)
     tab = wavetable.load_tables()
     n_lid = 0 if lid is None else len(lid)
 
@@ -965,14 +1065,14 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
                 "padded": pad_panel_count(len(panels) + n_lid), "lid": int(n_lid),
                 "nw": int(len(w_np)), "headings": int(len(betas)),
                 "refine_iters": N_REFINE, "max_residual": resid_max,
-                "finite_depth": finite_depth, "dtype": str(dtype),
-                "seconds": time.perf_counter() - t0}
+                "finite_depth": finite_depth, "dtype": str(dtype), "precision": prec,
+                "assembly_dtype": str(a_dtype), "seconds": time.perf_counter() - t0}
 
     key = None
     if cache:
         key = native_bem.result_cache_key(
             "torch-bem-jax", panels, w_np, betas, (rho, g, depth_f, 0.0, float(n_lid)),
-            salt=(route, str(dtype), N_REFINE, wavetable.TABLE_VERSION, _table_digest(tab),
+            salt=(route, str(dtype), prec, N_REFINE, wavetable.TABLE_VERSION, _table_digest(tab),
                   _route_sources_digest()),
             extra_bytes=np.asarray(lid, dtype=np.float64).tobytes() if n_lid else b"")
         hit = native_bem.result_cache_load(key, ("A", "B", "F", "resid"))
@@ -989,7 +1089,7 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
     A6, B6, F_cx, resid = solve_panels(
         **staged, tab=stage_tables(tab, dtype, dev), rho=float(rho), g=float(g),
         depth=float(depth_f if finite_depth else 0.0), finite_depth=finite_depth,
-        dtype=dtype, device=dev)
+        precision=prec, dtype=dtype, device=dev)
     A = A6.double().cpu().numpy().transpose(1, 2, 0)              # (6, 6, nw)
     B = B6.double().cpu().numpy().transpose(1, 2, 0)
     F = (F_cx.re.double().cpu().numpy()
@@ -1044,19 +1144,21 @@ def resolved_mode(mode: str | None = None, device=None) -> str:
 
 def solve_bem_any(panels, w, rho=1025.0, g=9.81, beta=0.0, depth=0.0, lid=None,
                   mode: str | None = None, cache: bool = True, nthreads: int = 0,
-                  dtype=torch.float64, device=None, return_diagnostics: bool = False):
+                  dtype=torch.float64, device=None, return_diagnostics: bool = False,
+                  precision: str | None = None):
     """The BEM staging entry: the host C++ solver
     (:func:`raft_tpu_torch.hydro.native_bem.solve_bem`, f64, ``nthreads``
     OpenMP threads, 0 for its default) or the on-device panel solve
     (:func:`solve_bem_jax` on ``device`` in ``dtype``), as
     :func:`resolved_mode` decides from ``mode`` and ``device``.  The same
     return contract either way; the diagnostics of the native route give
-    its route, counts and wall-clock."""
+    its route, counts and wall-clock.  ``precision`` reaches the on-device
+    route only (:func:`solve_panels`); the native solver is f64 always."""
     route = resolved_mode(mode, device)
     if route == "jax":
         return solve_bem_jax(panels, w, rho=rho, g=g, beta=beta, depth=depth, lid=lid,
                              cache=cache, dtype=dtype, device=device,
-                             return_diagnostics=return_diagnostics)
+                             return_diagnostics=return_diagnostics, precision=precision)
     from raft_tpu_torch.hydro import native_bem
 
     t0 = time.perf_counter()

@@ -164,7 +164,10 @@ class Model:
                 cache: bool = True):
         """Mesh the potMod members and solve them with the panel BEM of
         ``BEM`` (the host C++ solver, or the on-device solve on the model's
-        device in its dtype; ``torch_bem.solve_bem_any``).
+        device in its dtype; ``torch_bem.solve_bem_any``).  Under
+        ``RAFT_TPU_BEM_PRECISION=bf16`` the on-device solve runs in float32
+        with the bf16 assembly, as the JAX package's Model solves
+        (``torch_bem.model_solve_dtype``).
 
         ``irr=True`` adds interior waterplane lid panels (irregular-frequency
         removal).  ``headings``: optional heading grid [rad]; the excitation
@@ -174,7 +177,7 @@ class Model:
         on-disk result cache.  Returns the (A, B, F) tuple (host numpy), or
         None when the design has no potMod member."""
         from raft_tpu_torch.hydro.mesh import mesh_design, mesh_lid, write_gdf, write_pnl
-        from raft_tpu_torch.hydro.torch_bem import solve_bem_any
+        from raft_tpu_torch.hydro.torch_bem import model_solve_dtype, solve_bem_any
 
         panels = mesh_design(self.design, dz_max=dz_max, da_max=da_max)
         if len(panels) == 0:
@@ -187,8 +190,8 @@ class Model:
             write_gdf(os.path.join(out_dir, "platform.gdf"), panels)
         lid = mesh_lid(self.design, da_max=da_max) if irr else None
         solve = dict(rho=float(self.env.rho), g=float(self.env.g), depth=self.depth, lid=lid,
-                     mode=self.bem_mode, cache=cache, dtype=self.dtype, device=self.device,
-                     return_diagnostics=True)
+                     mode=self.bem_mode, cache=cache, dtype=model_solve_dtype(self.dtype),
+                     device=self.device, return_diagnostics=True)
         w = _np(self.w)
         if headings is not None:
             beta = float(self.env.beta)
@@ -424,9 +427,59 @@ class Model:
         self.results["airgap"] = out
         return out
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError(
-            "plot comes with the Model/CLI slice (ROADMAP.md, queue 1)")
+    # ---------------------------------------------------------------- plot
+
+    def plot(self, ax=None, hideGrid: bool = False, n_ring: int = 24):
+        """3D wireframe of the members (end rings and longitudinal edges of
+        each segment) and the mooring lines' catenary profiles at the mean
+        offset (undisplaced before ``calcMooringAndOffsets``).  matplotlib
+        draws host numpy copies of the model's tensors.  Returns the axes."""
+        import matplotlib.pyplot as plt
+
+        from raft_tpu_torch.mooring.system import fairlead_positions, line_states
+
+        if ax is None:
+            fig = plt.figure(figsize=(8, 8))
+            ax = fig.add_subplot(projection="3d")
+        plot_member_wireframe(ax, self.members, n_ring=n_ring)
+        if self.moor is not None:
+            r6 = self.r6_eq if self.r6_eq is not None else self._zeros(6)
+            rf = _np(fairlead_positions(self.moor, r6))
+            ra = _np(self.moor.r_anchor)
+            st = line_states(self.moor, r6)
+            for i in range(rf.shape[0]):
+                self._plot_line(ax, ra[i], rf[i], st, i)
+        if hideGrid:
+            ax.set_axis_off()
+        return ax
+
+    def plot_raos(self, axes=None):
+        """2 x 3 grid of RAO magnitude curves |Xi| / zeta per DOF against
+        frequency, from the converged solve (run ``solveDynamics`` first).
+        Returns the axes array."""
+        if "response" not in self.results:
+            raise RuntimeError("run solveDynamics() before plot_raos()")
+        resp = self.results["response"]
+        return plot_rao_grid(np.asarray(resp["w"]), np.asarray(resp["RAO magnitude"])[None],
+                             axes=axes)
+
+    def _plot_line(self, ax, ra, rf, st, i):
+        """Line ``i``'s catenary profile from its anchor ``ra`` to its
+        fairlead ``rf``, from its fairlead tensions (H, V) in ``st``."""
+        H, V = float(st.H[i]), float(st.V[i])
+        L, w = float(self.moor.props.L[i]), float(self.moor.props.w[i])
+        s = np.linspace(0, L, 50)
+        Vv = np.maximum(V - w * (L - s), 0.0)
+        T = np.sqrt(H**2 + Vv**2)
+        dx = np.where(Vv > 0, H / T, 1.0)
+        dz = np.where(Vv > 0, Vv / T, 0.0)
+        x = np.concatenate([[0], np.cumsum(dx[:-1] * np.diff(s))])
+        z = np.concatenate([[0], np.cumsum(dz[:-1] * np.diff(s))])
+        # the horizontal run scaled to end at the fairlead
+        u = (rf[:2] - ra[:2]) / max(np.hypot(*(rf[:2] - ra[:2])), 1e-9)
+        scale = np.hypot(*(rf[:2] - ra[:2])) / max(x[-1], 1e-9)
+        pts = ra[None, :] + np.concatenate([x[:, None] * scale * u[None, :], z[:, None]], axis=1)
+        ax.plot(*pts.T, "b-", lw=0.8)
 
     def print_report(self):
         """Human-readable property/results report."""
@@ -463,6 +516,70 @@ class Model:
             print(f"  dynamic pitch (|static| + 3 sigma): {c['dynamic pitch']:.2f} deg "
                   f"(limit {c['dynamic pitch limit']:.0f})")
         print("======================================")
+
+
+def plot_rao_grid(w, rao, axes=None, labels=None):
+    """2 x 3 grid of per-DOF RAO magnitude curves, one line per leading-axis
+    entry (the turbines of an array; one model passes ``rao[None]``), the
+    layout of both ``Model.plot_raos`` and ``ArrayModel.plot_raos``.
+
+    ``w``: (nw,) [rad/s]; ``rao``: (nT, nw, 6) magnitudes.  Returns the
+    axes array."""
+    import matplotlib.pyplot as plt
+
+    f_hz = np.asarray(w) / (2.0 * np.pi)
+    rao = np.asarray(rao)
+    nT = rao.shape[0]
+    if axes is None:
+        _, axes = plt.subplots(2, 3, figsize=(12, 6), sharex=True)
+    dof = ("surge [m/m]", "sway [m/m]", "heave [m/m]", "roll [rad/m]", "pitch [rad/m]",
+           "yaw [rad/m]")
+    flat = np.asarray(axes).ravel()
+    if flat.size < 6:
+        raise ValueError(f"plot_rao_grid needs 6 axes (one per DOF), got {flat.size}")
+    for i, ax in enumerate(flat[:6]):
+        for t in range(nT):
+            lbl = labels[t] if labels is not None else f"T{t}" if nT > 1 else None
+            ax.plot(f_hz, rao[t, :, i], label=lbl if i == 0 else None)
+        ax.set_ylabel(dof[i])
+        ax.grid(True, alpha=0.3)
+        if i >= 3:
+            ax.set_xlabel("frequency [Hz]")
+    if nT > 1 or labels is not None:
+        flat[0].legend(fontsize=7)
+    return axes
+
+
+def plot_member_wireframe(ax, m, offset=(0.0, 0.0), n_ring: int = 24):
+    """Wireframe of a MemberSet's segments (caps and padding left out) on a
+    3D axes, shifted by the plan ``offset``: end rings and longitudinal
+    edges of each segment, circular or rectangular."""
+    keep = _np(m.seg_mask & ~m.seg_is_cap)
+    off = np.array([offset[0], offset[1], 0.0])
+    rA = _np(m.seg_rA)[keep] + off
+    q = _np(m.seg_q)[keep]
+    R = _np(m.seg_R)[keep]
+    L = _np(m.seg_l)[keep]
+    dA = _np(m.seg_dA)[keep]
+    dB = _np(m.seg_dB)[keep]
+    circ = _np(m.seg_circ)[keep]
+    th = np.linspace(0, 2 * np.pi, n_ring + 1)
+    for i in range(len(rA)):
+        rB_i = rA[i] + q[i] * L[i]
+        p1, p2 = R[i][:, 0], R[i][:, 1]
+        if circ[i]:
+            ring = np.outer(np.cos(th), p1) + np.outer(np.sin(th), p2)
+            ringA = rA[i] + 0.5 * dA[i, 0] * ring
+            ringB = rB_i + 0.5 * dB[i, 0] * ring
+        else:
+            sq = np.array([[1, 1], [-1, 1], [-1, -1], [1, -1], [1, 1]]) * 0.5
+            ringA = rA[i] + sq[:, :1] * dA[i, 0] * p1 + sq[:, 1:] * dA[i, 1] * p2
+            ringB = rB_i + sq[:, :1] * dB[i, 0] * p1 + sq[:, 1:] * dB[i, 1] * p2
+        ax.plot(*ringA.T, "k-", lw=0.6)
+        ax.plot(*ringB.T, "k-", lw=0.6)
+        step = max(1, len(ringA) // 8)
+        for j in range(0, len(ringA), step):
+            ax.plot(*np.stack([ringA[j], ringB[j]]).T, "k-", lw=0.4)
 
 
 def interp_heading_excitation(betas, F_all, beta: float) -> np.ndarray:
@@ -726,9 +843,8 @@ def run_raft(fname_design, fname_env=None, plot: bool = False, w=None,
     """End-to-end analysis (cf. ``raft_tpu.model.run_raft``).
 
     ``fname_env``: optional environment YAML (``Hs``/``Tp``/``V``/``beta``
-    [deg]/``Fthrust``); the design's turbine thrust is the default."""
-    if plot:
-        raise NotImplementedError("plot comes with the Model/CLI slice (ROADMAP.md, queue 1)")
+    [deg]/``Fthrust``); the design's turbine thrust is the default.
+    ``plot`` draws :meth:`Model.plot` at the end."""
     design = load_design(fname_design)
     model = Model(design, w=w, dtype=dtype, device=device)
     turb = design.get("turbine", {})
@@ -745,4 +861,6 @@ def run_raft(fname_design, fname_env=None, plot: bool = False, w=None,
     model.calcMooringAndOffsets()
     model.solveDynamics()
     model.calcOutputs()
+    if plot:
+        model.plot()
     return model.results

@@ -590,7 +590,7 @@ def _volturnus(nw: int, dtype, dev):
 
 def stage_north_star_bem(nw: int = 200, nw_bem: int = 48, mode: str = "native",
                          cache: bool = True, dtype=torch.float64, device=None,
-                         return_diagnostics: bool = False):
+                         return_diagnostics: bool = False, precision: str | None = None):
     """BEM coefficients of the nominal VolturnUS-S hull for the north star,
     staged as ``bench.py::_volturn_setup`` stages them.
 
@@ -602,7 +602,9 @@ def stage_north_star_bem(nw: int = 200, nw_bem: int = 48, mode: str = "native",
     solves on the host with the C++ solver in f64 on every core, torch
     untouched until the staging;
     ``mode="jax"`` solves on ``device`` in ``dtype`` with kernels K3/K4 on
-    CUDA.  ``cache``: the solvers' on-disk result cache.
+    CUDA, its assembly in bfloat16 when ``precision`` (None reads
+    ``RAFT_TPU_BEM_PRECISION``) resolves to ``bf16`` and ``dtype`` is
+    float32.  ``cache``: the solvers' on-disk result cache.
     Returns (A, B, F Cx) (and, with ``return_diagnostics``, the solve's
     diagnostics with the host-layout coefficients at the ``nw_bem``
     frequencies under ``"coeffs"``: (w_bem, A, B, F))."""
@@ -621,7 +623,8 @@ def stage_north_star_bem(nw: int = 200, nw_bem: int = 48, mode: str = "native",
     panels = mesh_design(design, dz_max=3.0, da_max=2.0)
     A_c, B_c, F_c, diag = solve_bem_any(panels, w_bem, rho=float(env.rho), g=float(env.g),
                                         beta=0.0, depth=depth, mode=mode, cache=cache,
-                                        dtype=dtype, device=dev, return_diagnostics=True)
+                                        dtype=dtype, device=dev, return_diagnostics=True,
+                                        precision=precision)
     staged = stage_bem((interp_to_grid(w_bem, A_c, w), interp_to_grid(w_bem, B_c, w),
                         interp_to_grid(w_bem, F_c, w)), _north_star_wave(nw, depth, dtype, dev))
     if not return_diagnostics:

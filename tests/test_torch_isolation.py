@@ -286,3 +286,38 @@ def test_chip_smoke_refuses_without_card():
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_bem_input_and_cli_modules_import_nothing_of_jax_nor_matplotlib():
+    """The BEM inputs (Capytaine datasets, the WEIS adapter, the HAMS and
+    Nemoh files) and the runRAFT facade load in a fresh process without JAX
+    or the JAX package, and ``import raft_tpu_torch.cli`` leaves matplotlib
+    unloaded (the plots import it when they draw)."""
+    code = (
+        "import sys\n"
+        "import raft_tpu_torch.hydro.capy, raft_tpu_torch.io.weis, raft_tpu_torch.cli\n"
+        "import raft_tpu_torch.hydro.bem_io, raft_tpu_torch.tools.bf16_error\n"
+        "import raft_tpu_torch.model, raft_tpu_torch.array\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+        "print('MATPLOTLIB', sorted(m for m in sys.modules if m.split('.')[0] == 'matplotlib'))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout and "MATPLOTLIB []" in proc.stdout, proc.stdout
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"hydro/capy.py", "io/weis.py", "cli.py", "tools/bf16_error.py"} <= names
+
+
+def test_cli_and_bem_inputs_refuse_cpu_fallback(monkeypatch):
+    """Without CUDA the CLI's default device raises, as every entry point's."""
+    from raft_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["oc3"], ["sweep", "oc3", "-n", "2"], ["optimize", "oc3", "--steps", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv + ["--wmin", "0.2", "--wmax", "1.2", "--dw", "0.2"])

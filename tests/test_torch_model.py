@@ -50,8 +50,9 @@ def test_unported_options_name_their_slice(capsys):
     m = Model(design, device="cpu")
     with pytest.raises(RuntimeError, match="solveDynamics"):
         m.airgap([[0.0, 0.0]], 10.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.plot()
+    # the plots are ported (tests/test_torch_plot.py): the RAO grid needs a solve
+    with pytest.raises(RuntimeError, match="solveDynamics"):
+        m.plot_raos()
     m.setEnv(Hs=6.0, Tp=10.0)
     m.calcSystemProps()
     m.solveEigen()
