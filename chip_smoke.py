@@ -104,11 +104,28 @@ result line):
    float64 against its solo run, K1 against the plain solve per bucket with
    the padded bins exactly zero; the 250 VolturnUS-S dicts with the
    nominal hull's (native-staged) BEM coefficients;
-20. the array farm, K1, K3 and K4 launches counted: ``Model(VolturnUS-S,
+20. the operations around the solve, K1's launches counted: the
+   BEM-staged north star (1,000 x 200, float32, chunks of 250) through
+   ``run_pipelined`` (copy, compute and fetch streams) at depth 2 and 1 in
+   turns, twice each, bit for bit against each other and the old chunk
+   loop, with each wall-clock and ``pipeline`` block, then with
+   ``health=True`` under ``RAFT_TPU_STRICT``; the 64-case DLC table in
+   chunks of 16 with ``health=True`` against the unchunked call (1e-12,
+   float64) and the 1,000 mixed designs in chunks of 250 at depth 2 against
+   theirs (1e-5 relative, float32) with ``RAFT_TPU_OBS`` armed: the JSONL
+   log, Chrome trace and Prometheus text published, read back and their
+   span names and counts checked; ``RAFT_TPU_FAULT_INJECT=nan_chunk:1``:
+   lanes 16-31 quarantined and salvaged at ``n_iter_x4`` through K1 (1e-10
+   from the clean run); a child process killed after chunk 1 (exit 77)
+   with ``RAFT_TPU_CKPT`` armed, resumed here bit for bit; a corrupt chunk
+   detected and recomputed; one ``torch.profiler`` capture of a pipelined
+   pass (the ``pipeline/dispatch`` ranges, K1 on the compute stream, the
+   copies on streams of their own);
+21. the array farm, K1, K3 and K4 launches counted: ``Model(VolturnUS-S,
    nTurbines=16, BEM="jax")`` on a 4 x 4 grid at 1,500 m, 59 w, float64,
    every step timed; turbines against single-turbine runs, K1 and K3/K4
    against their plain versions, ``airgap`` at 4 deck points;
-21. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
+22. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
    (VolturnUS-S, 1,024 class; OC4semi with its lid, 2,048) and K4 (every
    chunk of the 48-w staging) against their plain versions on the same
    bf16 inputs, elementwise within one bf16 step of the plain output plus
@@ -118,12 +135,12 @@ result line):
    launches counted) in turns with the f32 staging: A and B within 0.1 of
    it, F's gap and the gaps to native printed, the refinement residual
    below 1e-4;
-22. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
+23. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
    the card against the CPU; a Capytaine dataset written from the card's
    panel solve of VolturnUS-S read back through ``Model(BEM=
    load_capytaine_nc(...))`` against ``Model(BEM=(A, B, F))``; a Nemoh mesh
    of that hull through ``nemoh_to_pnl``;
-23. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
+24. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
    ``RAFT_TPU_BEM=jax`` at full width (850 panels, 59 w), with the f32
    precision (the Model's BEM in float64) and with ``RAFT_TPU_BEM_PRECISION=
    bf16`` (float32, bf16 assembly), in process with K1/K3/K4 launches
@@ -132,11 +149,11 @@ result line):
    without ``--bem``) and ``optimize`` at small counts, five subprocesses
    at once with ``--plot`` into a temporary directory (where matplotlib is
    not installed, ``--plot`` must exit non-zero naming it);
-24. panel-solve copies: one solve and the refined solve's backward under
+25. panel-solve copies: one solve and the refined solve's backward under
    the profiler, no host-device copy and no synchronisation inside; two
    ``bem_fn`` steps after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-25. the sweeps and one gradient chunk again under ``torch.profiler``: device
+26. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    gradient chunk must run at least 75 device operations fewer than the same
    chunk with the adjoint's transposed copies, profiled in the same call.
@@ -484,6 +501,8 @@ class Smoke:
         self.record_batches: dict = {}
         self.record_bf16: dict = {}
         self.record_cli: dict = {}
+        self.dlc_grid = None
+        self.mixed_staged = None
         self._cases: dict = {}
         self.dev = torch.device("cuda")
         self._flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=self.dev)
@@ -1706,6 +1725,7 @@ class Smoke:
         torch.cuda.synchronize()
         t_bem = time.perf_counter() - t0
         grid = m._bem_headings
+        self.dlc_grid = grid
         waves = make_wave_states(w, cases, env.depth, dtype=f64, device=self.dev)
         t0 = time.perf_counter()
         res = sweep_sea_states(members, rna, env, waves, C, bem=grid, n_iter=n_iter, dtype=f64,
@@ -1900,6 +1920,7 @@ class Smoke:
         staged = stage_designs(designs, dtype=torch.float32, device=self.dev, **kw)
         torch.cuda.synchronize()
         t_stage = time.perf_counter() - t0
+        self.mixed_staged = staged
 
         def run():
             return sweep_designs(staged=staged, n_iter=n_iter, return_xi=False,
@@ -2000,6 +2021,422 @@ class Smoke:
                    and launches["fused"] == n_iter,
                    f"mixed designs with bems: {conv_b}/{len(vus)} converged, all finite, K1 "
                    f"launched")
+
+    # ------------------------------------------------ operations around the solve
+
+    def _dlc_inputs(self):
+        """The DLC table of phase "DLC table": VolturnUS-S at 200 w in float64,
+        its 7-heading grid (solved here when that phase did not run) and the
+        64 cases (8 Hs/Tp rows x 8 headings)."""
+        from raft_tpu_torch.model import Model, load_design
+        from raft_tpu_torch.parallel.sweep import _volturnus
+
+        torch = self.torch
+        w = np.linspace(0.05, 2.95, self.nw)
+        if self.dlc_grid is None:
+            m = Model(load_design(DESIGNS / "VolturnUS-S.yaml"), w=w, BEM="jax",
+                      dtype=torch.float64, device=self.dev)
+            m.calcBEM(headings=np.linspace(0, np.pi / 2, 7), cache=False)
+            self.dlc_grid = m._bem_headings
+        _d, members, rna, env, _wave, C = _volturnus(self.nw, torch.float64, self.dev)
+        hs_tp = np.stack([np.linspace(2.0, 10.0, 8), np.linspace(7.0, 15.0, 8)], axis=1)
+        cases = np.array([[hs, tp, b] for hs, tp in hs_tp for b in np.linspace(0, np.pi / 2, 8)])
+        return w, (members, rna, env, C), cases
+
+    def _north_star_loop(self, bem, dtype):
+        """The north star's host loop over chunks as it stood before the
+        pipeline (one ``forward_response`` per chunk of 250, ``while`` at
+        40): the reference the pipelined runs are held to."""
+        from raft_tpu_torch.core.cplx import Cx
+        from raft_tpu_torch.parallel.geometry import make_scale_plan, make_stretch_draft
+        from raft_tpu_torch.parallel.sweep import (_volturnus, forward_response, north_star_grid,
+                                                   response_std)
+
+        torch = self.torch
+        _d, members, rna, env, wave, C = _volturnus(self.nw, dtype, self.dev)
+        A, B, F = bem
+        bem = (A.to(dtype), B.to(dtype), Cx(F.re.to(dtype), F.im.to(dtype)))
+        draft, plan = make_stretch_draft(members), make_scale_plan(members)
+        scales = torch.as_tensor(north_star_grid(self.n_designs), device=self.dev).to(dtype)
+        stds, iters = [], []
+        with torch.no_grad():
+            for lo in range(0, self.n_designs, self.chunk):
+                th = scales[lo:lo + self.chunk]
+                out = forward_response(plan(draft(members, th[:, 1]), th[:, 0]), rna, env, wave, C,
+                                       bem=bem, n_iter=40, method="while", dtype=dtype,
+                                       device=self.dev)
+                stds.append(response_std(out.Xi.abs2(), wave.w))
+                iters.append(out.n_iter)
+        return torch.cat(stds), torch.cat(iters)
+
+    def phase_operations(self):
+        """The batch operations around the solve, K1 in every chunk, rung and
+        salvaged lane: the BEM-staged north star (1,000 x 200, float32, chunks
+        of 250) through ``run_pipelined`` at depth 2 and 1 in turns, twice
+        each, bit for bit against each other and the old chunk loop, then with
+        ``health=True`` under ``RAFT_TPU_STRICT``; the 64-case DLC table
+        (float64) in chunks of 16 with ``health=True`` against the unchunked
+        call, and the 1,000 mixed designs (float32) in chunks of 250 at depth 2
+        with ``health=True`` against theirs, with ``RAFT_TPU_OBS`` armed: the
+        JSONL log, Chrome trace and Prometheus text published and read back,
+        the span roll-up's names and counts checked; a NaN chunk of the DLC
+        table quarantined and salvaged; a kill after chunk 1 in a child (exit
+        77) and the resume from the chunk store, bit for bit; a corrupt chunk
+        detected and recomputed; one ``torch.profiler`` capture of a
+        pipelined DLC pass (the dispatch range, K1 on the compute stream, the
+        copies on their own streams)."""
+        import os
+        import shutil
+        import tempfile
+        import warnings
+
+        from raft_tpu_torch import obs
+        from raft_tpu_torch.parallel.sweep import (_case_slice, _make_dlc_case_fn,
+                                                   make_wave_states, sweep_designs,
+                                                   sweep_north_star, sweep_sea_states)
+
+        torch = self.torch
+        f32, f64 = torch.float32, torch.float64
+        staged_bem = self._staged_bem()
+
+        # 1. the north star through the pipeline, depth 2 and 1 in turns
+        kw = dict(n_designs=self.n_designs, nw=self.nw, chunk=self.chunk, n_iter=40, dtype=f32,
+                  device=self.dev, bem=staged_bem)
+        t0 = time.perf_counter()
+        loop_std, loop_it = self._north_star_loop(staged_bem, f32)
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        runs, t_loop, k1 = [], [], 0
+        for depth in (2, 1, None, 2, 1, None):
+            torch.cuda.synchronize()
+            if depth is None:
+                t0 = time.perf_counter()
+                again = self._north_star_loop(staged_bem, f32)
+                torch.cuda.synchronize()
+                t_loop.append(time.perf_counter() - t0)
+                self.check(torch.equal(again[0], loop_std) and torch.equal(again[1], loop_it),
+                           "the old chunk loop repeats its bits")
+                continue
+            self.zero_counts()
+            t0 = time.perf_counter()
+            res = sweep_north_star(**kw, pipeline_depth=depth)
+            runs.append((depth, time.perf_counter() - t0, res))
+            k1 += self.counts()["fused"]
+        self.add_main({"fused": k1}, ("fused",))
+        same = all(torch.equal(r["std"], loop_std) and torch.equal(r["n_iter"], loop_it)
+                   for _d, _t, r in runs)
+        for depth, wall, r in runs:
+            p = r["pipeline"]
+            print(f"  north star {self.n_designs} x {self.nw} float32, depth {depth}: wall "
+                  f"{wall:.3f} s, overlap_fraction {p['overlap_fraction']}, max_in_flight "
+                  f"{p['max_in_flight']}, stage_s {p['stage_s']}, fetch_s {p['fetch_s']}, "
+                  f"pipeline wall_s {p['wall_s']}")
+        print(f"    the old chunk loop, in turns with them: {t_loop[0]:.3f}, {t_loop[1]:.3f} s "
+              f"(its first, cold run {t_cold:.3f} s); K1 launches over the four runs {k1}; std "
+              f"dev and iterations bit for bit across the four runs and against the loop: "
+              f"{same}")
+        self.check(same and all(r["pipeline"]["max_in_flight"] == d for d, _t, r in runs),
+                   "north star through run_pipelined: depth 2 == depth 1 == the chunk loop, bit "
+                   "for bit (std dev, iterations), twice each")
+        os.environ["RAFT_TPU_STRICT"] = "1"
+        try:
+            self.zero_counts()
+            t0 = time.perf_counter()
+            res_h = sweep_north_star(**kw, pipeline_depth=2, health=True)
+            wall_h = time.perf_counter() - t0
+            self.add_main(self.counts(), ("fused",))
+        finally:
+            os.environ.pop("RAFT_TPU_STRICT", None)
+        rz = res_h["resilience"]
+        print(f"  north star health=True, RAFT_TPU_STRICT=1: {wall_h:.3f} s, resilience {rz}")
+        self.check(rz["n_quarantined"] == 0 and bool(res_h["converged"].all())
+                   and torch.equal(res_h["std"], loop_std),
+                   "north star health=True (strict): every lane converged finite, same bits")
+
+        # 2. the references: the DLC table and the mixed designs unchunked
+        w, (members, rna, env, C), cases = self._dlc_inputs()
+        grid = self.dlc_grid
+        waves = make_wave_states(w, cases, env.depth, dtype=f64, device=self.dev)
+        dlc = dict(bem=grid, n_iter=25, health=True, dtype=f64, device=self.dev)
+        t0 = time.perf_counter()
+        whole = sweep_sea_states(members, rna, env, waves, C, **dlc)
+        t_whole = time.perf_counter() - t0
+        staged = self.mixed_staged
+        if staged is None:
+            from raft_tpu_torch.model import stage_designs
+
+            designs = self._mixed_designs(self.per_family, np.random.default_rng(20261017))
+            staged = stage_designs(designs, nw=self.nw, Hs=8.0, Tp=12.0, w_min=0.05, w_max=2.95,
+                                   dtype=f32, device=self.dev)
+            self.mixed_staged = staged
+        mix = dict(staged=staged, n_iter=25, return_xi=False, health=True, dtype=f32,
+                   device=self.dev)
+        t0 = time.perf_counter()
+        mixed_whole = sweep_designs(**mix)
+        t_mixed = time.perf_counter() - t0
+
+        # 3. chunked with RAFT_TPU_OBS armed: the DLC table and the mixed designs
+        sink = tempfile.mkdtemp(prefix="raft_torch_obs_")
+        obs.reset()
+        os.environ["RAFT_TPU_OBS"] = sink
+        try:
+            self.zero_counts()
+            t0 = time.perf_counter()
+            chunked = sweep_sea_states(members, rna, env, waves, C, chunk=16, **dlc)
+            t_chunked = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mixed = sweep_designs(**mix, chunk=self.chunk, pipeline_depth=2)
+            t_mixed_chunked = time.perf_counter() - t0
+            launches = self.counts()
+            self.add_main(launches, ("fused",))
+            paths = obs.publish("operations")
+        finally:
+            os.environ.pop("RAFT_TPU_OBS", None)
+        d_dlc = max(self._rel(chunked[k], whole[k])
+                    for k in ("std dev", "nacelle accel std dev", "Xi_abs2"))
+        same_it = bool((chunked["iterations"] == whole["iterations"]).all())
+        p = chunked["pipeline"]
+        print(f"  DLC table 64 x {self.nw} float64 health=True: unchunked {t_whole:.3f} s, chunks "
+              f"of 16 {t_chunked:.3f} s; scale-rel {d_dlc:.3e}, iterations "
+              f"{'identical' if same_it else 'differ'}; pipeline {p}; health {chunked['health']}")
+        self.check(d_dlc <= 1e-12 and same_it and chunked["health"]["n_quarantined"] == 0
+                   and p["chunks"] == 4 and p["donated_buffers"] == 4
+                   and p["invalidated_buffers"] == 4,
+                   "DLC table in chunks of 16 == unchunked (1e-12, identical iterations), the "
+                   "chunks' excitation donated and released")
+        rel_m = float(np.max(np.abs(mixed["std dev"] - mixed_whole["std dev"])
+                             / np.maximum(np.abs(mixed_whole["std dev"]), 1e-30)))
+        same_m = bool((mixed["iterations"] == mixed_whole["iterations"]).all())
+        print(f"  mixed designs {sum(b['designs'] for b in mixed['buckets']['signatures'])} x "
+              f"{self.nw} float32 health=True: unchunked {t_mixed:.3f} s, chunks of "
+              f"{self.chunk} at depth 2 {t_mixed_chunked:.3f} s; std dev relative {rel_m:.3e}, "
+              f"iterations {'identical' if same_m else 'differ'}; K1 launches (DLC + designs) "
+              f"{launches['fused']}")
+        print(f"    buckets {json.dumps(mixed['buckets'])}")
+        print(f"    pipeline {json.dumps(mixed['pipeline'])}")
+        h = mixed["health"]
+        print(f"    health {json.dumps({k: v for k, v in h.items() if k != 'per_bucket'})}")
+        self.check(rel_m <= 1e-5 and same_m and h["n_quarantined"] == 0
+                   and all(b["chunks"] == 2 for b in mixed["pipeline"].values()),
+                   "mixed designs in chunks of 250 at depth 2 == unchunked (1e-5 relative, "
+                   "identical iterations), every lane healthy")
+        events, corrupt = obs.read_jsonl(paths["jsonl"])
+        with open(paths["chrome_trace"]) as f:
+            chrome = json.load(f)
+        with open(paths["prom"]) as f:
+            prom = [line for line in f.read().splitlines() if line]
+        prom_ok = all(line.startswith("#") or len(line.rsplit(" ", 1)) == 2
+                      and float(line.rsplit(" ", 1)[1]) >= 0 for line in prom)
+        roll = obs.trace.rollup()
+        counts = {k: roll.get(k, {}).get("count", 0) for k in (
+            "pipeline/stage", "pipeline/dispatch", "pipeline/fetch", "sweep_designs/bucket",
+            "sweep_designs/bucket/pipeline/stage", "sweep_designs/bucket/pipeline/dispatch",
+            "sweep_designs/bucket/pipeline/fetch")}
+        spans = [e for e in events if e.get("type") == "span"]
+        x_events = [e for e in chrome["traceEvents"] if e.get("ph") == "X"]
+        print(f"  obs sinks {sorted(os.path.basename(v) for v in paths.values())}: JSONL "
+              f"{len(events)} events ({corrupt} corrupt, {len(spans)} spans), Chrome trace "
+              f"{len(x_events)} events, Prometheus {len(prom)} lines; roll-up counts {counts}")
+        self.check(corrupt == 0 and events[0]["type"] == "meta" and events[-1]["type"] == "metrics"
+                   and len(spans) == len(x_events) > 0 and prom_ok
+                   and "raft_tpu_pipeline_chunks_computed 8" in prom
+                   and counts == {"pipeline/stage": 4, "pipeline/dispatch": 4,
+                                  "pipeline/fetch": 4, "sweep_designs/bucket": 2,
+                                  "sweep_designs/bucket/pipeline/stage": 4,
+                                  "sweep_designs/bucket/pipeline/dispatch": 4,
+                                  "sweep_designs/bucket/pipeline/fetch": 4},
+                   "obs: JSONL, Chrome trace and Prometheus text read back; the spans "
+                   "pipeline/stage, dispatch, fetch and sweep_designs/bucket counted once a chunk "
+                   "(a bucket)")
+        shutil.rmtree(sink, ignore_errors=True)
+
+        # 4. a NaN chunk: quarantined, every lane salvaged at n_iter_x4 through K1
+        os.environ["RAFT_TPU_FAULT_INJECT"] = "nan_chunk:1"
+        try:
+            self.zero_counts()
+            t0 = time.perf_counter()
+            nan = sweep_sea_states(members, rna, env, waves, C, chunk=16, **dlc)
+            t_nan = time.perf_counter() - t0
+            launches = self.counts()
+            self.add_main(launches, ("fused",))
+        finally:
+            os.environ.pop("RAFT_TPU_FAULT_INJECT", None)
+        hn = nan["health"]
+        salvage_k1 = launches["fused"] - 4 * 25
+        d_nan = max(self._rel(nan[k], chunked[k])
+                    for k in ("std dev", "nacelle accel std dev", "Xi_abs2"))
+        print(f"  NaN in chunk 1: {t_nan:.3f} s; quarantined {hn['quarantined']}, salvaged "
+              f"{hn['salvaged']}, rungs {hn['rungs_used']}, K1 launches of the salvage "
+              f"{salvage_k1} ({salvage_k1 / max(hn['salvaged'], 1):.0f} a lane); against the "
+              f"clean run {d_nan:.3e}")
+        self.check(hn["quarantined"] == list(range(16, 32)) and hn["salvaged"] == 16
+                   and hn["rungs_used"] == {"n_iter_x4": 16} and not hn["unsalvaged"]
+                   and salvage_k1 >= 16 and d_nan <= 1e-10 and nan["converged"].all(),
+                   "NaN chunk: lanes 16-31 quarantined, each salvaged at n_iter_x4 through K1, "
+                   "== the clean run (1e-10)")
+
+        # 5. kill after chunk 1 in a child, resume here; a corrupt chunk recomputed
+        tmp = tempfile.mkdtemp(prefix="raft_torch_ckpt_")
+        try:
+            self._kill_and_resume(tmp, w, cases, chunked)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # 6. one profiler capture of a pipelined DLC pass; does the scan chunk sync?
+        self._profile_pipeline(members, rna, env, waves, C, dlc)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = _make_dlc_case_fn(members, rna, env, C, None, 25, dtype=f64, device=self.dev)
+            sub = _case_slice(waves, slice(0, 16))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with torch.no_grad():
+                    run(sub, None, None)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        where: dict = {}
+        for c in caught:
+            if "synchronizing CUDA operation" in str(c.message):
+                at = f"{os.path.relpath(c.filename, ROOT)}:{c.lineno}"
+                where[at] = where.get(at, 0) + 1
+        print(f"  the DLC chunk function (scan, 25 iterations) under CUDA's sync debug mode: "
+              f"{sum(where.values())} synchronising calls, by the line that made them: {where}")
+
+    def _kill_and_resume(self, tmp: str, w, cases, clean: dict):
+        """Kill a chunked DLC pass after chunk 1 in a child process (exit 77),
+        resume it here from the chunk store; then corrupt chunk 2 in a fresh
+        store and see it detected and recomputed."""
+        import os
+        import warnings
+
+        from raft_tpu_torch.parallel.sweep import _volturnus, make_wave_states, sweep_sea_states
+        from raft_tpu_torch.resilience import faults
+
+        torch = self.torch
+        betas, F_all, A, B = self.dlc_grid
+        np.savez(os.path.join(tmp, "grid.npz"), betas=betas, F_all=F_all, A=A, B=B, w=w,
+                 cases=cases)
+        # the parent runs on the grid as the child reads it back
+        z = np.load(os.path.join(tmp, "grid.npz"))
+        grid = (z["betas"], z["F_all"], z["A"], z["B"])
+        child = (
+            "import json, sys, numpy as np, torch\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "from raft_tpu_torch.parallel.sweep import _volturnus, make_wave_states, "
+            "sweep_sea_states\n"
+            f"z = np.load({os.path.join(tmp, 'grid.npz')!r})\n"
+            "grid = (z['betas'], z['F_all'], z['A'], z['B'])\n"
+            f"dev = torch.device({self.dev.type!r})\n"
+            "_d, m, rna, env, _w, C = _volturnus(len(z['w']), torch.float64, dev)\n"
+            "waves = make_wave_states(z['w'], z['cases'], env.depth, dtype=torch.float64, "
+            "device=dev)\n"
+            "res = sweep_sea_states(m, rna, env, waves, C, bem=grid, n_iter=25, chunk=16, "
+            "health=True, dtype=torch.float64, device=dev)\n"
+            "print(json.dumps(res['pipeline']))\n")
+        store = os.path.join(tmp, "ckpt")
+        env_child = {k: v for k, v in os.environ.items() if k != "RAFT_TPU_FAULT_INJECT"}
+        env_child.update(RAFT_TPU_CKPT=store, RAFT_TPU_FAULT_INJECT="kill_after_chunk:1")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                           timeout=300, env=env_child)
+        t_child = time.perf_counter() - t0
+        stored = sorted(f for _d, _s, fs in os.walk(store) for f in fs if f.startswith("chunk_"))
+        print(f"  child killed after chunk 1: exit {r.returncode} in {t_child:.2f} s (interpreter, "
+              f"import torch, the first CUDA work, the solve); chunks stored {stored}")
+        if r.returncode != faults.KILL_EXIT:
+            print(r.stderr[-3000:])
+        self.check(r.returncode == faults.KILL_EXIT and stored == ["chunk_0.npz", "chunk_1.npz"],
+                   "kill_after_chunk:1 in a child: exit 77 after storing chunks 0 and 1")
+        _d, m, rna, env, _w, C = _volturnus(len(w), torch.float64, self.dev)
+        waves = make_wave_states(w, cases, env.depth, dtype=torch.float64, device=self.dev)
+        dlc = dict(bem=grid, n_iter=25, chunk=16, health=True, dtype=torch.float64,
+                   device=self.dev)
+        keys = ("std dev", "nacelle accel std dev", "Xi_abs2", "iterations")
+
+        def run(store_dir, fault=None):
+            os.environ["RAFT_TPU_CKPT"] = store_dir
+            if fault:
+                os.environ["RAFT_TPU_FAULT_INJECT"] = fault
+            try:
+                with warnings.catch_warnings():       # the store's note on a corrupt chunk
+                    warnings.simplefilter("ignore")
+                    return sweep_sea_states(m, rna, env, waves, C, **dlc)
+            finally:
+                os.environ.pop("RAFT_TPU_CKPT", None)
+                os.environ.pop("RAFT_TPU_FAULT_INJECT", None)
+
+        resumed = run(store)
+        p = resumed["pipeline"]
+        bits = all(np.array_equal(resumed[k], clean[k]) for k in keys)
+        print(f"  resumed here: chunks_resumed {p['chunks_resumed']}, chunks_computed "
+              f"{p['chunks_computed']}, bit for bit with the uninterrupted run: {bits}")
+        self.check(p["chunks_resumed"] == 2 and p["chunks_computed"] == 2 and bits,
+                   "resume: 2 chunks from the store, 2 computed, bit-identical results")
+        store2 = os.path.join(tmp, "ckpt2")
+        first = run(store2, fault="corrupt_ckpt:2")
+        again = run(store2)
+        p2 = again["pipeline"]
+        bits2 = all(np.array_equal(again[k], clean[k]) and np.array_equal(first[k], clean[k])
+                    for k in keys)
+        print(f"  corrupt_ckpt:2, then a run on that store: ckpt_corrupt {p2['ckpt_corrupt']}, "
+              f"chunks_resumed {p2['chunks_resumed']}, chunks_computed {p2['chunks_computed']}, "
+              f"bit for bit: {bits2}")
+        self.check(p2["ckpt_corrupt"] == 1 and p2["chunks_resumed"] == 3
+                   and p2["chunks_computed"] == 1 and bits2,
+                   "corrupt chunk 2 detected by its hash and recomputed, results bit-identical")
+
+    def _profile_pipeline(self, members, rna, env, waves, C, dlc):
+        """One ``torch.profiler`` capture of the chunked DLC pass: the
+        ``pipeline/dispatch`` ranges, K1 on the compute stream, the staging's
+        host-to-device copies and the fetch's device-to-host copies each on
+        a stream of their own."""
+        import os
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from raft_tpu_torch.parallel.sweep import sweep_sea_states
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sweep_sea_states(members, rna, env, waves, C, chunk=16, **dlc)
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        finally:
+            os.unlink(path)
+        evs = [e for e in trace.get("traceEvents", []) if isinstance(e, dict)]
+        ranges = [e for e in evs if e.get("name") == "pipeline/dispatch"
+                  and e.get("cat") == "user_annotation"]
+        gpu_ranges = [e for e in evs if e.get("name") == "pipeline/dispatch"
+                      and e.get("cat") == "gpu_user_annotation"]
+
+        def streams(pred):
+            return sorted({e.get("args", {}).get("stream") for e in evs if pred(e)} - {None})
+
+        def copies(kind):
+            return [e.get("args", {}).get("stream") for e in evs
+                    if e.get("cat") == "gpu_memcpy" and kind in e.get("name", "")]
+
+        k1 = streams(lambda e: e.get("cat") == "kernel" and "solve6_kernel" in e.get("name", ""))
+        h2d, d2h = copies("HtoD"), copies("DtoH")
+        side_h2d = [s for s in h2d if s not in k1]
+        side_d2h = [s for s in d2h if s not in k1]
+        print(f"  profiled chunked DLC pass: 'pipeline/dispatch' ranges {len(ranges)} on the host, "
+              f"{len(gpu_ranges)} on the device; K1 on streams {k1}; host-to-device copies "
+              f"{len(h2d)} ({len(side_h2d)} off K1's stream, on {sorted(set(side_h2d))}), "
+              f"device-to-host {len(d2h)} ({len(side_d2h)} off it, on {sorted(set(side_d2h))})")
+        self.check(len(ranges) == 4 and len(k1) == 1 and len(side_h2d) >= 4
+                   and len(side_d2h) >= 4 and not set(side_h2d) & set(side_d2h),
+                   "profile: 4 dispatch ranges, K1 on one (compute) stream, the staging copies "
+                   "and the fetches each on a stream of their own")
 
     def phase_array_farm(self):
         """``Model(VolturnUS-S, nTurbines=16, BEM="jax")``: 16 turbines on a
@@ -2793,6 +3230,7 @@ class Smoke:
                   ("DLC table", self.phase_dlc),
                   ("variant sweep", self.phase_variant_sweep),
                   ("mixed designs", self.phase_mixed_designs),
+                  ("operations", self.phase_operations),
                   ("array farm", self.phase_array_farm),
                   ("bf16 assembly", self.phase_bf16),
                   ("BEM inputs", self.phase_bem_inputs),

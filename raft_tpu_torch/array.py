@@ -33,7 +33,7 @@ from raft_tpu_torch.mooring.system import (
     fairlead_tensions, mooring_stiffness, parse_mooring, solve_equilibrium, stack_systems,
     tension_jacobian,
 )
-from raft_tpu_torch.parallel.sweep import _OPERATIONS_ITEM, stage_bem
+from raft_tpu_torch.parallel.sweep import _no_mesh, stage_bem
 from raft_tpu_torch.solve.dynamics import LinearCoeffs, solve_dynamics
 from raft_tpu_torch.solve.eigen import diagonal_estimates, eigen_with_bem_batched, solve_eigen
 from raft_tpu_torch.statics import assemble_statics
@@ -360,11 +360,9 @@ class ArrayModel:
         the turbine axis (each iteration one K1 launch for all turbines and
         frequencies).  ``history=True`` records each turbine's convergence
         error per iteration.  ``mesh`` (sharding the turbines over devices)
-        raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 7)."""
+        raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 7.3)."""
         if mesh is not None:
-            raise NotImplementedError(
-                f"ArrayModel.solveDynamics(mesh=...): sharding over devices comes with "
-                f"{_OPERATIONS_ITEM}")
+            raise _no_mesh("ArrayModel.solveDynamics")
         if self.statics is None or self.kin is None:
             self.calcSystemProps()
         if self.C_moor is None:

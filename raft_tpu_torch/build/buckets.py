@@ -26,9 +26,9 @@ and VolturnUS-S share the small class, the two OC4 semis the medium one).
 
     RAFT_TPU_BUCKETS="segments=16,48,96;nodes=64,128,256;nw=32,64,128"
 
-The promotion counter has no metrics registry behind it yet: the JAX
-package also feeds ``obs.metrics.counter("buckets.promotions")``, which
-comes with the port of ``obs`` (ROADMAP.md, queue 1, item 7).
+Each promotion is counted here (:func:`promotion_count`) and in the
+metrics registry, ``obs.metrics.counter("buckets.promotions")``, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -156,6 +156,9 @@ def _record_promotion(n: int = 1) -> None:
     global _promotions
     with _lock:
         _promotions += n
+    from raft_tpu_torch import obs as _obs
+
+    _obs.metrics.counter("buckets.promotions").inc(n)
 
 
 def reset_promotions() -> None:

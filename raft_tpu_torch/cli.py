@@ -19,7 +19,7 @@ then assembles in bfloat16 on a float32 solve, the Model rule of
 The JAX package's CLI first enables its warm-start cache (the persistent
 compile cache and the AOT executable registry).  The port has no AOT
 registry (it runs eagerly; the registry belongs to ROADMAP.md queue 1,
-item 7), so this module enables nothing: the BEM result caches of
+item 7.2, the cache slice), so this module enables nothing: the BEM result caches of
 :mod:`raft_tpu_torch.hydro.native_bem` and
 :func:`raft_tpu_torch.hydro.torch_bem.solve_bem_jax` apply as they do to
 any call.

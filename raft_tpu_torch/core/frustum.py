@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from raft_tpu_torch.core.device import to_device
+
 Tensor = torch.Tensor
 
 # 3-point Gauss-Legendre nodes/weights on [0, 1]
@@ -15,8 +17,8 @@ _GL_W = (5.0 / 18.0, 8.0 / 18.0, 5.0 / 18.0)
 
 
 def _gl(like: Tensor):
-    x = torch.tensor(_GL_X, dtype=like.dtype, device=like.device)
-    w = torch.tensor(_GL_W, dtype=like.dtype, device=like.device)
+    x = to_device(_GL_X, like.dtype, like.device)
+    w = to_device(_GL_W, like.dtype, like.device)
     return x, w
 
 

@@ -11,7 +11,14 @@ library if needed and opens it.  Each build's compiler output (``-Xptxas
 library was built in this process or loaded.  :func:`run_jobs`, the step
 that runs the compilers and publishes their outputs atomically, also
 builds the host panel solver with ``g++``
-(:mod:`raft_tpu_torch.hydro.native_bem`).
+(:mod:`raft_tpu_torch.hydro.native_bem`, which retries it through
+:func:`raft_tpu_torch.resilience.retry.retry_call`).  A compiler that
+fails or outlives its timeout (``RAFT_TPU_BUILD_TIMEOUT``) raises
+:class:`~raft_tpu_torch.resilience.retry.SubprocessFailed` with a
+redacted tail of its stderr; the ``hang_subprocess`` fault spec swaps a
+compiler for a process that sleeps past the timeout.
+:func:`build_counts` reports the libraries this process compiled and
+opened (the ``obs`` block's ``kernel_builds``).
 """
 from __future__ import annotations
 
@@ -21,7 +28,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -29,6 +38,31 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the compiler's timeout when ``RAFT_TPU_BUILD_TIMEOUT`` is unset
+DEFAULT_TIMEOUT_S = 900.0
+
+_counts_lock = threading.Lock()
+_build_counts: dict = {}         # library name -> {"compiled": n, "loaded": n}
+
+
+def _library_name(so: Path) -> str:
+    """``lib<name>-<hash>.so`` -> ``<name>``."""
+    return so.stem.rsplit("-", 1)[0].removeprefix("lib")
+
+
+def note(so: Path, event: str) -> None:
+    """Count one ``"compiled"`` or ``"loaded"`` event of a library."""
+    with _counts_lock:
+        c = _build_counts.setdefault(_library_name(Path(so)), {"compiled": 0, "loaded": 0})
+        c[event] += 1
+
+
+def build_counts() -> dict:
+    """Per library, the builds this process ran and the times it opened
+    the library."""
+    with _counts_lock:
+        return {k: dict(v) for k, v in sorted(_build_counts.items())}
+
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
@@ -73,35 +107,48 @@ class Job:
     log: Path | None = None
 
 
-def run_jobs(jobs, timeout: float = 900.0) -> None:
+def run_jobs(jobs, timeout: float | None = None) -> None:
     """Start every job at once and wait for them, each for at most
-    ``timeout`` seconds; publish each output atomically, so a killed or
-    failed compiler never leaves a library under its key.  Raises with
-    the tail of each failed compiler's stderr."""
+    ``timeout`` seconds (default ``RAFT_TPU_BUILD_TIMEOUT``, else
+    :data:`DEFAULT_TIMEOUT_S`); publish each output atomically, so a
+    killed or failed compiler never leaves a library under its key.
+    Raises :class:`~raft_tpu_torch.resilience.retry.SubprocessFailed`
+    (a ``RuntimeError``) naming every failed job, with the redacted tail
+    of each one's stderr."""
+    from raft_tpu_torch.resilience import faults, retry
+
+    if timeout is None:
+        timeout = retry.build_timeout_s(DEFAULT_TIMEOUT_S)
     started = []
     try:
         for job in jobs:
             job.so.parent.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=job.so.suffix, dir=job.so.parent)
             os.close(fd)
-            proc = subprocess.Popen([*job.argv, "-o", tmp], stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
+            argv = [*job.argv, "-o", tmp]
+            if faults.consume("hang_subprocess"):
+                argv = [sys.executable, "-c", "import time; time.sleep(3600)"]
+            proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
             started.append((job, tmp, proc))
-        failed = []
+        failed, kind = [], "nonzero"
         for job, tmp, proc in started:
             try:
                 _out, err = proc.communicate(timeout=timeout)
             except subprocess.TimeoutExpired:
                 failed.append(f"{job.what}: no result after {timeout:.0f} s")
+                kind = "timeout"
                 continue
             if proc.returncode != 0:
-                failed.append(f"{job.what} ({proc.returncode}):\n{err[-4000:]}")
+                failed.append(f"{job.what} ({proc.returncode}):\n"
+                              f"{retry.redacted_tail(err, 4000)}")
             else:
                 if job.log is not None:
                     job.log.write_text(err)
                 os.replace(tmp, job.so)
+                note(job.so, "compiled")
         if failed:
-            raise RuntimeError("build failed: " + "\n".join(failed))
+            raise retry.SubprocessFailed("build failed", kind, detail="\n".join(failed))
     finally:
         for _job, tmp, proc in started:
             if proc.poll() is None:
@@ -133,6 +180,7 @@ def load(spec: Spec, signatures: dict) -> ctypes.CDLL:
     entry point to its ``argtypes`` (every entry returns a cudaError_t)."""
     compile_all([spec])
     lib = ctypes.CDLL(str(spec.path()))
+    note(spec.path(), "loaded")
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -9,6 +9,7 @@ import torch
 
 from raft_tpu_torch.core import cplx
 from raft_tpu_torch.core.cplx import Cx
+from raft_tpu_torch.core.device import to_device
 
 Tensor = torch.Tensor
 
@@ -18,11 +19,14 @@ _KH_DEEP = 89.4
 
 def jonswap(w: Tensor, Hs, Tp, gamma=1.0) -> Tensor:
     """One-sided JONSWAP spectral density S(w) [m^2/(rad/s)]; gamma=1 is
-    Pierson-Moskowitz."""
+    Pierson-Moskowitz.  A degenerate ``Tp = 0`` gives NaN, as in the JAX
+    package (whose numpy scalars divide to infinity), not an exception:
+    the lane-health verdicts of the batched sweeps report it."""
     f = 0.5 / math.pi * w
     fpOvrf4 = (Tp * f) ** (-4.0)
     C = 1.0 - 0.287 * math.log(gamma)
-    sigma = torch.where(f <= 1.0 / Tp, torch.full_like(f, 0.07), torch.full_like(f, 0.09))
+    inv_tp = 1.0 / Tp if isinstance(Tp, torch.Tensor) or Tp != 0 else math.inf
+    sigma = torch.where(f <= inv_tp, torch.full_like(f, 0.07), torch.full_like(f, 0.09))
     alpha = torch.exp(-0.5 * ((f * Tp - 1.0) / sigma) ** 2)
     return (
         0.5 / math.pi * C * 0.3125 * Hs * Hs * fpOvrf4 / f
@@ -70,7 +74,7 @@ def wave_kinematics(zeta0: Tensor, w: Tensor, k: Tensor, depth, r: Tensor,
                     beta=0.0, rho: float = 1025.0, g: float = 9.81):
     """Complex velocity (..., 3, nw), acceleration (..., 3, nw) and dynamic
     pressure (..., nw) amplitudes at field points r (..., 3)."""
-    beta = torch.as_tensor(beta, dtype=w.dtype, device=w.device)
+    beta = to_device(beta, w.dtype, w.device)
     cb, sb = torch.cos(beta), torch.sin(beta)
     x = r[..., 0:1]
     y = r[..., 1:2]

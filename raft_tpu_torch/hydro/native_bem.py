@@ -13,9 +13,12 @@ torch.
 * **Build.** ``g++ -O3 -march=native -fopenmp -shared -fPIC`` at first use
   into ``raft_tpu_torch/_build/``, the library named by a hash of the
   source, the flags and the host's CPU (what ``-march=native`` compiles
-  for), published atomically by :func:`raft_tpu_torch.core.nvcc.run_jobs`
-  with a timeout on the compiler.  A failed build raises with the
-  compiler's stderr tail.
+  for), published atomically by :func:`raft_tpu_torch.core.nvcc.run_jobs`,
+  as the JAX package builds its solver: a hard timeout on the compiler
+  (``RAFT_TPU_BUILD_TIMEOUT``, default 300 s) and one bounded retry with
+  backoff (:func:`raft_tpu_torch.resilience.retry.retry_call`).  A build
+  that fails twice raises with the compiler's redacted stderr tail; it is
+  never skipped.
 * **Wave table.** The solver's I0/I1 table (1600 x 320, built once per
   host in about 10 s on 8 cores) is cached beside the library as
   ``native_wavetable-<hash>.bin``, published by the solver through a
@@ -45,8 +48,6 @@ from raft_tpu_torch.core import nvcc
 SRC = Path(__file__).resolve().parents[1] / "native" / "bem.cpp"
 BUILD_DIR = nvcc.BUILD_DIR
 GXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
-#: seconds the compiler may take before the build fails
-BUILD_TIMEOUT_S = 300.0
 #: salt of every result-cache key of the port
 PORT_TAG = "raft_tpu_torch"
 CACHE_ENV = "RAFT_TPU_TORCH_CACHE_DIR"
@@ -87,19 +88,35 @@ def table_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless it exists; returns its path."""
+    """Compile the library unless it exists; returns its path.  Two
+    attempts, each under the build timeout, 2 s apart."""
     so = lib_path()
-    if not so.exists():
-        nvcc.run_jobs([nvcc.Job("g++ build of native/bem.cpp",
-                                ("g++", *GXX_FLAGS, str(SRC), "-lm"), so)],
-                      timeout=BUILD_TIMEOUT_S)
+    if so.exists():
+        return so
+    from raft_tpu_torch.obs import trace
+    from raft_tpu_torch.resilience import retry
+
+    timeout_s = retry.build_timeout_s()
+    job = nvcc.Job("g++ build of native/bem.cpp", ("g++", *GXX_FLAGS, str(SRC), "-lm"), so)
+    try:
+        with trace.span("bem/build_lib"):
+            retry.retry_call(lambda attempt: nvcc.run_jobs([job], timeout=timeout_s),
+                             retries=2, backoff_s=2.0, retry_on=(retry.SubprocessFailed,),
+                             describe="BEM solver build")
+    except retry.RetryExhausted as e:
+        last = e.last
+        raise RuntimeError(
+            f"BEM solver build failed after {e.attempts} attempt(s) ({last.kind}, timeout "
+            f"{timeout_s:.0f} s per attempt):\n{last.detail}") from e
     return so
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        so = build()
+        lib = ctypes.CDLL(str(so))
+        nvcc.note(so, "loaded")
         dptr = ctypes.POINTER(ctypes.c_double)
         lib.bem_solve_mh.restype = ctypes.c_int
         lib.bem_solve_mh.argtypes = [

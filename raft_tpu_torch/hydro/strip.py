@@ -19,6 +19,7 @@ from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.transforms import (
     cross, translate_force_3to6, translate_matrix_3to6, vec_outer,
 )
+from raft_tpu_torch.core.device import to_device
 from raft_tpu_torch.core.types import Env, MemberSet, WaveState, per_lane
 from raft_tpu_torch.core.waves import wave_kinematics
 
@@ -28,7 +29,7 @@ _SQRT_8_PI = math.sqrt(8.0 / math.pi)
 
 
 def _t(x, like: Tensor) -> Tensor:
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return to_device(x, like.dtype, like.device)
 
 
 def node_current(m: MemberSet, env: Env) -> Tensor:

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from raft_tpu_torch.core.device import to_device
 from raft_tpu_torch.core.transforms import cross
 from raft_tpu_torch.core.types import MemberSet
 
@@ -116,7 +117,7 @@ def make_stretch_draft(members: MemberSet, anchor: float = 0.0):
         s = torch.as_tensor(s, dtype=m.seg_rA.dtype, device=m.seg_rA.device)
         one = torch.ones_like(s)
         D = torch.stack([one, one, s], dim=-1)
-        o = torch.tensor([0.0, 0.0, anchor], dtype=s.dtype, device=s.device)
+        o = to_device([0.0, 0.0, anchor], s.dtype, s.device)
         return affine_warp(m, D, o, seg_sel, node_sel)
 
     return fn

@@ -19,7 +19,7 @@ over a DLC table).  ``bem_fn``
 method inside the loss, so the gradient carries the potential-flow
 coefficients' dependence on the hull.  Not ported: the JAX package's
 compiled-executable cache around the value-and-grad step (ROADMAP.md,
-queue 1, item 7: PyTorch runs eagerly).
+queue 1, item 7.2, the cache slice: PyTorch runs eagerly).
 """
 from __future__ import annotations
 

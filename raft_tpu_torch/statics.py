@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from raft_tpu_torch.core.device import to_device
 from raft_tpu_torch.core.frustum import frustum_moi, frustum_vcv
 from raft_tpu_torch.core.transforms import (
     rotate_diag_tensor,
@@ -215,7 +216,7 @@ def assemble_statics(m: MemberSet, rna: RNA, env: Env) -> RigidBodyCoeffs:
     dtype, dev = mass.dtype, mass.device
 
     def scalar(x):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+        return to_device(x, dtype, dev)
 
     xcg = scalar(rna.xCG_RNA)
     rna_center = torch.stack([xcg, torch.zeros_like(xcg), scalar(rna.hHub)], dim=-1)

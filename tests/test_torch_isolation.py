@@ -321,3 +321,32 @@ def test_cli_and_bem_inputs_refuse_cpu_fallback(monkeypatch):
     for argv in (["oc3"], ["sweep", "oc3", "-n", "2"], ["optimize", "oc3", "--steps", "1"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(argv + ["--wmin", "0.2", "--wmax", "1.2", "--dw", "0.2"])
+
+
+def test_operations_modules_import_nothing_of_jax():
+    """The batch operations layer (the chunk pipeline, lane health, the
+    escalation ladder, chunk checkpoints, fault injection, retry, the obs
+    spans, metrics and sinks, and the resilience smoke) loads in a fresh
+    process without JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "import raft_tpu_torch.obs, raft_tpu_torch.obs.flight, raft_tpu_torch.obs.export\n"
+        "import raft_tpu_torch.resilience, raft_tpu_torch.resilience.smoke\n"
+        "import raft_tpu_torch.resilience.__main__, raft_tpu_torch.resilience.faults\n"
+        "import raft_tpu_torch.parallel.pipeline, raft_tpu_torch.build.buckets\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"obs/__init__.py", "obs/metrics.py", "obs/trace.py", "obs/flight.py",
+            "obs/export.py", "resilience/__init__.py", "resilience/__main__.py",
+            "resilience/smoke.py", "resilience/faults.py", "resilience/health.py",
+            "resilience/ladder.py", "resilience/retry.py", "resilience/checkpoint.py",
+            "parallel/pipeline.py"} <= names

@@ -113,16 +113,31 @@ def test_optimize_design_matches_jax_trajectory(oc3):
 
 
 def test_unported_options_raise(oc3):
-    """The batched sea-state sweep's options that are not ported (sharding
-    over a mesh, pipelined chunks, lane health) name their ROADMAP item."""
-    _, (tm, trna, tenv, twave, tC) = oc3
+    """The batched sea-state sweep's options: pipelined chunks, the
+    dispatch window and lane health now run, each as the JAX package's on
+    the same two cases (1e-12 scale-relative, identical iterations and
+    verdicts); sharding over a mesh still raises and names the
+    multi-device slice of its ROADMAP item."""
+    (jm, jrna, jenv, jwave, C), (tm, trna, tenv, twave, tC) = oc3
+    from raft_tpu.parallel.sweep import make_wave_states as jax_make_wave_states
+    from raft_tpu.parallel.sweep import sweep_sea_states as jax_sweep_sea_states
     from raft_tpu_torch.parallel.sweep import make_wave_states, sweep_sea_states
 
-    waves = make_wave_states(twave.w.numpy(), [[6.0, 10.0], [8.0, 12.0]], tenv.depth,
-                             device="cpu")
-    for kw in ({"mesh": object()}, {"chunk": 1}, {"pipeline_depth": 2}, {"health": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sweep_sea_states(tm, trna, tenv, waves, tC, device="cpu", **kw)
+    rows = [[6.0, 10.0], [8.0, 12.0]]
+    waves = make_wave_states(twave.w.numpy(), rows, tenv.depth, device="cpu")
+    jwaves = jax_make_wave_states(np.asarray(jwave.w), rows, float(jenv.depth))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
+        sweep_sea_states(tm, trna, tenv, waves, tC, device="cpu", mesh=object())
+    for kw in ({"chunk": 1}, {"pipeline_depth": 2}, {"health": True}):
+        got = sweep_sea_states(tm, trna, tenv, waves, tC, device="cpu", **kw)
+        want = jax_sweep_sea_states(jm, jrna, jenv, jwaves, C, **kw)
+        np.testing.assert_array_equal(got["iterations"], np.asarray(want["iterations"]))
+        for k in ("std dev", "nacelle accel std dev", "Xi_abs2"):
+            want_k = np.asarray(want[k])
+            assert np.abs(got[k] - want_k).max() <= 1e-12 * np.abs(want_k).max(), (kw, k)
+        assert ("pipeline" in got) == ("chunk" in kw) == ("pipeline" in want)
+        if "health" in kw:
+            assert got["health"] == want["health"] and got["converged"].all()
 
 
 def test_forward_response_scan_matches_jax(oc3):

@@ -151,5 +151,5 @@ def test_bem_layouts_and_unported_options_raise(oc3):
     ragged.w = torch.stack([ragged.w[0], ragged.w[1] * 1.01])
     with pytest.raises(ValueError, match="one shared frequency grid"):
         sweep_sea_states(tm, trna, tenv, ragged, tC, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
         directional_response(tm, trna, tenv, heading_rows, tC, mesh=object(), device="cpu")

@@ -9,7 +9,8 @@ seeded synthetic BEM tuples on a padded grid (10 physical bins in a
 16-bin bucket).  Std devs and ``Xi_abs2`` agree to 1e-12 scale-relative
 with identical iteration counts, in the caller's order, with the same
 bucket signatures and promotions; the mixed result equals each design's
-solo solve.  The options that belong to ROADMAP queue 1 item 7 raise.
+solo solve.  The options of ROADMAP queue 1 item 7 (chunks, the dispatch
+window, lane health) agree with the JAX package's; ``mesh`` raises.
 """
 import os
 
@@ -127,12 +128,30 @@ def test_sweep_designs_staged_passes_through_and_bems_with_it_raise():
 @pytest.mark.parametrize("kw", [{"chunk": 2}, {"pipeline_depth": 2}, {"mesh": object()},
                                 {"health": True}])
 def test_unported_options_name_item_7(kw):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        sweep_designs(DESIGNS[:1], device="cpu", **KW, **kw)
-    if set(kw) <= {"mesh", "health"}:
-        _, m, rna, env, wave, C = stage_design_base(DESIGNS[0], device="cpu", **KW)
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    """ROADMAP queue 1 item 7's options of the design batches: ``chunk``,
+    ``pipeline_depth`` and ``health`` now run, each as the JAX package's
+    on the same design and variants (1e-12 scale-relative, identical
+    iterations and verdicts); ``mesh`` still raises and names the
+    multi-device slice (item 7.3)."""
+    _, m, rna, env, wave, C = stage_design_base(DESIGNS[0], device="cpu", **KW)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="queue 1, item 7.3.*multi-device"):
+            sweep_designs(DESIGNS[:1], device="cpu", **KW, **kw)
+        with pytest.raises(NotImplementedError, match="queue 1, item 7.3.*multi-device"):
             sweep(m, rna, env, wave, C, THETAS, device="cpu", **kw)
+        return
+    got = sweep_designs(DESIGNS[:1], device="cpu", **KW, **kw)
+    ref = jax_sweep_designs(DESIGNS[:1], **KW, **kw)
+    np.testing.assert_array_equal(got["iterations"], np.asarray(ref["iterations"]))
+    for k in ("std dev", "Xi_abs2"):
+        assert _rel(got[k], ref[k]) <= TOL
+    assert ("pipeline" in got) == ("chunk" in kw) == ("pipeline" in ref)
+    if "health" in kw:
+        assert got["health"] == ref["health"] and got["converged"].all()
+        _, jm, jr, je, jw, jC = jax_stage_design_base(DESIGNS[0], **KW)
+        v = sweep(m, rna, env, wave, C, THETAS, device="cpu", **kw)
+        jv = jax_sweep(jm, jr, je, jw, jC, THETAS, **kw)
+        assert v["health"] == jv["health"] and _rel(v["std dev"], jv["std dev"]) <= TOL
 
 
 def test_sweep_takes_tensor_thetas_and_a_custom_apply_fn():
