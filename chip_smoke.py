@@ -121,11 +121,42 @@ result line):
    detected and recomputed; one ``torch.profiler`` capture of a pipelined
    pass (the ``pipeline/dispatch`` ranges, K1 on the compute stream, the
    copies on streams of their own);
-21. the array farm, K1, K3 and K4 launches counted: ``Model(VolturnUS-S,
+21. the serving daemon (``raft_tpu_torch.serve``), K1's launches counted:
+   an in-process ``SolverServer`` at the daemon's defaults (100 w padded to
+   128, 25 scan iterations, 8 lanes a batch, a 25 ms deadline, float64)
+   warmed on OC3spar, OC4semi and VolturnUS-S (two buckets), with each
+   design's lane staging timed cold and warm; through a real
+   ``SolveClient`` the mixed stream (3 designs x 8 sea states as ``solve``
+   requests, a ``dlc`` of VolturnUS-S x 8, a ``sweep`` of the 3), every row
+   bit for bit its ``solve_solo`` row with identical iterations; a lane at
+   positions 0 and 1 of mixed batches bit for bit its solo row; a Tp = 0
+   lane quarantined without moving its batch-mate's bits; each bucket's
+   rows against ``sweep_designs`` on the same designs (1e-12
+   scale-relative, identical iterations); one padded batch through K1 and
+   through the plain solve (1e-10); no kernel build after the warm-up;
+   then ``bench.py::serving_block``'s load (48 requests at 400 requests/s,
+   a warm pass, the measured open loop, a sequential baseline) with p50,
+   p99, solves/s, their ratio and the occupancy per bucket (reported, not
+   gated); then a daemon child (``python -m raft_tpu_torch.serve daemon
+   --warm oc3,oc4,volturnus``, at the daemon's defaults) serving the
+   smoke's stream, SIGTERM with exit 0 and its socket unlinked, and a
+   restarted child with the same rows bit for bit, each child's ready time,
+   kernel builds and K1 launches printed;
+22. the fleet (``raft_tpu_torch.serve.fleet_smoke``): two replicas at the
+   daemon's defaults started at once, ``kill_replica:1``
+   mid-stream (every request answered once, the rows bit for bit the
+   in-process solo rows and the "serve" child's, a resubmit, the killed
+   replica restarted and re-admitted after a passing probe); one replica
+   with ``queue_max = 1``, ``stall_replica:1`` and a burst of 7 (typed
+   ``Overloaded`` sheds with ``retry_after_ms``, the stalled request
+   recovered, every shed request served when submitted again); each
+   replica's ready time and the live replicas' K1 launches printed (the
+   killed replica's launches die with it);
+23. the array farm, K1, K3 and K4 launches counted: ``Model(VolturnUS-S,
    nTurbines=16, BEM="jax")`` on a 4 x 4 grid at 1,500 m, 59 w, float64,
    every step timed; turbines against single-turbine runs, K1 and K3/K4
    against their plain versions, ``airgap`` at 4 deck points;
-22. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
+24. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
    (VolturnUS-S, 1,024 class; OC4semi with its lid, 2,048) and K4 (every
    chunk of the 48-w staging) against their plain versions on the same
    bf16 inputs, elementwise within one bf16 step of the plain output plus
@@ -135,12 +166,12 @@ result line):
    launches counted) in turns with the f32 staging: A and B within 0.1 of
    it, F's gap and the gaps to native printed, the refinement residual
    below 1e-4;
-23. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
+25. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
    the card against the CPU; a Capytaine dataset written from the card's
    panel solve of VolturnUS-S read back through ``Model(BEM=
    load_capytaine_nc(...))`` against ``Model(BEM=(A, B, F))``; a Nemoh mesh
    of that hull through ``nemoh_to_pnl``;
-24. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
+26. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
    ``RAFT_TPU_BEM=jax`` at full width (850 panels, 59 w), with the f32
    precision (the Model's BEM in float64) and with ``RAFT_TPU_BEM_PRECISION=
    bf16`` (float32, bf16 assembly), in process with K1/K3/K4 launches
@@ -149,11 +180,11 @@ result line):
    without ``--bem``) and ``optimize`` at small counts, five subprocesses
    at once with ``--plot`` into a temporary directory (where matplotlib is
    not installed, ``--plot`` must exit non-zero naming it);
-25. panel-solve copies: one solve and the refined solve's backward under
+27. panel-solve copies: one solve and the refined solve's backward under
    the profiler, no host-device copy and no synchronisation inside; two
    ``bem_fn`` steps after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-26. the sweeps and one gradient chunk again under ``torch.profiler``: device
+28. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    gradient chunk must run at least 75 device operations fewer than the same
    chunk with the adjoint's transposed copies, profiled in the same call.
@@ -504,6 +535,7 @@ class Smoke:
         self.dlc_grid = None
         self.mixed_staged = None
         self._cases: dict = {}
+        self.serve_child_rows = None
         self.dev = torch.device("cuda")
         self._flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=self.dev)
 
@@ -2438,6 +2470,223 @@ class Smoke:
                    "profile: 4 dispatch ranges, K1 on one (compute) stream, the staging copies "
                    "and the fetches each on a stream of their own")
 
+    def _serve_rows_equal(self, got: dict, want: dict) -> bool:
+        """A served row against its reference row: bit for bit, identical
+        iterations."""
+        return got["std_dev"] == want["std_dev"] and got["iterations"] == want["iterations"]
+
+    def phase_serve(self):
+        """The serving daemon at its defaults, in process through a real
+        socket client, then as two daemon children (see the module
+        docstring, phase 21)."""
+        import os
+        import shutil
+        import tempfile
+
+        from raft_tpu_torch.core import cuda6
+        from raft_tpu_torch.parallel.sweep import sweep_designs
+        from raft_tpu_torch.serve import loadgen, protocol, smoke
+        from raft_tpu_torch.serve.batcher import Lane
+        from raft_tpu_torch.serve.client import SolveClient
+        from raft_tpu_torch.serve.config import ServeConfig
+        from raft_tpu_torch.serve.server import SolverServer
+        from raft_tpu_torch.serve.solver import SolverCore, kernel_builds, solve_batch, solve_solo
+
+        torch = self.torch
+        designs = ("oc3", "oc4", "volturnus")
+        paths = {a: protocol.resolve_design(a)[0] for a in designs}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+        server = None
+        try:
+            cuda6.build()                    # K1's library built or loaded before arming
+            builds0 = kernel_builds()
+            # the daemon's defaults: 100 w (128 padded), 25 iterations, 8 lanes,
+            # 25 ms, float64, the card
+            cfg = ServeConfig(socket_path=os.path.join(tmp, "serve.sock"))
+            probe = SolverCore(cfg)
+            for a in designs:
+                times = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    probe.stage_lane(paths[a], 8.0, 12.0)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                print(f"  stage_lane {a}: cold {times[0]:.4f} s, warm (memo hit) "
+                      f"{times[1] * 1e3:.4f} ms")
+            del probe
+            server = SolverServer(cfg)
+            server.start()
+            t0 = time.perf_counter()
+            warm = server.warmup(designs)
+            torch.cuda.synchronize()
+            print(f"  warmup {warm} in {time.perf_counter() - t0:.3f} s")
+            self.check(len(warm) == 2 and kernel_builds() == builds0,
+                       "serve: warmup arms two buckets, no kernel build")
+            seas = [(6.0 + 0.5 * i, 9.0 + 0.5 * i) for i in range(8)]
+            sched = {"n_hs": 2, "n_tp": 1}
+            self.zero_counts()
+            with SolveClient(cfg.socket_path, connect_timeout=30.0) as cl:
+                t0 = time.perf_counter()
+                futs = [(a, Hs, Tp, cl.submit({"op": "solve", "design": a, "Hs": Hs, "Tp": Tp}))
+                        for Hs, Tp in seas for a in designs]
+                f_dlc = cl.submit({"op": "dlc", "design": "volturnus",
+                                   "cases": [[Hs, Tp] for Hs, Tp in seas]})
+                f_sw = cl.submit({"op": "sweep", "designs": list(designs), "Hs": 8.0, "Tp": 12.0})
+                solves = [(a, Hs, Tp, f.result(600.0)) for a, Hs, Tp, f in futs]
+                dlc, sw = f_dlc.result(600.0), f_sw.result(600.0)
+                t_mixed = time.perf_counter() - t0
+                # bench.py::serving_block's stream: a warm pass, the measured open
+                # loop, a sequential baseline
+                loadgen.run_open_loop(cl, 48, 400.0, **sched)
+                server.core.reset_stats()
+                server.reset_telemetry()
+                open_out, _ = loadgen.run_open_loop(cl, 48, 400.0, **sched)
+                occupancy = {k: v["mean_occupancy"]
+                             for k, v in server.core.stats()["buckets"].items()}
+                tel = server.telemetry()
+                seq_out = loadgen.run_sequential(cl, 12, 400.0, **sched)
+            torch.cuda.synchronize()
+            launches = self.counts()
+            self.add_main(launches, ("fused",))
+            print(f"  mixed stream: 24 solve + 1 dlc (8 lanes) + 1 sweep (3 lanes), cold "
+                  f"staging included: {t_mixed:.3f} s; K1 launches in the served path "
+                  f"{launches['fused']}")
+            ratio = open_out["solves_per_s"] / seq_out["solves_per_s"]
+            print(f"  load open loop (48 at 400/s): p50 {open_out['latency_p50_s']} s, p99 "
+                  f"{open_out['latency_p99_s']} s, {open_out['solves_per_s']} solves/s; "
+                  f"sequential (12): p50 {seq_out['latency_p50_s']} s, "
+                  f"{seq_out['solves_per_s']} solves/s; ratio {ratio:.2f}; occupancy "
+                  f"{occupancy}; server window p50 {tel['latency']['p50']} p99 "
+                  f"{tel['latency']['p99']} (card: {nvidia_smi()})")
+            self.check(launches["fused"] > 0 and kernel_builds() == builds0,
+                       "serve: the served path launched K1, no kernel build")
+            ok = all(r["ok"] for *_x, r in solves) and dlc["ok"] and sw["ok"]
+            self.check(ok, "serve: every request answered ok")
+            core = server.core
+            same = all(self._serve_rows_equal(r["results"][0],
+                                              solve_solo(core, paths[a], Hs, Tp))
+                       for a, Hs, Tp, r in solves)
+            same &= all(self._serve_rows_equal(row, solve_solo(core, paths["volturnus"], Hs, Tp))
+                        for row, (Hs, Tp) in zip(dlc["results"], seas))
+            same &= all(self._serve_rows_equal(row, solve_solo(core, paths[a], 8.0, 12.0))
+                        for row, a in zip(sw["results"], designs))
+            self.check(ok and same, "serve: 35 served rows == solve_solo bit for bit, "
+                                    "identical iterations")
+
+            def lane(a, Hs, Tp):
+                sig, staged = core.stage_lane(paths[a], Hs, Tp)
+                return sig, Lane(request_id=None, seq=0, label=a, staged=staged)
+
+            sig, l_a = lane("oc3", 7.0, 11.0)
+            _s, l_v = lane("volturnus", 6.0, 10.0)
+            _s, l_b = lane("oc3", 9.0, 13.0)
+            solo = solve_solo(core, paths["oc3"], 7.0, 11.0)
+            at0 = solve_batch(core, sig, [l_a, l_v, l_b])[0][0]
+            at1 = solve_batch(core, sig, [l_v, l_a])[0][1]
+            self.check(self._serve_rows_equal(at0, solo) and self._serve_rows_equal(at1, solo),
+                       "serve: a lane at positions 0 and 1 of mixed batches == solo, bit for bit")
+            _s, l_bad = lane("oc3", 6.0, 0.0)
+            rows, info = solve_batch(core, sig, [l_a, l_bad])
+            self.check(rows[1]["quarantined"] and not rows[1]["finite"]
+                       and info["quarantined_real"] == [1]
+                       and self._serve_rows_equal(rows[0], solo),
+                       "serve: a Tp = 0 lane quarantined, its batch-mate's bits unmoved")
+            ref = sweep_designs([paths[a] for a in designs], nw=cfg.nw, Hs=8.0, Tp=12.0,
+                                n_iter=cfg.n_iter, return_xi=False, device=self.dev)
+            errs, same_it = [], True
+            for i, a in enumerate(designs):
+                r = solve_solo(core, paths[a], 8.0, 12.0)
+                want = np.asarray(ref["std dev"][i])
+                errs.append(float(np.max(np.abs(np.asarray(r["std_dev"]) - want))
+                                  / np.max(np.abs(want))))
+                same_it &= r["iterations"] == int(ref["iterations"][i])
+            print(f"  served rows against sweep_designs: rel {max(errs):.3e}")
+            self.check(max(errs) <= 1e-12 and same_it,
+                       "serve: each bucket's rows == sweep_designs (1e-12, identical iterations)")
+            full = [l_a, l_v, l_b] + [lane("volturnus", 6.0 + k, 10.0 + k)[1] for k in range(1, 6)]
+            rows_k1, _ = solve_batch(core, sig, full)
+            with plain_solve():
+                rows_plain, _ = solve_batch(core, sig, full)
+            err = max(float(np.max(np.abs(np.subtract(a["std_dev"], b["std_dev"])))
+                            / np.max(np.abs(b["std_dev"]))) for a, b in zip(rows_k1, rows_plain))
+            print(f"  one padded batch (8 lanes x 128 w, float64) K1 against the plain solve: "
+                  f"rel {err:.3e}")
+            self.check(err <= 1e-10 and all(a["iterations"] == b["iterations"]
+                                            for a, b in zip(rows_k1, rows_plain)),
+                       "serve: a padded batch through K1 == the plain solve (1e-10, "
+                       "identical iterations)")
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                solve_batch(core, sig, full)      # returns host rows: synchronised
+                walls.append(1e3 * (time.perf_counter() - t0))
+            print(f"  one padded batch (8 lanes): {np.mean(walls):.2f} ms mean, "
+                  f"{min(walls):.2f} ms min of 5 (card: {nvidia_smi()})")
+            self._profile("one padded serve batch (8 lanes x 128 w, float64, 25 iterations)",
+                          lambda: solve_batch(core, sig, full), {"K1": ("solve6",)},
+                          ({"wall_ms": float(np.mean(walls))}, ("wall_ms",)))
+            server.stop()
+            server = None
+
+            # the daemon as a child process, SIGTERM and a restart
+            children = []
+            for k in (1, 2):
+                sock = os.path.join(tmp, f"child{k}.sock")
+                proc, ready = smoke.spawn_daemon(sock, os.path.join(tmp, f"child{k}.err"), None,
+                                                 full_width=True)
+                rows_c, full_c, info_c = smoke.drive_stream(sock)
+                rc = smoke.stop_daemon(proc)
+                fused = (full_c["solver"]["kernel_launches"]["fused"]
+                         - ready["kernel_launches_at_ready"]["fused"])
+                self.add_main({"fused": fused}, ("fused",))
+                children.append((ready, rows_c, rc, not os.path.exists(sock),
+                                 full_c["solver"]["kernel_builds"]))
+                print(f"  daemon child {k}: ready_s {ready['ready_s']} (spawn to ready "
+                      f"{ready['spawn_to_ready_s']} s), kernel_builds_at_ready "
+                      f"{ready['kernel_builds_at_ready']}, stream {info_c['wall_s']:.3f} s, "
+                      f"K1 launches {fused}, exit {rc}")
+            solo_rows = smoke.solo_reference(None, full_width=True)
+            (r1, rows1, rc1, gone1, b1), (r2, rows2, rc2, gone2, b2) = children
+            self.check(rc1 == 0 and gone1 and rc2 == 0 and gone2,
+                       "serve: SIGTERM drains each child with exit 0, socket unlinked")
+            self.check(rows1 == solo_rows and rows2 == rows1,
+                       "serve: child rows == in-process solo rows, restart bit for bit")
+            self.check(r1["kernel_builds_at_ready"] == r2["kernel_builds_at_ready"] == 0
+                       and b1 == b2 == 0, "serve: no kernel build in either child")
+            self.serve_child_rows = rows1
+        finally:
+            if server is not None:
+                server.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def phase_fleet(self):
+        """The replica fleet behind the failover router (see the module
+        docstring, phase 22)."""
+        import shutil
+        import tempfile
+
+        from raft_tpu_torch.serve import fleet_smoke, smoke
+
+        ref = smoke.solo_reference(None, fleet_smoke.STREAM, full_width=True)
+        if self.serve_child_rows is not None:
+            self.check(self.serve_child_rows == ref[:len(self.serve_child_rows)],
+                       "fleet: reference rows == the serve phase's child rows, bit for bit")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+        try:
+            t0 = time.perf_counter()
+            checks, info = fleet_smoke.run(None, tmp, reference_rows=ref, full_width=True)
+            self.add_main({"fused": info["k1_launches"]}, ("fused",))
+            print(f"  fleet phases B and C in {time.perf_counter() - t0:.1f} s; ready_s "
+                  f"{info['ready_s']}; failover requests {info['failover_requests']}, "
+                  f"resubmitted responses {info['resubmitted_responses']}, killed "
+                  f"{info['killed_replica']}, shed {info['shed_count']}; K1 launches of the "
+                  f"live replicas after ready {info['k1_launches']} (card: {nvidia_smi()})")
+            self.check(info["k1_launches"] > 0, "fleet: the replicas' served path launched K1")
+            for name, ok in checks.items():
+                self.check(ok, f"fleet: {name}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
     def phase_array_farm(self):
         """``Model(VolturnUS-S, nTurbines=16, BEM="jax")``: 16 turbines on a
         4 x 4 grid at 1,500 m, the default 59 w, float64, heading 30 deg,
@@ -3231,6 +3480,8 @@ class Smoke:
                   ("variant sweep", self.phase_variant_sweep),
                   ("mixed designs", self.phase_mixed_designs),
                   ("operations", self.phase_operations),
+                  ("serve", self.phase_serve),
+                  ("fleet", self.phase_fleet),
                   ("array farm", self.phase_array_farm),
                   ("bf16 assembly", self.phase_bf16),
                   ("BEM inputs", self.phase_bem_inputs),

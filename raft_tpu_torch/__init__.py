@@ -9,7 +9,7 @@ the card unless the caller passes ``device="cpu"``.
 The entry points below load on first use, so ``import raft_tpu_torch``
 stays light: ``Model``, ``run_raft``, ``sweep_north_star``,
 ``forward_response``, ``grad_response_std``, ``grad_nacelle_accel_std`` and
-``optimize_design``.
+``optimize_design``; and the coefficient type ``HydroCoeffs``.
 """
 
 __version__ = "0.1.0"
@@ -22,6 +22,7 @@ _EXPORTS = {
     "grad_response_std": "raft_tpu_torch.parallel.sweep",
     "grad_nacelle_accel_std": "raft_tpu_torch.parallel.optimize",
     "optimize_design": "raft_tpu_torch.parallel.optimize",
+    "HydroCoeffs": "raft_tpu_torch.core.types",
 }
 
 

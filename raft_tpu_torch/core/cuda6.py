@@ -45,6 +45,7 @@ ones.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -58,16 +59,19 @@ SPEC = nvcc.Spec("solve6", "solve6.cu", ("-fmad=false",))
 _FUSED_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
 _PLAIN_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the kernel library, once
+    per process: threads that reach it together load it once."""
     global _lib
-    if _lib is None:
-        _lib = nvcc.load(SPEC, {"solve6_fused_f32": _FUSED_SIGNATURE,
-                                "solve6_fused_f64": _FUSED_SIGNATURE,
-                                "solve6_plain_f32": _PLAIN_SIGNATURE,
-                                "solve6_plain_f64": _PLAIN_SIGNATURE})
+    with _lib_lock:
+        if _lib is None:
+            _lib = nvcc.load(SPEC, {"solve6_fused_f32": _FUSED_SIGNATURE,
+                                    "solve6_fused_f64": _FUSED_SIGNATURE,
+                                    "solve6_plain_f32": _PLAIN_SIGNATURE,
+                                    "solve6_plain_f64": _PLAIN_SIGNATURE})
     return _lib
 
 

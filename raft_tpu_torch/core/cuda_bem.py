@@ -43,6 +43,7 @@ libraries are built by ``nvcc`` at first use (:mod:`raft_tpu_torch.core.nvcc`).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -63,18 +64,22 @@ _RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P, _I, _P, _P]
 _WAVE_SIG = ([_P] * 12 + [_I, _I, _D, _D] + [_P] * 6 + [_I, _I, _I, _I, _D]
              + [_P] * 4 + [_P])
 _libs: dict = {}
+_libs_lock = threading.Lock()
 
 
 def build() -> dict:
-    """Compile (once per source hash) and load both kernel libraries."""
-    if not _libs:
-        nvcc.compile_all([RANKINE, WAVE])
-        lib = nvcc.load(RANKINE, {f"bem_rankine_{x}": _RANKINE_SIG for x in _SUFFIX.values()})
-        for x in _SUFFIX.values():
-            fn = getattr(lib, f"bem_rankine_workspace_{x}")
-            fn.argtypes, fn.restype = [_I], _I
-        _libs["rankine"] = lib
-        _libs["wave"] = nvcc.load(WAVE, {f"bem_wave_{x}": _WAVE_SIG for x in _SUFFIX.values()})
+    """Compile (once per source hash) and load both kernel libraries, once
+    per process: threads that reach it together load them once."""
+    with _libs_lock:
+        if not _libs:
+            nvcc.compile_all([RANKINE, WAVE])
+            lib = nvcc.load(RANKINE, {f"bem_rankine_{x}": _RANKINE_SIG
+                                      for x in _SUFFIX.values()})
+            for x in _SUFFIX.values():
+                fn = getattr(lib, f"bem_rankine_workspace_{x}")
+                fn.argtypes, fn.restype = [_I], _I
+            wave = nvcc.load(WAVE, {f"bem_wave_{x}": _WAVE_SIG for x in _SUFFIX.values()})
+            _libs.update(rankine=lib, wave=wave)
     return _libs
 
 

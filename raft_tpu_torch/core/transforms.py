@@ -77,6 +77,17 @@ def rotate_diag_tensor(R: Tensor, Ixx: Tensor, Iyy: Tensor, Izz: Tensor) -> Tens
     return R @ I_loc @ R.transpose(-1, -2)
 
 
+def small_rotation_displacement(r: Tensor, th: Tensor) -> Tensor:
+    """Displacement of a point at ``r`` under small rotations ``th``:
+    th x r (the intended behaviour of the reference's SmallRotate,
+    raft/raft.py:998-1006, used for platform-motion node kinematics).
+    Broadcasts; ``th`` may be complex (a rotation amplitude), ``r`` is then
+    promoted to its dtype."""
+    if th.is_complex() and not r.is_complex():
+        r = r.to(th.dtype)
+    return cross(th, r)
+
+
 def euler_z1y2z3(beta: Tensor, phi: Tensor, gamma: Tensor) -> Tensor:
     """Z1Y2Z3 Euler rotation matrix, broadcast over leading axes."""
     s1, c1 = torch.sin(beta), torch.cos(beta)
@@ -113,3 +124,25 @@ def member_orientation(rA: Tensor, rB: Tensor, gamma: Tensor):
     p1 = R[..., :, 0]
     p2 = cross(q, p1)
     return q, p1, p2, R
+
+
+def heading_rotation(heading_deg) -> Tensor:
+    """Member-pattern heading rotation about z, the reference's convention
+    for replicated member patterns (raft/raft.py:71-77): [[c, s, 0], [-s,
+    c, 0], [0, 0, 1]] with c, s of +heading, a clockwise rotation of
+    coordinates.  ``heading_deg``: a float or a tensor of headings in
+    degrees -> (..., 3, 3)."""
+    if not isinstance(heading_deg, Tensor):
+        heading_deg = torch.as_tensor(heading_deg, dtype=torch.float64)
+    a = torch.deg2rad(heading_deg)
+    c, s = torch.cos(a), torch.sin(a)
+    z = torch.zeros_like(c)
+    o = torch.ones_like(c)
+    return torch.stack(
+        [
+            torch.stack([c, s, z], dim=-1),
+            torch.stack([-s, c, z], dim=-1),
+            torch.stack([z, z, o], dim=-1),
+        ],
+        dim=-2,
+    )

@@ -136,6 +136,21 @@ class RigidBodyCoeffs:
 
 
 @dataclasses.dataclass
+class HydroCoeffs:
+    """Frequency-dependent hydrodynamic coefficient set: the BEM
+    (potential-flow) arrays, zero when no BEM data is staged (as the
+    reference, raft/raft.py:1797-1800), and the Morison strip-theory terms
+    of FOWT.calcHydroConstants (raft/raft.py:2076-2157).  The complex
+    excitations are :class:`~raft_tpu_torch.core.cplx.Cx` pairs."""
+
+    A_bem: Tensor          # (6, 6, nw) added mass
+    B_bem: Tensor          # (6, 6, nw) radiation damping
+    F_bem: object          # Cx (6, nw) excitation
+    A_morison: Tensor      # (6, 6) strip-theory added mass
+    F_morison: object      # Cx (6, nw) Froude-Krylov + dynamic pressure excitation
+
+
+@dataclasses.dataclass
 class WaveState:
     """Discretized sea state on the frequency grid.
 

@@ -39,6 +39,7 @@ import hashlib
 import os
 import platform
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +56,7 @@ CACHE_ENV = "RAFT_TPU_TORCH_CACHE_DIR"
 CACHE_STATS = {"hit": 0, "miss": 0, "corrupt": 0}
 
 _lib = None
+_lib_lock = threading.Lock()
 
 
 @functools.cache
@@ -112,36 +114,39 @@ def build() -> Path:
 
 
 def _load() -> ctypes.CDLL:
+    """Build (if needed) and open the solver library, once per process:
+    threads that reach it together open it once."""
     global _lib
-    if _lib is None:
-        so = build()
-        lib = ctypes.CDLL(str(so))
-        nvcc.note(so, "loaded")
-        dptr = ctypes.POINTER(ctypes.c_double)
-        lib.bem_solve_mh.restype = ctypes.c_int
-        lib.bem_solve_mh.argtypes = [
-            dptr, ctypes.c_int,                                 # panels, np
-            dptr, ctypes.c_int,                                 # w, nw
-            ctypes.c_double,                                    # depth
-            ctypes.c_double, ctypes.c_double,                   # rho, g
-            dptr, ctypes.c_int,                                 # betas, nb
-            dptr, dptr, dptr, dptr,                             # A, B, Fre, Fim
-            dptr, dptr,                                         # Fhre, Fhim (Haskind, may be NULL)
-            ctypes.c_int, ctypes.c_int,                         # nthreads, nlid
-        ]
-        lib.bem_green_fd.restype = None
-        lib.bem_green_fd.argtypes = [ctypes.c_double] * 5 + [dptr]
-        lib.bem_dispersion.restype = ctypes.c_double
-        lib.bem_dispersion.argtypes = [ctypes.c_double, ctypes.c_double]
-        lib.bem_wave_integral.restype = None
-        lib.bem_wave_integral.argtypes = [ctypes.c_double, ctypes.c_double, dptr, dptr]
-        lib.bem_wave_integral_direct.restype = None
-        lib.bem_wave_integral_direct.argtypes = lib.bem_wave_integral.argtypes
-        lib.bem_set_table_path.restype = None
-        lib.bem_set_table_path.argtypes = [ctypes.c_char_p]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib.bem_set_table_path(os.fsencode(table_path()))
-        _lib = lib
+    with _lib_lock:
+        if _lib is None:
+            so = build()
+            lib = ctypes.CDLL(str(so))
+            nvcc.note(so, "loaded")
+            dptr = ctypes.POINTER(ctypes.c_double)
+            lib.bem_solve_mh.restype = ctypes.c_int
+            lib.bem_solve_mh.argtypes = [
+                dptr, ctypes.c_int,                                 # panels, np
+                dptr, ctypes.c_int,                                 # w, nw
+                ctypes.c_double,                                    # depth
+                ctypes.c_double, ctypes.c_double,                   # rho, g
+                dptr, ctypes.c_int,                                 # betas, nb
+                dptr, dptr, dptr, dptr,                             # A, B, Fre, Fim
+                dptr, dptr,                                 # Fhre, Fhim (Haskind, may be NULL)
+                ctypes.c_int, ctypes.c_int,                         # nthreads, nlid
+            ]
+            lib.bem_green_fd.restype = None
+            lib.bem_green_fd.argtypes = [ctypes.c_double] * 5 + [dptr]
+            lib.bem_dispersion.restype = ctypes.c_double
+            lib.bem_dispersion.argtypes = [ctypes.c_double, ctypes.c_double]
+            lib.bem_wave_integral.restype = None
+            lib.bem_wave_integral.argtypes = [ctypes.c_double, ctypes.c_double, dptr, dptr]
+            lib.bem_wave_integral_direct.restype = None
+            lib.bem_wave_integral_direct.argtypes = lib.bem_wave_integral.argtypes
+            lib.bem_set_table_path.restype = None
+            lib.bem_set_table_path.argtypes = [ctypes.c_char_p]
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            lib.bem_set_table_path(os.fsencode(table_path()))
+            _lib = lib
     return _lib
 
 

@@ -705,14 +705,25 @@ def stage_design_base(fname, nw: int, Hs: float, Tp: float, w_min: float, w_max:
     dev = resolve_device(device)
     design = load_design(fname)
     h = _stage_host(design, nw, with_mooring, bucket)
+    members, wave, C_moor = _stage_device(h, nw, Hs, Tp, w_min, w_max, dtype, dev)
+    return design, members, h.rna, Env(Hs=Hs, Tp=Tp, depth=h.depth), wave, C_moor
+
+
+def _stage_device(h: _HostStage, nw: int, Hs: float, Tp: float, w_min: float, w_max: float,
+                  dtype, dev):
+    """The device half of one design's staging, shared by
+    :func:`stage_design_base` and the serving daemon's lane staging
+    (``serve/solver.py::SolverCore.stage_lane``), so a served lane cannot
+    drift from a solo staging: the member arrays copied to ``dev``, the
+    (bucket-padded) wave grid and the undisplaced mooring stiffness (None
+    without mooring).  Returns ``(members, wave, C_moor)``."""
     wave = _staged_wave(nw, w_min, w_max, h.depth, Hs, Tp,
                         nw_pad=None if h.sig is None else h.sig.nw, dtype=dtype, device=dev)
     C_moor = None
     if h.moor is not None:
         C_moor = mooring_stiffness(mooring_from_arrays(h.moor, dev, dtype),
                                    torch.zeros(6, dtype=dtype, device=dev))
-    return (design, member_set_from_arrays(h.members, dev, dtype), h.rna,
-            Env(Hs=Hs, Tp=Tp, depth=h.depth), wave, C_moor)
+    return member_set_from_arrays(h.members, dev, dtype), wave, C_moor
 
 
 @dataclasses.dataclass

@@ -4,10 +4,17 @@
 Every quantity is a function of the 6-DOF platform displacement ``r6``;
 stiffness and tension Jacobians are ``torch.func.jacfwd`` through the
 catenary Newton solve, as the JAX package uses ``jax.jacfwd``.
+
+PyTorch numbers its forward-mode AD levels process-wide, so two threads
+inside ``jacfwd`` at once corrupt each other's levels ("Trying to access
+a forward AD level with an invalid index"): every Jacobian here is taken
+under one process-wide lock (the serving daemon stages lanes, mooring
+stiffness included, in several connection threads at once).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -18,6 +25,22 @@ from raft_tpu_torch.core.transforms import cross
 from raft_tpu_torch.mooring.catenary import CatenaryState, LineProps, solve_catenary
 
 Tensor = torch.Tensor
+
+#: serializes forward-mode AD across threads (see the module docstring);
+#: reentrant, since a vmapped caller reaches the same Jacobian again
+_JACFWD_LOCK = threading.RLock()
+
+
+def _jacfwd(fn, **kwargs):
+    """``torch.func.jacfwd(fn, **kwargs)``, evaluated under
+    :data:`_JACFWD_LOCK`."""
+    jac = jacfwd(fn, **kwargs)
+
+    def locked(x):
+        with _JACFWD_LOCK:
+            return jac(x)
+
+    return locked
 
 
 @dataclasses.dataclass
@@ -162,7 +185,7 @@ def mooring_stiffness(sys: MooringSystem, r6: Tensor) -> Tensor:
     batched call."""
     if r6.ndim > 1:
         return _per_system(mooring_stiffness, sys, r6)
-    C = -jacfwd(lambda x: mooring_force(sys, x))(r6)
+    C = -_jacfwd(lambda x: mooring_force(sys, x))(r6)
     C = C.clone()
     C[5, 5] += sys.yaw_stiffness
     return C
@@ -178,7 +201,7 @@ def fairlead_tensions(sys: MooringSystem, r6: Tensor) -> Tensor:
 
 def tension_jacobian(sys: MooringSystem, r6: Tensor) -> Tensor:
     """dT_fairlead / dr6, (nl, 6)."""
-    return jacfwd(lambda x: fairlead_tensions(sys, x))(r6)
+    return _jacfwd(lambda x: fairlead_tensions(sys, x))(r6)
 
 
 def solve_equilibrium(sys: MooringSystem, F_const: Tensor, C_body: Tensor,
@@ -200,7 +223,7 @@ def solve_equilibrium(sys: MooringSystem, F_const: Tensor, C_body: Tensor,
 
     cap = torch.tensor([10.0, 10.0, 10.0, 0.1, 0.1, 0.1], dtype=dtype, device=dev)
     for _ in range(iters):
-        J, r = jacfwd(residual, has_aux=True)(r6)    # one catenary solve for both
+        J, r = _jacfwd(residual, has_aux=True)(r6)    # one catenary solve for both
         dx = solve_re(J, -r)
         dx = torch.minimum(torch.maximum(dx, -cap), cap)
         r6 = r6 + dx

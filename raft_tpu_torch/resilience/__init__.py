@@ -16,7 +16,8 @@ progress is durable, bad cases are quarantined and REPORTED:
   reduced relaxation → Tikhonov-regularized solve).
 * :mod:`~raft_tpu_torch.resilience.checkpoint` — durable per-chunk result
   store (atomic npz + content-hashed manifest, keyed by the program's
-  inputs, the port's sources and the device type) under
+  inputs, the port's sources, the device, the framework versions and the
+  matmul precision) under
   ``RAFT_TPU_CKPT``; a killed sweep resumes at the first missing chunk
   with bit-identical results.
 * :mod:`~raft_tpu_torch.resilience.retry` — bounded, exponential-backoff,

@@ -15,10 +15,13 @@ names it by its own digest of everything that decides the results: the
 tag, the chunk arguments' shapes and dtypes, a content hash of the
 constants (the design, the staged coefficients), the caller's ``extra``
 (knobs, a content hash of the input table), the chunk count, a
-fingerprint of the port's own sources (kernels included) and the device
-type.  A store written on the CPU is never served on the card: the two
-give different bits.  Any change to the code, the inputs, the knobs or
-the device lands in a different directory, so a resume is only ever
+fingerprint of the port's own sources (kernels included), the device
+type, and what else decides the bits of the same program on the same
+inputs (:func:`runtime_salt`): the torch and CUDA versions, the card's
+name, the float32 matmul precision and the TF32 switch.  A store written
+on the CPU is never served on the card: the two give different bits.  Any
+change to the code, the inputs, the knobs, the framework or the device
+lands in a different directory, so a resume is only ever
 served results the current program would have computed (bit for bit:
 npz round-trips array bytes exactly).
 
@@ -44,6 +47,7 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import torch
 
 _OFF = ("off", "0", "none", "disabled", "false", "no")
 _PKG = Path(__file__).resolve().parents[1]
@@ -130,6 +134,21 @@ def source_fingerprint() -> str:
     return h.hexdigest()[:16]
 
 
+def runtime_salt(device) -> str:
+    """What decides a program's bits besides its sources and inputs: the
+    torch and CUDA versions, the device type and, on the card, its name,
+    and the float32 matmul precision with the TF32 switch.  A machine
+    without CUDA names no card."""
+    dev_type = device.type if hasattr(device, "type") else str(device).split(":")[0]
+    kind = ""
+    if dev_type == "cuda":
+        kind = (torch.cuda.get_device_name(torch.device(device)) if torch.cuda.is_available()
+                else "no card")
+    return json.dumps([torch.__version__, torch.version.cuda, dev_type, kind,
+                       torch.get_float32_matmul_precision(),
+                       bool(torch.backends.cuda.matmul.allow_tf32)])
+
+
 def store_key(tag: str, args, *, consts=(), extra=(), n_chunks: int, device) -> str:
     """The digest :func:`store_for` names a store by (see the module
     docstring)."""
@@ -139,10 +158,9 @@ def store_key(tag: str, args, *, consts=(), extra=(), n_chunks: int, device) -> 
     _tree(consts, const_vals, values=True)
     ex: list = []
     _tree(tuple(extra), ex, values=False)
-    dev_type = device.type if hasattr(device, "type") else str(device).split(":")[0]
     h = hashlib.sha256()
     for part in (tag, json.dumps(sig), content_hash(const_vals), json.dumps(ex),
-                 str(int(n_chunks)), source_fingerprint(), dev_type):
+                 str(int(n_chunks)), source_fingerprint(), runtime_salt(device)):
         h.update(part.encode())
         h.update(b"\0")
     return h.hexdigest()

@@ -350,3 +350,57 @@ def test_operations_modules_import_nothing_of_jax():
             "resilience/smoke.py", "resilience/faults.py", "resilience/health.py",
             "resilience/ladder.py", "resilience/retry.py", "resilience/checkpoint.py",
             "parallel/pipeline.py"} <= names
+
+
+def test_serve_modules_import_nothing_of_jax():
+    """The serving tier (protocol, batcher, config, solver core, server,
+    client, loadgen, router, fleet supervisor, the smokes and the CLI,
+    and every lazy export of the package) loads in a fresh process without
+    JAX or the JAX package."""
+    code = (
+        "import sys, importlib\n"
+        "import raft_tpu_torch.serve as serve\n"
+        "for m in ('config', 'protocol', 'batcher', 'solver', 'server', 'client', 'loadgen',\n"
+        "          'router', 'fleet', 'smoke', 'fleet_smoke', '__main__'):\n"
+        "    importlib.import_module('raft_tpu_torch.serve.' + m)\n"
+        "for name in serve.__all__:\n"
+        "    getattr(serve, name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {f"serve/{m}.py" for m in (
+        "__init__", "__main__", "config", "protocol", "batcher", "solver", "server", "client",
+        "loadgen", "router", "fleet", "smoke", "fleet_smoke")} <= names
+
+
+def test_daemon_refuses_without_cuda(tmp_path, monkeypatch):
+    """Without CUDA the daemon, the fleet and the smokes refuse to start
+    (exit 2, no socket bound) unless they get ``--device cpu``; in process,
+    a server or solver core for the card raises."""
+    sock = tmp_path / "d.sock"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    for argv in (["daemon", "--socket", str(sock), "--nw", "8"],
+                 ["fleet", "--socket", str(sock), "--replicas", "1"],
+                 ["smoke"], ["fleet-smoke"]):
+        proc = subprocess.run([sys.executable, "-m", "raft_tpu_torch.serve", *argv], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 2, (argv, proc.stdout[-1000:], proc.stderr[-1000:])
+        assert "CUDA" in proc.stderr and '"ready"' not in proc.stdout
+        assert not sock.exists()
+    from raft_tpu_torch.serve.config import ServeConfig
+    from raft_tpu_torch.serve.server import SolverServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SolverServer(ServeConfig(socket_path=str(sock)))
+    srv = SolverServer(ServeConfig(socket_path=str(sock), device="cpu"))
+    assert srv.core.device.type == "cpu" and not sock.exists()

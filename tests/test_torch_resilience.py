@@ -383,6 +383,56 @@ def test_store_key_separates_devices_values_and_knobs():
     assert checkpoint.source_fingerprint() == checkpoint.source_fingerprint()
 
 
+def test_store_key_folds_in_framework_and_precision(monkeypatch):
+    """The store key moves with the torch and CUDA versions and with the
+    float32 matmul precision (``set_float32_matmul_precision``, the TF32
+    switch): a resumed sweep is never served chunks that the current
+    program would not compute.  Everything else equal, it stays put."""
+    kw = dict(consts=(torch.arange(4.0),), extra=("n_iter", 25), n_chunks=2)
+
+    def key():
+        return checkpoint.store_key("sweep", (torch.ones(4, 3),), device="cpu", **kw)
+
+    base = key()
+    assert key() == base
+    moved = []
+    with monkeypatch.context() as m:
+        m.setattr(torch, "__version__", torch.__version__ + "+other")
+        moved.append(key())
+    assert key() == base
+    with monkeypatch.context() as m:
+        m.setattr(torch.version, "cuda", "99.9")
+        moved.append(key())
+    assert key() == base
+    prec = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high" if prec != "high" else "highest")
+        moved.append(key())
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    assert key() == base
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = not tf32
+        moved.append(key())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert key() == base
+    # set_float32_matmul_precision("high") is allow_tf32 = True under
+    # another name: those two may share a key, each differs from base
+    assert base not in moved and len(set(moved[:2])) == 2, "every change must move the key"
+
+
+def test_store_key_names_the_card(monkeypatch):
+    """On a CUDA device the card's name is part of the key."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    names = iter(["NVIDIA H100 80GB HBM3", "NVIDIA H100 80GB HBM3", "NVIDIA A100-SXM4-80GB"])
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: next(names))
+    keys = [checkpoint.store_key("sweep", (torch.ones(2),), n_chunks=1, device="cuda")
+            for _ in range(3)]
+    assert keys[0] == keys[1] != keys[2]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_content_hash_matches_jax(seed):
     rng = np.random.default_rng(seed)
