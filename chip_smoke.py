@@ -15,7 +15,8 @@ result line):
    ``raft_tpu_torch`` with one nvcc each, all at once, prints ptxas'
    registers and spills (kept beside each library, so a run that only loads
    a built library prints them too), and builds (or loads) the BEM
-   wave-integral tables into ``raft_tpu_torch/_build/``;
+   wave-integral tables under the cache root
+   (``raft_tpu_torch/_build/cache/wavetable/`` by default);
 3. K1 against its plain PyTorch version on the card, numpy-seeded inputs at
    the sweep's call shape (250 designs x 200 frequencies) and at 1,000 x 200,
    in float64 and float32: random systems, a permutation matrix with w = 0
@@ -175,19 +176,29 @@ result line):
    ``RAFT_TPU_BEM=jax`` at full width (850 panels, 59 w), with the f32
    precision (the Model's BEM in float64) and with ``RAFT_TPU_BEM_PRECISION=
    bf16`` (float32, bf16 assembly), in process with K1/K3/K4 launches
-   counted and in a subprocess on the default device, held against each
-   other, the bf16-to-f32 gap printed; ``sweep``, ``dlc`` (with and
+   counted, the f32 run also in a subprocess on the default device, held
+   against each other, the bf16-to-f32 gap printed; ``sweep``, ``dlc`` (with and
    without ``--bem``) and ``optimize`` at small counts, five subprocesses
    at once with ``--plot`` into a temporary directory (where matplotlib is
    not installed, ``--plot`` must exit non-zero naming it);
-27. panel-solve copies: one solve and the refined solve's backward under
+27. the cache slice: ``python -m raft_tpu_torch.cache smoke`` in a
+   subprocess (two children on one fresh cache root: the second with
+   staging disk hits and no miss, neither building a library, the second
+   launching no K3/K4, the same bits, the ledger's K1 count the children's
+   K1 launches); then, armed in process, 5 K1 launches at 250 x 200 float32
+   timed by the ledger (best time within 0.5-2x of phase 3's, roofline
+   fraction phase 3's bound over it) and one scan chunk of the strip sweep
+   under CUDA's sync debug mode "error";
+28. panel-solve copies: one solve and the refined solve's backward under
    the profiler, no host-device copy and no synchronisation inside; two
    ``bem_fn`` steps after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-28. the sweeps and one gradient chunk again under ``torch.profiler``: device
+29. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
-   gradient chunk must run at least 75 device operations fewer than the same
-   chunk with the adjoint's transposed copies, profiled in the same call.
+   same gradient chunk with the adjoint's transposed copies, profiled in the
+   same call, must run at least 75 copy and negation kernels more (3
+   copies x 25 adjoint launches; a second pair of profiles, counted by
+   kernel).
 
 Every BEM solve here passes ``cache=False`` (the CLI phase's runs each get
 a result cache of their own in a temporary directory), so each phase runs
@@ -217,9 +228,6 @@ DESIGNS = ROOT / "raft_tpu" / "designs"
 
 # device clock cycles of the spin queued before each timed call (about 1 ms)
 SPIN_CYCLES = 2_000_000
-# H100 SXM peaks: HBM3 bytes/s and non-tensor-core FLOP/s (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 TOL = {"float64": 1e-12, "float32": 1e-5}
 # adjoint cotangents and co-design gradients, kernels against autograd
 # through the plain elimination (float64): the JAX package's bound between
@@ -239,14 +247,6 @@ BEM_TOL_PLAIN = 1e-10
 # roundoff; f32 at the JAX package's assembly-route bound INTERP_PARITY_RTOL
 TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
            "float32": {"rankine": 1e-4, "wave": 1e-4}}
-# floating-point operations of K3's function, each add, subtract,
-# multiply, negation, division, sqrt and rsqrt one (a fused multiply-add
-# two), counted for the function and not for the kernel's layout: per
-# pair of an unmasked source column, the two level selections and the
-# store; per subdivision point position and weight, once per (unmasked
-# source panel, point of a level that some pair of its column needs); per
-# contribution, one point source (potential + normal derivative)
-K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB = 22, 28, 22
 # the bf16 entries of K3/K4 against their plain versions on the same bf16
 # inputs, elementwise: both compute in float32 (TOL_BEM["float32"] apart)
 # and round once to bf16, so where their float32 results straddle a
@@ -256,144 +256,61 @@ BF16_STEP = 2.0 ** -7
 # the bf16 staging's A and B against the f32 staging: the JAX package's bound
 # for its bf16 mode against its f32 (tests/test_bem_tiles.py)
 BF16_PARITY = 0.1
-# a pair with a level of 36 or more points (level ids above 1) is a near
-# pair: bem_rankine.cu's kFarLevel, for the check of its near-pass count
-K3_FAR_LEVEL = 1
-# counted from bem_wave.cu: each add, subtract and multiply is one
-# operation (a fused multiply-add two), and so is each division, sqrt,
-# rsqrt and transcendental call (exp, log, log1p, atan2; sin and cos one
-# each, a sincos pair one); clamps, selects and shuffles are not counted,
-# and a sum over the 16 nodes counts its 15 adds.  Per image evaluation of
-# the wave integrals by region: near = 16 nodes x 105 (Horner series,
-# log, atan2, 1/|zeta|^2, the two weighted node terms) + the two node
-# sums + the finish; table, far (Bessel Y0/Y1 asymptotics), deep tail.
-# K4_FLOPS_NEAR_PAIR: the 16 nodes' X sin(theta_q) and sincos, once per
-# pair and frequency with any near image.  K4_FLOPS_DEEP: the deep-water
-# Green function around its one image (region test, e^Y, J0, J1);
-# K4_FLOPS_FD: the finite-depth one around its four images (per image 28:
-# region test, e^Y, pole part), 46 fit terms x 52, the "1" parts, the
-# radiated part and the seabed image; K4_FLOPS_COMBINE: the four outputs;
-# K4_FLOPS_PAIR: R, R_eff, once per pair and launch
-K4_FLOPS_REGION = {"near": 16 * 105 + 30 + 12, "table": 39, "far": 60, "deep": 11}
-K4_FLOPS_NEAR_PAIR = 32
-K4_FLOPS_DEEP, K4_FLOPS_FD, K4_FLOPS_COMBINE, K4_FLOPS_PAIR = 90, 277 + 46 * 52, 20, 8
+# The kernels' work counts and the card's peaks live beside the kernels
+# (core/cuda6.py::work, core/cuda_bem.py::k3_work and k4_work, the peaks
+# in obs/ledger.py), so this script's bounds and the performance ledger
+# count the same work.
 
-
-def k1_flops_per_system() -> int:
-    """Floating-point operations of one fused assemble+solve, counted from
-    solve6.cu: assembly, pivot magnitudes, elimination, back substitution."""
-    n = 6
-    flops = 2 * n * n                                     # Z.im = Z0.im + w * B
-    for k in range(n):
-        flops += 3 * (n - k) + 3                          # |.|^2 of candidates, den
-        flops += (n - 1 - k) * (8 + 8 * (n - k) + 8)      # factors, row, rhs
-    for k in range(n):
-        flops += 8 * (n - 1 - k) + 3 + 8                  # back substitution
-    return flops
+#: ``python -c`` payload: the CLI's ``main`` on its arguments, then one JSON
+#: line of what the process built, launched and found in its caches
+CLI_PROBE = """
+import json, sys
+from raft_tpu_torch import cli
+cli.main(sys.argv[1:])
+from raft_tpu_torch.cache import aot, stats
+from raft_tpu_torch.core import cuda6, cuda_bem
+from raft_tpu_torch.hydro import native_bem
+print(json.dumps({"compiles": aot.compile_count(),
+                  "launches": {**cuda6.LAUNCHES, **cuda_bem.LAUNCHES},
+                  "bem_results": dict(native_bem.CACHE_STATS),
+                  "warm_start": stats.report()}))
+"""
 
 
 def k1_bound_ms(n_designs: int, nw: int, itemsize: int, dtype_name: str):
     """Least time of one K1 call on the card: each input read once, each
     output written once, against the operations at the type's peak."""
-    n = n_designs * nw
-    nbytes = itemsize * (n * 36 * 2 + n * 6 * 2 + n * 6 * 2 + nw + n_designs * 36)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = n * k1_flops_per_system() / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.obs import ledger
+
+    w = cuda6.work(n_designs, nw, itemsize)
+    t, by = ledger.bound_s(w["flops"], w["bytes_accessed"], "NVIDIA H100", dtype_name)
+    return 1e3 * t, by
 
 
 def k2_bound_ms(n: int, itemsize: int, dtype_name: str):
     """Least time of one K2 call: 96 values per system (A and b read, x
     written) against K1's operations less the 72 of the drag assembly."""
-    t_bytes = itemsize * n * 96 / HBM_BYTES_PER_S
-    t_ops = n * (k1_flops_per_system() - 72) / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.obs import ledger
+
+    w = cuda6.work(n, 1, itemsize, fused=False)
+    t, by = ledger.bound_s(w["flops"], w["bytes_accessed"], "NVIDIA H100", dtype_name)
+    return 1e3 * t, by
 
 
-def k3_work(c, diag, panel_mask, lid_surface, itemsize: int, dtype_name: str) -> dict:
-    """Pairs per level (``hist``), contributions per pair, near pairs (a
-    level of 36 or more points), operations and bytes of K3's function on
-    these inputs, and its bound (``bound_ms``, ``bound_by``).  ``itemsize``
-    is the storage's (2 for the bf16 entry), ``dtype_name`` the arithmetic's
-    (``"float32"`` for bf16: bf16 storage is computed in float32, so there
-    is no bf16 peak to count against)."""
-    import torch
+def k3_work(*args) -> dict:
+    """:func:`raft_tpu_torch.core.cuda_bem.k3_work`."""
+    from raft_tpu_torch.core import cuda_bem
 
-    from raft_tpu_torch.hydro import torch_bem
-
-    n = c.shape[0]
-    sel_d, sel_i = torch_bem.pair_levels(c, diag, lid_surface)
-    count = torch.tensor((0,) + torch_bem.LEVEL_COUNT, device=c.device)   # id -1 -> 0
-    cd, ci = count[sel_d.long() + 1], count[sel_i.long() + 1]
-    near = (sel_d > K3_FAR_LEVEL) | (sel_i > K3_FAR_LEVEL)
-    col = (panel_mask > 0.5)[None, :]
-    points = sum(int((((sel_d == lv) | (sel_i == lv)) & col).any(dim=0).sum()) * nq
-                 for lv, nq in enumerate(torch_bem.LEVEL_COUNT))
-    contribs = int((cd + ci).sum())
-    flops = (n * int(col.sum()) * K3_FLOPS_PAIR + points * K3_FLOPS_POINT
-             + int(((cd + ci) * col).sum()) * K3_FLOPS_CONTRIB)
-    nbytes = itemsize * (12 * n + 3 * n + 3 * n + 4 * n + 3 * 766 + 2 * n * n) + n
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
-    hist = {"direct": torch.bincount(sel_d.flatten().long() + 1, minlength=6).tolist()[1:5],
-            "image": torch.bincount(sel_i.flatten().long() + 1, minlength=6).tolist()[1:]}
-    return {"hist": hist, "per_pair": contribs / (n * n), "near_pairs": int(near.sum()),
-            "near_share": float((cd + ci)[near].sum()) / contribs, "mflop": flops / 1e6,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return cuda_bem.k3_work(*args)
 
 
-def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name: str) -> dict:
-    """Operations and bytes of one K4 call on these inputs (each pair's
-    region of the wave integrals, per image and frequency), and its bound:
-    ``bound_ms``, ``bound_by``, ``ops_ms``, ``bytes_ms`` and ``regions``,
-    the image evaluations per region.  ``itemsize`` and ``dtype_name`` as in
-    :func:`k3_work` (2 and ``"float32"`` for the bf16 entry)."""
-    import torch
+def k4_work(*args) -> dict:
+    """:func:`raft_tpu_torch.core.cuda_bem.k4_work`."""
+    from raft_tpu_torch.core import cuda_bem
 
-    from raft_tpu_torch.hydro import wavetable
-
-    n, nf = c.shape[0], k.shape[0]
-    dx = c[:, None, 0] - c[None, :, 0]
-    dy = c[:, None, 1] - c[None, :, 1]
-    R = torch.sqrt(dx * dx + dy * dy + 1e-20)
-    diag_lid = torch.eye(n, dtype=torch.bool, device=c.device) & lid_surface[None, :]
-    R_use = torch.where(diag_lid, 0.4 * torch.sqrt(torch.clamp(area, min=1e-14))[None, :], R)
-    zP, zQ = c[:, 2][:, None], c[:, 2][None, :]
-    regions = dict.fromkeys(("near", "table", "far", "deep"), 0)
-
-    def split(X, Ys):
-        """Region counts of the images Ys at X; pairs with any near image."""
-        any_near = torch.zeros_like(X, dtype=torch.bool)
-        for Y in Ys:
-            rho = torch.sqrt(X * X + Y * Y + 1e-18)
-            near = rho < 0.6
-            far = ~near & (X >= wavetable.XMAX * (1.0 - 1e-7))
-            deep = ~near & ~far & (torch.log1p(-Y) >= wavetable.SMAX * (1.0 - 1e-7))
-            for key, sel in (("near", near), ("far", far), ("deep", deep),
-                             ("table", ~near & ~far & ~deep)):
-                regions[key] += int(sel.sum())
-            any_near |= near
-        return int(any_near.sum())
-
-    flops = K4_FLOPS_PAIR * n * n
-    for i in range(nf):
-        if fd is not None and float(fd["active"][i]) > 0.5:
-            k0 = float(fd["k0"][i])
-            d4 = (-(zP + zQ), 2 * depth - (zP - zQ), 2 * depth + (zP - zQ), 4 * depth + (zP + zQ))
-            near_pairs = split(k0 * R_use, [-k0 * d.expand(n, n) for d in d4])
-            flops += K4_FLOPS_FD * n * n
-        else:
-            kk = float(k[i])
-            near_pairs = split(kk * R_use, [kk * (zP + zQ)])
-            flops += K4_FLOPS_DEEP * n * n
-        flops += K4_FLOPS_COMBINE * n * n + K4_FLOPS_NEAR_PAIR * near_pairs
-    flops += sum(K4_FLOPS_REGION[key] * cnt for key, cnt in regions.items())
-    nbytes = itemsize * (2 * n * n + 9 * n + 2 * wavetable.NX * wavetable.NS + 44
-                         + nf * (4 + 2 * 46) + 4 * nf * n * n)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes, "regions": regions}
+    return cuda_bem.k4_work(*args)
 
 
 def write_capytaine_nc(path, w, A, B, F):
@@ -527,11 +444,15 @@ class Smoke:
         self.record_grad: dict = {}
         self.staged = None
         self.staged_std = None
+        self.cli_cold = None                 # phase "CLI"'s f32 subprocess, cold
+        self.cli_cold_root = None
         self.record_native: dict = {}
         self.native_coeffs = None
         self.record_batches: dict = {}
         self.record_bf16: dict = {}
         self.record_cli: dict = {}
+        self.record_cache: dict = {}
+        self.record_cache_ledger: dict = {}
         self.dlc_grid = None
         self.mixed_staged = None
         self._cases: dict = {}
@@ -588,7 +509,7 @@ class Smoke:
         t0 = time.perf_counter()
         tab = wavetable.load_tables()
         print(f"  wave tables {tab['I0'].shape} ready in {time.perf_counter() - t0:.2f} s "
-              f"(built, or loaded from raft_tpu_torch/_build/wavetable/)")
+              f"(built, or loaded from the cache root's wavetable/)")
 
     def _k1_inputs(self, case: str, B: int, nw: int, dtype, rng):
         from raft_tpu_torch.core.cplx import Cx
@@ -2490,7 +2411,7 @@ class Smoke:
         from raft_tpu_torch.serve.client import SolveClient
         from raft_tpu_torch.serve.config import ServeConfig
         from raft_tpu_torch.serve.server import SolverServer
-        from raft_tpu_torch.serve.solver import SolverCore, kernel_builds, solve_batch, solve_solo
+        from raft_tpu_torch.serve.solver import SolverCore, compiles, solve_batch, solve_solo
 
         torch = self.torch
         designs = ("oc3", "oc4", "volturnus")
@@ -2499,7 +2420,7 @@ class Smoke:
         server = None
         try:
             cuda6.build()                    # K1's library built or loaded before arming
-            builds0 = kernel_builds()
+            builds0 = compiles()
             # the daemon's defaults: 100 w (128 padded), 25 iterations, 8 lanes,
             # 25 ms, float64, the card
             cfg = ServeConfig(socket_path=os.path.join(tmp, "serve.sock"))
@@ -2520,7 +2441,7 @@ class Smoke:
             warm = server.warmup(designs)
             torch.cuda.synchronize()
             print(f"  warmup {warm} in {time.perf_counter() - t0:.3f} s")
-            self.check(len(warm) == 2 and kernel_builds() == builds0,
+            self.check(len(warm) == 2 and compiles() == builds0,
                        "serve: warmup arms two buckets, no kernel build")
             seas = [(6.0 + 0.5 * i, 9.0 + 0.5 * i) for i in range(8)]
             sched = {"n_hs": 2, "n_tp": 1}
@@ -2558,7 +2479,7 @@ class Smoke:
                   f"{seq_out['solves_per_s']} solves/s; ratio {ratio:.2f}; occupancy "
                   f"{occupancy}; server window p50 {tel['latency']['p50']} p99 "
                   f"{tel['latency']['p99']} (card: {nvidia_smi()})")
-            self.check(launches["fused"] > 0 and kernel_builds() == builds0,
+            self.check(launches["fused"] > 0 and compiles() == builds0,
                        "serve: the served path launched K1, no kernel build")
             ok = all(r["ok"] for *_x, r in solves) and dlc["ok"] and sw["ok"]
             self.check(ok, "serve: every request answered ok")
@@ -2640,10 +2561,10 @@ class Smoke:
                          - ready["kernel_launches_at_ready"]["fused"])
                 self.add_main({"fused": fused}, ("fused",))
                 children.append((ready, rows_c, rc, not os.path.exists(sock),
-                                 full_c["solver"]["kernel_builds"]))
+                                 full_c["solver"]["compiles"]))
                 print(f"  daemon child {k}: ready_s {ready['ready_s']} (spawn to ready "
-                      f"{ready['spawn_to_ready_s']} s), kernel_builds_at_ready "
-                      f"{ready['kernel_builds_at_ready']}, stream {info_c['wall_s']:.3f} s, "
+                      f"{ready['spawn_to_ready_s']} s), compiles_at_ready "
+                      f"{ready['compiles_at_ready']}, stream {info_c['wall_s']:.3f} s, "
                       f"K1 launches {fused}, exit {rc}")
             solo_rows = smoke.solo_reference(None, full_width=True)
             (r1, rows1, rc1, gone1, b1), (r2, rows2, rc2, gone2, b2) = children
@@ -2651,8 +2572,8 @@ class Smoke:
                        "serve: SIGTERM drains each child with exit 0, socket unlinked")
             self.check(rows1 == solo_rows and rows2 == rows1,
                        "serve: child rows == in-process solo rows, restart bit for bit")
-            self.check(r1["kernel_builds_at_ready"] == r2["kernel_builds_at_ready"] == 0
-                       and b1 == b2 == 0, "serve: no kernel build in either child")
+            self.check(r1["compiles_at_ready"] == r2["compiles_at_ready"] == 0
+                       and b1 == b2 == 0, "serve: no kernel build in either child (compiles 0)")
             self.serve_child_rows = rows1
         finally:
             if server is not None:
@@ -3098,14 +3019,42 @@ class Smoke:
     def _cli(self, args, env_extra, cwd=None):
         return self._cli_wait(self._cli_start(args, env_extra, cwd))
 
+    def _cli_probe(self, root: str):
+        """``volturn --bem --json`` (``RAFT_TPU_BEM=jax``, f32 precision) in
+        a fresh process on the default device at cache root ``root``,
+        through :data:`CLI_PROBE`: (exit code, the CLI's JSON, the process's
+        builds, launches and cache counts, wall s, stderr tail)."""
+        import os
+
+        env = {**os.environ, "PYTHONPATH": str(ROOT), "RAFT_TPU_BEM": "jax",
+               "RAFT_TPU_BEM_PRECISION": "f32", "RAFT_TPU_TORCH_CACHE_DIR": root}
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([sys.executable, "-c", CLI_PROBE, "volturn", "--bem", "--json"],
+                                  env=env, capture_output=True, text=True, timeout=600)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = "timeout", str(e.stdout or ""), str(e.stderr or "")
+        wall = time.perf_counter() - t0
+        res = diag = None
+        try:
+            lines = out.strip().splitlines()
+            res, diag = json.loads(lines[-2]), json.loads(lines[-1])
+        except (ValueError, IndexError):
+            pass
+        return rc, res, diag, wall, err[-2000:]
+
     def phase_cli(self):
         """The port's CLI on the card: ``analyze volturn --bem --json`` with
         ``RAFT_TPU_BEM=jax``, the slice's full-width path (850 panels, 1,024
         class, 59 w), once with the f32 precision (the Model solves its BEM
         in float64) and once with ``RAFT_TPU_BEM_PRECISION=bf16`` (float32,
-        bf16 assembly): in process, launches counted (main paths), and in a
-        subprocess on the default device, held against the in-process run;
-        the bf16-to-f32 gap printed.  Then ``sweep``, ``dlc`` and
+        bf16 assembly): in process, launches counted (main paths); the f32
+        run also in a subprocess on the default device at a fresh cache root
+        holding the wave tables (kept for phase "cache"'s warm run), held
+        against the in-process run; the bf16-to-f32 gap printed.  Each in-process run
+        enables the cache (``main`` does) at a root of its own, and the
+        phase disables it after.  Then ``sweep``, ``dlc`` and
         ``optimize`` at small counts and ``--plot`` into a temporary
         directory, each in a subprocess whose exit code must be 0."""
         import contextlib as _ctx
@@ -3113,10 +3062,27 @@ class Smoke:
         import os
         import tempfile
 
-        from raft_tpu_torch import cli
+        import shutil
+
+        from raft_tpu_torch import cache, cli
+        from raft_tpu_torch.hydro import wavetable
 
         torch = self.torch
         runs = {}
+        tables = wavetable.cache_dir()
+        wavetable.load_tables()                 # built once in phase "build"
+
+        def fresh_root(name: str) -> str:
+            """A result cache of its own for a subprocess, holding the wave
+            tables already built, as a user's cache root does after its
+            first BEM solve: the subprocess measures the CLI's start-up,
+            not the tables' one-time build (21-24 s on a root without them:
+            they follow the cache root, as the JAX package's do; the cache
+            smoke's cold child measures that build)."""
+            root = Path(tmp) / name
+            shutil.copytree(tables, root / "wavetable")
+            return str(root)
+
         with tempfile.TemporaryDirectory() as tmp:
             for prec in ("f32", "bf16"):
                 env = {"RAFT_TPU_BEM": "jax", "RAFT_TPU_BEM_PRECISION": prec,
@@ -3135,13 +3101,30 @@ class Smoke:
                     self.add_main(self.counts(), ("fused", "rankine", "wave", "rankine_bf16",
                                                   "wave_bf16"))
                 finally:
+                    cache.disable()             # main enabled the cache at this run's root
                     for k, v in saved.items():
                         if v is None:
                             os.environ.pop(k, None)
                         else:
                             os.environ[k] = v
-                env["RAFT_TPU_TORCH_CACHE_DIR"] = str(Path(tmp) / f"cache-sub-{prec}")
-                rc, last, wall, err = self._cli(["volturn", "--bem", "--json"], env)
+                want = ({"rankine_bf16", "wave_bf16", "fused"} if prec == "bf16"
+                        else {"rankine", "wave", "fused"})
+                if prec == "bf16":
+                    # the f32 subprocess below measures the CLI's start-up; a
+                    # second one at bf16 would repeat it
+                    runs[prec] = (res, None, t_in, None, launches)
+                    print(f"  cli volturn --bem --json, RAFT_TPU_BEM=jax, precision bf16: in "
+                          f"process {t_in:.2f} s, launches {launches}")
+                    self.check(set(launches) == want and res["response"]["converged"],
+                               f"cli analyze volturn --bem (bf16): kernels {sorted(want)} "
+                               f"launched, converged")
+                    continue
+                # a root that outlives the phase: phase "cache" runs the same
+                # command again on it, warm
+                self.cli_cold_root = tempfile.mkdtemp(prefix="raft_torch_cli_root_")
+                shutil.copytree(tables, Path(self.cli_cold_root) / "wavetable")
+                rc, last, diag, wall, err = self._cli_probe(self.cli_cold_root)
+                self.cli_cold = (rc, last, diag, wall, err)
                 runs[prec] = (res, last, t_in, wall, launches)
                 ok = rc == 0 and last is not None
                 d_p = d_s = float("inf")
@@ -3149,8 +3132,6 @@ class Smoke:
                     d_p = self._rel(np.asarray(last["eigen"]["periods"]), res["eigen"]["periods"])
                     d_s = self._rel(np.asarray(last["response"]["std dev"]),
                                     res["response"]["std dev"])
-                want = ({"rankine_bf16", "wave_bf16", "fused"} if prec == "bf16"
-                        else {"rankine", "wave", "fused"})
                 print(f"  cli volturn --bem --json, RAFT_TPU_BEM=jax, precision {prec}: in "
                       f"process {t_in:.2f} s, launches {launches}; subprocess rc {rc}, "
                       f"{wall:.2f} s; subprocess against in-process: periods {d_p:.2e}, "
@@ -3180,7 +3161,7 @@ class Smoke:
             plot_dir.mkdir()
             jobs = [(args, self._cli_start(args, {
                         "RAFT_TPU_BEM": "jax",
-                        "RAFT_TPU_TORCH_CACHE_DIR": str(Path(tmp) / f"cache-{i}")}))
+                        "RAFT_TPU_TORCH_CACHE_DIR": fresh_root(f"cache-{i}")}))
                     for i, args in enumerate((
                         ["sweep", "volturn", "-n", "16", *small],
                         ["dlc", "volturn", "--cases", str(cases), *small],
@@ -3216,6 +3197,256 @@ class Smoke:
                     print(err)
                 self.check(rc == 0 and pngs == ["raft_tpu_platform.png", "raft_tpu_raos.png"],
                            "cli --plot writes the platform and RAO figures")
+
+    def phase_cache(self):
+        """The cache slice.  (1) ``python -m raft_tpu_torch.cache smoke`` on
+        the card in a subprocess (two children on one fresh root: warm
+        staging hits, no library built in either, no K3/K4 launch in the
+        warm child, the same bits, the ledger's K1 count the children's K1
+        launches).  (2) The full-width warm start: phase "CLI"'s
+        ``volturn --bem --json`` subprocess (850 panels, 1,024 class, 59 w)
+        run again on its root: the panel solve a result-cache hit, no
+        K3/K4 launch, no library built in either, the same JSON bit for
+        bit; both walls.  (3) In process with the cache enabled at a
+        temporary root: 5 K1 launches at the north star's chunk shape (250
+        x 200, float32), each after an L2 flush behind a device spin, timed
+        by the ledger's events: its best time within 0.5-2x of phase "K1 vs
+        plain"'s time; its roofline fraction that phase's bound over the
+        best time (one work count and one peak table on both sides: an
+        identity of the arithmetic, which the time check tests).  (4) The
+        armed ledger's cost on the card's panel solve at the CLI's width
+        (``Model.calcBEM`` without the result cache, unarmed and armed in
+        turns) and one armed ``solve_panels`` under CUDA's sync debug mode
+        "error", each of its K3/K4 launches timed.  (5) One scan chunk of
+        the strip sweep (16 DLC cases, 25 iterations) armed under sync debug
+        "error" (the ledger adds no sync); then the cache is disabled."""
+        import os
+        import shutil
+        import tempfile
+
+        from raft_tpu_torch import cache
+        from raft_tpu_torch.core import cuda6, cuda_bem
+        from raft_tpu_torch.hydro import torch_bem, wavetable
+        from raft_tpu_torch.hydro.mesh import mesh_design
+        from raft_tpu_torch.model import Model, load_design
+        from raft_tpu_torch.obs import ledger
+        from raft_tpu_torch.parallel.sweep import (_case_slice, _make_dlc_case_fn, _volturnus,
+                                                   make_wave_states)
+
+        torch = self.torch
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        env.pop("RAFT_TPU_TORCH_CACHE_DIR", None)
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([sys.executable, "-m", "raft_tpu_torch.cache", "smoke"],
+                                  cwd=str(ROOT), env=env, capture_output=True, text=True,
+                                  timeout=420)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = "timeout", e.stdout or "", e.stderr or ""
+        wall = time.perf_counter() - t0
+        res = None
+        try:
+            res = json.loads(out.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            print(str(err)[-3000:])
+        if res is not None:
+            self.record_cache = {k: res.get(k) for k in (
+                "cold_wall_s", "warm_wall_s", "parent_build_s", "cold_staging", "warm_staging",
+                "warm_staging_by_category", "warm_kernels", "launches", "k1_ledger_count",
+                "k1_launches")}
+            print(f"  cache smoke (subprocess, {wall:.1f} s): rc {rc}; cold child "
+                  f"{res['cold_wall_s']} s, warm child {res['warm_wall_s']} s; warm staging "
+                  f"{res['warm_staging']}, by call site {res['warm_staging_by_category']}; "
+                  f"warm kernels {res['warm_kernels']}")
+            print(f"    launches {res['launches']}; ledger solve6_fused count "
+                  f"{res['k1_ledger_count']} for {res['k1_launches']} K1 launches")
+            print(f"    phases cold {res['cold_phases_s']}, warm {res['warm_phases_s']}")
+            for e in res["ledger"]:
+                print(f"    ledger {e}")
+            for key in ("warm_staging_disk_hits", "warm_staging_no_miss", "warm_staging_saved_s",
+                        "zero_compiles_both_children", "cold_bem_through_k3_k4",
+                        "warm_no_k3_k4", "outputs_bit_identical",
+                        "ledger_counts_k1_launches"):
+                self.check(bool(res.get(key)), f"cache smoke: {key}")
+        self.check(rc == 0 and res is not None and res.get("ok") is True,
+                   "cache smoke: python -m raft_tpu_torch.cache smoke exits 0 with ok")
+
+        # the full-width warm start: the CLI's panel solve, a second process
+        root = self.cli_cold_root
+        try:
+            if self.cli_cold is None:
+                root = tempfile.mkdtemp(prefix="raft_torch_cli_root_")
+                wavetable.load_tables()
+                shutil.copytree(wavetable.cache_dir(), Path(root) / "wavetable")
+                self.cli_cold = self._cli_probe(root)
+            cold, warm = self.cli_cold, self._cli_probe(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            self.cli_cold_root = None
+        for label, (rc, _res, diag, wall_s, err) in (("cold", cold), ("warm", warm)):
+            lau = {k: v for k, v in (diag or {}).get("launches", {}).items() if v}
+            print(f"  cli volturn --bem --json, {label} (fresh process, one root): rc {rc}, "
+                  f"{wall_s:.2f} s; compiles {(diag or {}).get('compiles')}, launches {lau}, "
+                  f"panel-solve results {(diag or {}).get('bem_results')}, warm start "
+                  f"{(diag or {}).get('warm_start')}")
+            if rc != 0 or diag is None:
+                print(err)
+        ok = all(r[0] == 0 and r[1] is not None and r[2] is not None for r in (cold, warm))
+        self.check(ok and cold[2]["launches"]["rankine"] >= 1 and cold[2]["launches"]["wave"] >= 1
+                   and cold[2]["bem_results"]["miss"] >= 1,
+                   "cache, full width: the cold CLI process solves its panels through K3/K4")
+        self.check(ok and warm[2]["launches"]["rankine"] == warm[2]["launches"]["wave"] == 0
+                   and warm[2]["bem_results"]["hit"] >= 1 and warm[2]["bem_results"]["miss"] == 0,
+                   "cache, full width: the warm CLI process hits its panel solve, no K3/K4 launch")
+        self.check(ok and cold[2]["compiles"] == warm[2]["compiles"] == 0,
+                   "cache, full width: no library built in either CLI process")
+        self.check(ok and json.dumps(cold[1], sort_keys=True) == json.dumps(warm[1], sort_keys=True),
+                   "cache, full width: the warm CLI's JSON equals the cold one's bit for bit")
+        self.record_cli_warm = {"cold_s": cold[3], "warm_s": warm[3]}
+
+        root = tempfile.mkdtemp(prefix="raft_torch_cache_phase_")
+        try:
+            cache.enable(root)
+            ledger.reset()
+            rng = np.random.default_rng(20261017)
+            B, nw = 250, self.nw
+            Z0, w, Bd, F = self._k1_inputs("random", B, nw, torch.float32, rng)
+            cuda6.solve_rao(Z0, w, Bd, F)            # warm-up, its timing dropped
+            torch.cuda.synchronize()
+            ledger.reset()
+            torch.cuda._sleep(SPIN_CYCLES)           # the host runs ahead of the events
+            for _ in range(5):
+                self._flush.zero_()
+                cuda6.solve_rao(Z0, w, Bd, F)
+            ledger.resolve(sync=True)
+            (agg,) = [a for a in ledger.pending() if a["entry"] == "solve6_fused"]
+            ledger.flush()
+            summary = ledger.summary()
+            print(f"  ledger after 5 K1 launches at {B}x{nw} float32: {json.dumps(summary)}")
+            k1_ms = self.record.get("ms")
+            if k1_ms is None:
+                k1_ms = self.time_ms(lambda: cuda6.solve_rao(Z0, w, Bd, F))
+            bound_ms = self.record.get("bound_ms") or k1_bound_ms(B, nw, 4, "float32")[0]
+            best_ms = 1e3 * agg["best_s"]
+            frac = ledger.fraction(agg)
+            print(f"    best {best_ms:.5f} ms, mean {1e3 * agg['total_s'] / agg['count']:.5f} ms "
+                  f"against phase K1's {k1_ms:.5f} ms (ratio {best_ms / k1_ms:.3f}); roofline "
+                  f"fraction {frac:.6f} against bound/best {bound_ms / best_ms:.6f}")
+            self.check(agg["count"] == 5 and 0.5 <= best_ms / k1_ms <= 2.0,
+                       "cache: the ledger's K1 best time within 0.5-2x of phase K1's time")
+            self.check(abs(frac - bound_ms / best_ms) <= 1e-9,
+                       "cache: the ledger's roofline fraction == phase K1's bound / best (1e-9; "
+                       "one work count and peak table on both sides, an identity)")
+            self.record_cache_ledger = {"best_ms": best_ms, "k1_ms": k1_ms, "fraction": frac,
+                                        "count": agg["count"]}
+
+            # the armed ledger on the card's panel solve at the CLI's width
+            design = load_design(DESIGNS / "VolturnUS-S.yaml")
+            w_cli = np.arange(0.05, 3.0, 0.05)
+            model = Model(design, w=w_cli, BEM="jax", device=self.dev)
+
+            def calc(armed: bool) -> float:
+                if armed:
+                    cache.enable(root)
+                else:
+                    cache.disable()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                model.calcBEM(cache=False)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t
+
+            calc(True)                               # first use of this shape, dropped
+            times = {True: [], False: []}
+            for armed in (False, True, True, False):
+                times[armed].append(calc(armed))
+            cache.enable(root)
+            ledger.flush()
+            cost = float(np.mean(times[True]) - np.mean(times[False]))
+            print(f"  Model.calcBEM (VolturnUS-S, 1,024 class, 59 w, no result cache) in turns: "
+                  f"unarmed {[round(t, 4) for t in times[False]]} s, armed "
+                  f"{[round(t, 4) for t in times[True]]} s; the armed ledger costs "
+                  f"{cost * 1e3:.1f} ms a solve")
+            self.record_cache_ledger["calcbem_s"] = {"unarmed": times[False],
+                                                     "armed": times[True]}
+
+            panels = mesh_design(design)
+            padded, pm, lm = torch_bem.pad_mesh(panels, None)
+            depth = float(design["mooring"]["water_depth"])
+            staged = torch_bem.stage_inputs(padded, pm, lm, w_cli, [0.0],
+                                            wavetable.fd_fit_grid(w_cli, depth, 9.81),
+                                            finite_depth=True, dtype=torch.float64,
+                                            device=self.dev)
+            kw = dict(tab=torch_bem.stage_tables(wavetable.load_tables(), torch.float64,
+                                                 self.dev),
+                      depth=depth, finite_depth=True, dtype=torch.float64, device=self.dev)
+            torch_bem.solve_panels(**staged, **kw)
+            torch.cuda.synchronize()
+            ledger.flush()
+            n0 = dict(cuda_bem.LAUNCHES)
+            raised = None
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                torch_bem.solve_panels(**staged, **kw)
+            except RuntimeError as e:
+                raised = str(e)[:300]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            n_k3 = cuda_bem.LAUNCHES["rankine"] - n0["rankine"]
+            n_k4 = cuda_bem.LAUNCHES["wave"] - n0["wave"]
+            ledger.resolve(sync=True)
+            timed = {e: sum(a["count"] for a in ledger.pending() if a["entry"] == e)
+                     for e in ("bem_rankine", "bem_wave")}
+            print(f"  one armed solve_panels (850 panels, 59 w, float64) under sync debug "
+                  f"\"error\": {raised or 'no synchronisation'}; K3 {n_k3}, K4 {n_k4} launches, "
+                  f"timed by the ledger {timed}")
+            self.check(raised is None and n_k3 == timed["bem_rankine"] == 1
+                       and n_k4 == timed["bem_wave"] >= 1,
+                       "cache: the armed ledger adds no synchronisation to the panel solve and "
+                       "times each of its K3/K4 launches")
+            ledger.flush()
+
+            # one scan chunk of the strip sweep, armed, under sync debug "error"
+            f64 = torch.float64
+            _d, members, rna, env_, _wave, C = _volturnus(nw, f64, self.dev)
+            hs_tp = np.stack([np.linspace(2.0, 10.0, 8), np.linspace(7.0, 15.0, 8)], axis=1)
+            cases = np.array([[hs, tp, b] for hs, tp in hs_tp
+                              for b in np.linspace(0, np.pi / 2, 8)])
+            waves = make_wave_states(np.linspace(0.05, 2.95, nw), cases, env_.depth, dtype=f64,
+                                     device=self.dev)
+            run = _make_dlc_case_fn(members, rna, env_, C, None, 25, dtype=f64, device=self.dev)
+            sub = _case_slice(waves, slice(0, 16))
+            with torch.no_grad():
+                run(sub, None, None)
+            torch.cuda.synchronize()
+            ledger.flush()
+            raised = None
+            n0 = cuda6.LAUNCHES["fused"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.no_grad():
+                    run(sub, None, None)
+            except RuntimeError as e:
+                raised = str(e)[:300]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            n_k1 = cuda6.LAUNCHES["fused"] - n0
+            ledger.resolve(sync=True)
+            timed = sum(a["count"] for a in ledger.pending() if a["entry"] == "solve6_fused")
+            print(f"  one strip scan chunk (16 cases, 25 iterations, float64) armed under sync "
+                  f"debug \"error\": {raised or 'no synchronisation'}; K1 launches {n_k1}, "
+                  f"timed by the ledger {timed}")
+            self.check(raised is None and n_k1 == 25 and timed == 25,
+                       "cache: the armed ledger adds no synchronisation to a scan chunk "
+                       "and times each of its K1 launches")
+            ledger.flush()
+        finally:
+            cache.disable()
+            ledger.reset()
+            shutil.rmtree(root, ignore_errors=True)
 
     def phase_solve_copies(self):
         """solve_panels copies nothing from the host and never waits for the
@@ -3327,6 +3558,22 @@ class Smoke:
               f"{[float(g) for g in grads]}")
         self.check(not hc.ops and not syncs and bool(torch.isfinite(torch.stack(grads)).all()),
                    "bem_fn steps: no host-to-device copy, no synchronisation")
+
+    def _count_device_ops(self, fn) -> dict:
+        """Device operations (kernels, copies) of one run of ``fn`` under
+        ``torch.profiler``, by kernel, counted as :meth:`_profile` counts
+        them."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and (getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0)) > 0}
 
     def _profile(self, label: str, fn, kernels: dict, wall_key: tuple, split: str | None = None):
         """Where a run's time goes: a second, warm run under torch.profiler
@@ -3440,7 +3687,12 @@ class Smoke:
         # the same chunk with the adjoint solve on materialized Z0^T, -Z0.im^T
         # and -B_drag^T (what the kernel's adjoint mode reads in place): the
         # count moves by tens between calls, so both runs share this call
+        layouts = []
+
         def with_copies(Z0, w, B_drag, G):
+            if not layouts:
+                layouts.append((tuple(Z0.re.shape), Z0.re.stride(), tuple(B_drag.shape),
+                                B_drag.stride()))
             ZH = Cx(Z0.re.transpose(-1, -2).contiguous(), (-Z0.im.transpose(-1, -2)).contiguous())
             return cuda6.solve_rao(ZH, w, (-B_drag.transpose(-1, -2)).contiguous(), G)
 
@@ -3450,12 +3702,30 @@ class Smoke:
             n_copies = self._profile(label + " with the adjoint's transposed copies", grad_chunk,
                                      {"K1": K1}, (self.record_grad, ("chunk_ms",)),
                                      split="codesign backward")
+            by_copies = self._count_device_ops(grad_chunk)
         finally:
             cuda6.solve_rao_adjoint = orig
-        self.check(n_copies - n_dev >= 75,
-                   f"gradient chunk: {n_dev} device operations, {n_copies - n_dev} fewer than "
-                   f"with the transposed copies ({n_copies}; at least 3 copies x 25 adjoint "
-                   f"launches)")
+        by_dev = self._count_device_ops(grad_chunk)
+        diff = {k: by_copies.get(k, 0) - by_dev.get(k, 0) for k in set(by_copies) | set(by_dev)}
+        print(f"  the adjoint's inputs (shape, strides): {layouts[:1]}; device operations by "
+              f"kernel, with the copies less without (a second pair of profiles, "
+              f"{sum(by_copies.values())} against {sum(by_dev.values())}):")
+        for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:8]:
+            if v:
+                print(f"    {v:+6d}  {k[:110]}")
+        # the chunk's other operations come in two counts that differ by
+        # about 70 between processes and between runs of one process
+        # (18,167-18,173 and 18,240-18,241 in the same code), so the check
+        # counts the kernels the transposed copies launch: a copy for each
+        # of Z0^T, -Z0.im^T and -B_drag^T, and the two negations
+        copies = sum(v for k, v in diff.items()
+                     if "direct_copy_kernel" in k or "neg_kernel" in k)
+        print(f"  gradient chunk: {n_dev} device operations against {n_copies} with the "
+              f"transposed copies (the whole chunk, the profiles above)")
+        self.check(copies >= 75,
+                   f"gradient chunk: the transposed copies add {copies} copy and negation "
+                   f"kernels to the chunk that K1's adjoint mode does without (at least 3 "
+                   f"copies x 25 adjoint launches)")
 
     def run(self, only=None) -> int:
         torch = self.torch
@@ -3486,6 +3756,7 @@ class Smoke:
                   ("bf16 assembly", self.phase_bf16),
                   ("BEM inputs", self.phase_bem_inputs),
                   ("CLI", self.phase_cli),
+                  ("cache", self.phase_cache),
                   ("panel-solve copies", self.phase_solve_copies),
                   ("profile", self.phase_profile)]
         if only is not None:
@@ -3504,6 +3775,10 @@ class Smoke:
                 traceback.print_exc()
                 self.failures.append(f"phase {name} raised")
             print(f"   ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if self.cli_cold_root is not None:         # phase "CLI" ran without phase "cache"
+            import shutil
+
+            shutil.rmtree(self.cli_cold_root, ignore_errors=True)
         print(f"all phases: {time.perf_counter() - t_run:.1f} s", flush=True)
         if self.failures:
             print("FAILED: " + "; ".join(self.failures), file=sys.stderr)

@@ -16,13 +16,14 @@ to the card's panel BEM (kernels K3/K4; ``RAFT_TPU_BEM_PRECISION=bf16``
 then assembles in bfloat16 on a float32 solve, the Model rule of
 :func:`raft_tpu_torch.hydro.torch_bem.model_solve_dtype`).
 
-The JAX package's CLI first enables its warm-start cache (the persistent
-compile cache and the AOT executable registry).  The port has no AOT
-registry (it runs eagerly; the registry belongs to ROADMAP.md queue 1,
-item 7.2, the cache slice), so this module enables nothing: the BEM result caches of
-:mod:`raft_tpu_torch.hydro.native_bem` and
-:func:`raft_tpu_torch.hydro.torch_bem.solve_bem_jax` apply as they do to
-any call.
+:func:`main` first enables the cache (:func:`raft_tpu_torch.cache.enable`;
+``RAFT_TPU_TORCH_CACHE_DIR=off`` opts out), as the JAX package's CLI
+does: the WAMIT parse is staged through the content-addressed staging
+cache, and each kernel launch is timed into the per-kernel performance
+ledger, flushed under the cache root when :func:`main` returns.  The BEM
+result caches of :mod:`raft_tpu_torch.hydro.native_bem` and
+:func:`raft_tpu_torch.hydro.torch_bem.solve_bem_jax` follow the same
+root and apply as they do to any call.
 """
 from __future__ import annotations
 
@@ -324,6 +325,19 @@ def _clean(o):
 
 
 def main(argv=None):
+    # warm-start layers: the staging cache and the kernels' ledger
+    # (RAFT_TPU_TORCH_CACHE_DIR=off opts out)
+    from raft_tpu_torch import cache
+    from raft_tpu_torch.obs import ledger
+
+    cache.enable()
+    try:
+        return _main(argv)
+    finally:
+        ledger.flush()           # this run's kernel timings persist under the root
+
+
+def _main(argv):
     argv = list(sys.argv[1:] if argv is None else argv)
     # subcommand dispatch; a design file named like a subcommand still wins,
     # because an existing path is analyzed

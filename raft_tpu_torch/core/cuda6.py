@@ -40,39 +40,67 @@ the elimination itself is never differentiated.
 
 ``LAUNCHES`` counts kernel launches per entry: ``fused`` and ``plain`` in
 the forward solves, ``fused_adjoint`` and ``plain_adjoint`` in the adjoint
-ones.
+ones.  :func:`work` counts a launch's operations and bytes from its shapes
+alone; while the cache is enabled each launch is timed into the
+per-kernel performance ledger (:mod:`raft_tpu_torch.obs.ledger`, entries
+``solve6_fused`` and ``solve6_plain``) with CUDA events, without a wait.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from raft_tpu_torch.core import linalg6, nvcc
 from raft_tpu_torch.core.cplx import Cx
+from raft_tpu_torch.obs import ledger
 
 #: kernel launches per entry (the plain PyTorch path is never counted)
 LAUNCHES = {"fused": 0, "plain": 0, "fused_adjoint": 0, "plain_adjoint": 0}
 
-SPEC = nvcc.Spec("solve6", "solve6.cu", ("-fmad=false",))
-_FUSED_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
-_PLAIN_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-_lib = None
-_lib_lock = threading.Lock()
+_FUSED_SIGNATURE = (ctypes.c_void_p,) * 8 + (ctypes.c_longlong,) * 3 + (ctypes.c_void_p,)
+_PLAIN_SIGNATURE = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
+SPEC = nvcc.Spec("solve6", "solve6.cu", ("-fmad=false",), (
+    ("solve6_fused_f32", _FUSED_SIGNATURE, None), ("solve6_fused_f64", _FUSED_SIGNATURE, None),
+    ("solve6_plain_f32", _PLAIN_SIGNATURE, None), ("solve6_plain_f64", _PLAIN_SIGNATURE, None)))
+
+
+def k1_flops_per_system() -> int:
+    """Floating-point operations of one fused assemble+solve, counted from
+    solve6.cu: assembly, pivot magnitudes, elimination, back substitution."""
+    n = 6
+    flops = 2 * n * n                                     # Z.im = Z0.im + w * B
+    for k in range(n):
+        flops += 3 * (n - k) + 3                          # |.|^2 of candidates, den
+        flops += (n - 1 - k) * (8 + 8 * (n - k) + 8)      # factors, row, rhs
+    for k in range(n):
+        flops += 8 * (n - 1 - k) + 3 + 8                  # back substitution
+    return flops
+
+
+def work(n_designs: int, nw: int, itemsize: int, fused: bool = True) -> dict:
+    """Operations and bytes of one launch, from its shapes alone: each
+    input read once, each output written once.  K1 (``fused``) solves
+    ``n_designs x nw`` systems, reading Z0 and F per system, ``w`` once and
+    B_drag per design; K2 solves ``n_designs x nw`` systems of 96 values
+    (A and b read, x written) with K1's operations less the 72 of the drag
+    assembly."""
+    n = n_designs * nw
+    if fused:
+        return {"flops": float(n * k1_flops_per_system()),
+                "bytes_accessed": float(itemsize * (n * 36 * 2 + n * 6 * 2 + n * 6 * 2 + nw
+                                                    + n_designs * 36))}
+    return {"flops": float(n * (k1_flops_per_system() - 72)),
+            "bytes_accessed": float(itemsize * n * 96)}
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library, once
-    per process: threads that reach it together load it once."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = nvcc.load(SPEC, {"solve6_fused_f32": _FUSED_SIGNATURE,
-                                    "solve6_fused_f64": _FUSED_SIGNATURE,
-                                    "solve6_plain_f32": _PLAIN_SIGNATURE,
-                                    "solve6_plain_f64": _PLAIN_SIGNATURE})
-    return _lib
+    """The kernel library, through the kernel-library registry: built once
+    per key, opened once per process (threads that reach it together open
+    it once)."""
+    from raft_tpu_torch.cache import aot
+
+    return aot.library(SPEC)
 
 
 def _check_tensors(tensors, names: str):
@@ -147,10 +175,13 @@ def _solve_rao(Z0: Cx, w, B_drag, F: Cx, adjoint: bool = False) -> Cx:
         return Cx(xr, xi)
     lib = build()
     fn = lib.solve6_fused_f64 if Z0.re.dtype == torch.float64 else lib.solve6_fused_f32
-    err = fn(Z0.re.data_ptr(), Z0.im.data_ptr(), w.data_ptr(), B_drag.data_ptr(),
-             F.re.data_ptr(), F.im.data_ptr(), xr.data_ptr(), xi.data_ptr(),
-             n, nw, int(adjoint), nvcc.stream_of(dev))
-    nvcc.check(err, "solve6_fused")
+    dt = str(Z0.re.dtype).removeprefix("torch.")
+    with ledger.launch("solve6_fused", f"{n // nw}x{nw}:{dt}{':adjoint' * adjoint}", dt, dev,
+                       lambda: work(n // nw, nw, Z0.re.element_size())):
+        err = fn(Z0.re.data_ptr(), Z0.im.data_ptr(), w.data_ptr(), B_drag.data_ptr(),
+                 F.re.data_ptr(), F.im.data_ptr(), xr.data_ptr(), xi.data_ptr(),
+                 n, nw, int(adjoint), nvcc.stream_of(dev))
+        nvcc.check(err, "solve6_fused")
     LAUNCHES["fused_adjoint" if adjoint else "fused"] += 1
     return Cx(xr, xi)
 
@@ -169,9 +200,12 @@ def _solve_cx(A: Cx, b: Cx, adjoint: bool = False) -> Cx:
         return Cx(xr, xi)
     lib = build()
     fn = lib.solve6_plain_f64 if A.re.dtype == torch.float64 else lib.solve6_plain_f32
-    err = fn(A.re.data_ptr(), A.im.data_ptr(), b.re.data_ptr(), b.im.data_ptr(),
-             xr.data_ptr(), xi.data_ptr(), n, int(adjoint), nvcc.stream_of(dev))
-    nvcc.check(err, "solve6_plain")
+    dt = str(A.re.dtype).removeprefix("torch.")
+    with ledger.launch("solve6_plain", f"{n}:{dt}{':adjoint' * adjoint}", dt, dev,
+                       lambda: work(n, 1, A.re.element_size(), fused=False)):
+        err = fn(A.re.data_ptr(), A.im.data_ptr(), b.re.data_ptr(), b.im.data_ptr(),
+                 xr.data_ptr(), xi.data_ptr(), n, int(adjoint), nvcc.stream_of(dev))
+        nvcc.check(err, "solve6_plain")
     LAUNCHES["plain_adjoint" if adjoint else "plain"] += 1
     return Cx(xr, xi)
 

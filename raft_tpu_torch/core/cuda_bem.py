@@ -38,16 +38,26 @@ versions (:func:`raft_tpu_torch.hydro.torch_bem.rankine_plain`,
 with an input that requires grad they raise, since neither kernel has a
 backward (:func:`raft_tpu_torch.core.nvcc.refuse_grad`).  Each has the
 signature of its plain version.  ``LAUNCHES`` counts kernel launches; the
-libraries are built by ``nvcc`` at first use (:mod:`raft_tpu_torch.core.nvcc`).
+libraries are built by ``nvcc`` at first use through the kernel-library
+registry (:mod:`raft_tpu_torch.core.nvcc`, :mod:`raft_tpu_torch.cache.aot`).
+
+:func:`k3_work` and :func:`k4_work` count the operations and bytes of a
+launch's function on its inputs (the work depends on the data: each pair's
+subdivision level in K3, each image's region of the wave integrals in
+K4), and its least time on the card.  While the cache is enabled each
+launch is timed into the per-kernel performance ledger
+(:mod:`raft_tpu_torch.obs.ledger`) with CUDA events; the counts it reads
+(:func:`k3_counts`, :func:`k4_counts`) are computed on the card before the
+launch and reach the host without a wait.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from raft_tpu_torch.core import nvcc
+from raft_tpu_torch.obs import ledger
 
 Tensor = torch.Tensor
 
@@ -56,31 +66,228 @@ LAUNCHES = {"rankine": 0, "wave": 0, "rankine_bf16": 0, "wave_bf16": 0}
 #: the C entries' suffix for each storage dtype
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
-RANKINE = nvcc.Spec("bem_rankine", "bem_rankine.cu")
-WAVE = nvcc.Spec("bem_wave", "bem_wave.cu")
-
 _P, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
-_RANKINE_SIG = [_P] * 11 + [_I, _P, _P, _P, _I, _P, _P]
-_WAVE_SIG = ([_P] * 12 + [_I, _I, _D, _D] + [_P] * 6 + [_I, _I, _I, _I, _D]
-             + [_P] * 4 + [_P])
-_libs: dict = {}
-_libs_lock = threading.Lock()
+_RANKINE_SIG = (_P,) * 11 + (_I, _P, _P, _P, _I, _P, _P)
+_WAVE_SIG = ((_P,) * 12 + (_I, _I, _D, _D) + (_P,) * 6 + (_I, _I, _I, _I, _D)
+             + (_P,) * 4 + (_P,))
+RANKINE = nvcc.Spec("bem_rankine", "bem_rankine.cu", (), tuple(
+    (f"bem_rankine_{x}", _RANKINE_SIG, None) for x in _SUFFIX.values()) + tuple(
+    (f"bem_rankine_workspace_{x}", (_I,), _I) for x in _SUFFIX.values()))
+WAVE = nvcc.Spec("bem_wave", "bem_wave.cu", (), tuple(
+    (f"bem_wave_{x}", _WAVE_SIG, None) for x in _SUFFIX.values()))
+
+
+def _lib(spec: nvcc.Spec):
+    """One of the two libraries, through the kernel-library registry; a
+    build compiles both at once."""
+    from raft_tpu_torch.cache import aot
+
+    return aot.library(spec, (RANKINE, WAVE))
 
 
 def build() -> dict:
-    """Compile (once per source hash) and load both kernel libraries, once
-    per process: threads that reach it together load them once."""
-    with _libs_lock:
-        if not _libs:
-            nvcc.compile_all([RANKINE, WAVE])
-            lib = nvcc.load(RANKINE, {f"bem_rankine_{x}": _RANKINE_SIG
-                                      for x in _SUFFIX.values()})
-            for x in _SUFFIX.values():
-                fn = getattr(lib, f"bem_rankine_workspace_{x}")
-                fn.argtypes, fn.restype = [_I], _I
-            wave = nvcc.load(WAVE, {f"bem_wave_{x}": _WAVE_SIG for x in _SUFFIX.values()})
-            _libs.update(rankine=lib, wave=wave)
-    return _libs
+    """Both kernel libraries (built once per key, with one ``nvcc`` each
+    started together, and opened once per process)."""
+    return {"rankine": _lib(RANKINE), "wave": _lib(WAVE)}
+
+
+# floating-point operations of K3's function, each add, subtract,
+# multiply, negation, division, sqrt and rsqrt one (a fused multiply-add
+# two), counted for the function and not for the kernel's layout: per
+# pair of an unmasked source column, the two level selections and the
+# store; per subdivision point position and weight, once per (unmasked
+# source panel, point of a level that some pair of its column needs); per
+# contribution, one point source (potential + normal derivative)
+K3_FLOPS_PAIR, K3_FLOPS_POINT, K3_FLOPS_CONTRIB = 22, 28, 22
+# a pair with a level of 36 or more points (level ids above 1) is a near
+# pair: bem_rankine.cu's kFarLevel
+K3_FAR_LEVEL = 1
+# counted from bem_wave.cu: each add, subtract and multiply is one
+# operation (a fused multiply-add two), and so is each division, sqrt,
+# rsqrt and transcendental call (exp, log, log1p, atan2; sin and cos one
+# each, a sincos pair one); clamps, selects and shuffles are not counted,
+# and a sum over the 16 nodes counts its 15 adds.  Per image evaluation of
+# the wave integrals by region: near = 16 nodes x 105 (Horner series,
+# log, atan2, 1/|zeta|^2, the two weighted node terms) + the two node
+# sums + the finish; table, far (Bessel Y0/Y1 asymptotics), deep tail.
+# K4_FLOPS_NEAR_PAIR: the 16 nodes' X sin(theta_q) and sincos, once per
+# pair and frequency with any near image.  K4_FLOPS_DEEP: the deep-water
+# Green function around its one image (region test, e^Y, J0, J1);
+# K4_FLOPS_FD: the finite-depth one around its four images (per image 28:
+# region test, e^Y, pole part), 46 fit terms x 52, the "1" parts, the
+# radiated part and the seabed image; K4_FLOPS_COMBINE: the four outputs;
+# K4_FLOPS_PAIR: R, R_eff, once per pair and launch
+K4_FLOPS_REGION = {"near": 16 * 105 + 30 + 12, "table": 39, "far": 60, "deep": 11}
+K4_FLOPS_NEAR_PAIR = 32
+K4_FLOPS_DEEP, K4_FLOPS_FD, K4_FLOPS_COMBINE, K4_FLOPS_PAIR = 90, 277 + 46 * 52, 20, 8
+
+
+def _bound(flops, nbytes, dtype_name: str) -> dict:
+    """The least time of ``flops`` and ``nbytes`` on the card (the ledger's
+    H100 peaks)."""
+    t_ops = flops / ledger.PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / ledger.HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes}
+
+
+def k3_bytes(n: int, itemsize: int) -> int:
+    """Bytes of one K3 call: its inputs read once (the lid flags a byte
+    each), its two (n, n) outputs written once."""
+    return itemsize * (12 * n + 3 * n + 3 * n + 4 * n + 3 * 766 + 2 * n * n) + n
+
+
+def k3_counts(c: Tensor, diag: Tensor, panel_mask: Tensor, lid_surface: Tensor) -> dict:
+    """K3's data-dependent counts as tensors on the inputs' device, with no
+    wait for it: the pairs' level ids ``sel_d``, ``sel_i``, their points
+    per pair ``cd``, ``ci``, the unmasked columns ``col`` and the
+    operations ``flops`` (int64)."""
+    from raft_tpu_torch.hydro import torch_bem
+
+    n = c.shape[0]
+    sel_d, sel_i = torch_bem.pair_levels(c, diag, lid_surface)
+
+    def points_of(sel):                      # level id -1 has no points
+        return sum(torch.where(sel == lv, nq, 0) for lv, nq in
+                   enumerate(torch_bem.LEVEL_COUNT))
+
+    cd, ci = points_of(sel_d), points_of(sel_i)
+    col = (panel_mask > 0.5)[None, :]
+    points = sum((((sel_d == lv) | (sel_i == lv)) & col).any(dim=0).sum() * nq
+                 for lv, nq in enumerate(torch_bem.LEVEL_COUNT))
+    flops = (n * col.sum() * K3_FLOPS_PAIR + points * K3_FLOPS_POINT
+             + ((cd + ci) * col).sum() * K3_FLOPS_CONTRIB)
+    return {"sel_d": sel_d, "sel_i": sel_i, "cd": cd, "ci": ci, "col": col, "flops": flops}
+
+
+def k3_work(c, diag, panel_mask, lid_surface, itemsize: int, dtype_name: str) -> dict:
+    """Pairs per level (``hist``), contributions per pair, near pairs (a
+    level of 36 or more points), operations and bytes of K3's function on
+    these inputs, and its bound (``bound_ms``, ``bound_by``).  ``itemsize``
+    is the storage's (2 for the bf16 entry), ``dtype_name`` the arithmetic's
+    (``"float32"`` for bf16: bf16 storage is computed in float32, so there
+    is no bf16 peak to count against).  Reads the counts back to the host."""
+    n = c.shape[0]
+    k = k3_counts(c, diag, panel_mask, lid_surface)
+    sel_d, sel_i, cd, ci = k["sel_d"], k["sel_i"], k["cd"], k["ci"]
+    near = (sel_d > K3_FAR_LEVEL) | (sel_i > K3_FAR_LEVEL)
+    contribs = int((cd + ci).sum())
+    flops = int(k["flops"])
+    hist = {"direct": torch.bincount(sel_d.flatten().long() + 1, minlength=6).tolist()[1:5],
+            "image": torch.bincount(sel_i.flatten().long() + 1, minlength=6).tolist()[1:]}
+    b = _bound(flops, k3_bytes(n, itemsize), dtype_name)
+    return {"hist": hist, "per_pair": contribs / (n * n), "near_pairs": int(near.sum()),
+            "near_share": float((cd + ci)[near].sum()) / contribs, "mflop": flops / 1e6,
+            "flops": flops, "bytes_accessed": k3_bytes(n, itemsize),
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+
+
+def k4_bytes(n: int, nf: int, itemsize: int) -> int:
+    """Bytes of one K4 call on ``nf`` frequencies: its inputs read once,
+    its four (nf, n, n) outputs written once."""
+    from raft_tpu_torch.hydro import wavetable
+
+    return itemsize * (2 * n * n + 9 * n + 2 * wavetable.NX * wavetable.NS + 44
+                       + nf * (4 + 2 * 46) + 4 * nf * n * n)
+
+
+#: image evaluations a block of :func:`k4_counts` holds at once (bounds its
+#: temporaries to a few hundred MB at the 2,048 class)
+K4_COUNT_BLOCK = 1 << 24
+
+
+def k4_counts(c: Tensor, area: Tensor, lid_surface: Tensor, k: Tensor, fd, depth: float,
+              fd_active=None) -> dict:
+    """K4's data-dependent counts as int64 tensors on the inputs' device,
+    with no wait for it: ``regions``, the image evaluations per region of
+    the wave integrals, and ``flops``.  A frequency whose finite-depth fit
+    is active (``fd["active"]``) evaluates its four images, the others
+    their deep-water image.  ``fd_active``, the same branches as host
+    booleans where the caller has them, evaluates only each frequency's
+    own branch; without it both are evaluated and weighted on the card.
+    Frequencies are evaluated in blocks, a few launches per block."""
+    from raft_tpu_torch.hydro import torch_bem, wavetable
+
+    n, nf = c.shape[0], k.shape[0]
+    dx = c[:, None, 0] - c[None, :, 0]
+    dy = c[:, None, 1] - c[None, :, 1]
+    R = torch.sqrt(dx * dx + dy * dy + 1e-20)
+    diag_lid = torch.eye(n, dtype=torch.bool, device=c.device) & lid_surface[None, :]
+    R_use = torch.where(diag_lid, 0.4 * torch.sqrt(torch.clamp(area, min=1e-14))[None, :], R)
+    zP, zQ = c[:, 2][:, None], c[:, 2][None, :]
+    zero = torch.zeros((), dtype=torch.int64, device=c.device)
+    regions = dict.fromkeys(("near", "table", "far", "deep"), zero)
+    flops = zero + K4_FLOPS_PAIR * n * n
+    if fd is None:
+        act = None
+        fd_active = [False] * nf
+    else:
+        act = (fd["active"] > 0.5).long()
+        d4 = torch.stack((-(zP + zQ), 2 * depth - (zP - zQ), 2 * depth + (zP - zQ),
+                          4 * depth + (zP + zQ)))                     # (4, n, n)
+    # (lo, hi, branches): "deep", "fd" or both, weighted by act on the card
+    runs = ([(0, nf, ("deep", "fd"))] if fd is not None and fd_active is None else
+            [(lo, hi, ("fd",) if on else ("deep",))
+             for lo, hi, on in torch_bem._runs(fd_active)])
+
+    def split(X, Y, on):
+        """Add the region counts of the images Y (m, nimg, n, n) at X
+        (m, 1, n, n), frequency m weighted by ``on`` (m,); the near pairs
+        of each frequency (m,), any image near."""
+        rho = torch.sqrt(X * X + Y * Y + 1e-18)
+        near = rho < 0.6
+        far = ~near & (X >= wavetable.XMAX * (1.0 - 1e-7))
+        deep = ~near & ~far & (torch.log1p(-Y) >= wavetable.SMAX * (1.0 - 1e-7))
+        for key, sel in (("near", near), ("far", far), ("deep", deep),
+                         ("table", ~near & ~far & ~deep)):
+            regions[key] = regions[key] + (sel.sum(dim=(1, 2, 3)) * on).sum()
+        return near.any(dim=1).sum(dim=(1, 2)) * on
+
+    for lo, hi, branches in runs:
+        for b in ("deep", "fd"):
+            if b not in branches:
+                continue
+            nimg = 1 if b == "deep" else 4
+            step = max(1, K4_COUNT_BLOCK // (nimg * n * n))
+            for a in range(lo, hi, step):
+                sl = slice(a, min(a + step, hi))
+                m = sl.stop - sl.start
+                ones = torch.ones(m, dtype=torch.int64, device=c.device)
+                if b == "deep":
+                    on = ones if act is None or len(branches) == 1 else 1 - act[sl]
+                    kk = k[sl][:, None, None, None]
+                    near_pairs = split(kk * R_use, kk * (zP + zQ)[None, None], on)
+                    flops = flops + (on * K4_FLOPS_DEEP * n * n).sum()
+                else:
+                    on = ones if len(branches) == 1 else act[sl]
+                    k0 = fd["k0"][sl][:, None, None, None]
+                    near_pairs = split(k0 * R_use, -k0 * d4[None], on)
+                    flops = flops + (on * K4_FLOPS_FD * n * n).sum()
+                flops = flops + (K4_FLOPS_NEAR_PAIR * near_pairs).sum()
+    flops = flops + K4_FLOPS_COMBINE * n * n * nf
+    flops = flops + sum(K4_FLOPS_REGION[key] * cnt for key, cnt in regions.items())
+    return {"regions": regions, "flops": flops}
+
+
+def k4_work(c, area, lid_surface, k, fd, depth: float, itemsize: int, dtype_name: str,
+            fd_active=None) -> dict:
+    """Operations and bytes of one K4 call on these inputs (each pair's
+    region of the wave integrals, per image and frequency), and its bound:
+    ``bound_ms``, ``bound_by``, ``ops_ms``, ``bytes_ms`` and ``regions``,
+    the image evaluations per region.  ``itemsize`` and ``dtype_name`` as in
+    :func:`k3_work` (2 and ``"float32"`` for the bf16 entry).  Reads the
+    counts back to the host."""
+    counts = k4_counts(c, area, lid_surface, k, fd, depth, fd_active)
+    flops = int(counts["flops"])
+    nbytes = k4_bytes(c.shape[0], k.shape[0], itemsize)
+    return {**_bound(flops, nbytes, dtype_name), "flops": flops, "bytes_accessed": nbytes,
+            "regions": {key: int(v) for key, v in counts["regions"].items()}}
+
+
+def _arith(dtype) -> str:
+    """The arithmetic's dtype name (bf16 storage computes in float32)."""
+    return "float64" if dtype == torch.float64 else "float32"
 
 
 def _checked(dev: torch.device, dtype, **tensors) -> dict:
@@ -152,26 +359,37 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
     lids = lid_surface.contiguous()
     R_pot = torch.empty((n, n), dtype=dtype, device=dev)
     R_dn = torch.empty_like(R_pot)
-    lib = build()["rankine"]
+    lib = _lib(RANKINE)
     words = getattr(lib, f"bem_rankine_workspace_{_SUFFIX[dtype]}")(n)
     if words < 0:
         raise RuntimeError("bem_rankine: the launch could not be planned on this device")
     work = torch.empty(words, dtype=torch.int32, device=dev)
     fn = getattr(lib, f"bem_rankine_{_SUFFIX[dtype]}")
-    err = fn(*(a[k].data_ptr() for k in ("pans", "c", "nrm", "area", "diag", "mask")),
-             lids.data_ptr(), *(a[k].data_ptr() for k in ("spot", "us", "vs", "wf")),
-             n, R_pot.data_ptr(), R_dn.data_ptr(), work.data_ptr(), words,
-             None if near_count is None else near_count.data_ptr(), nvcc.stream_of(dev))
-    nvcc.check(err, "bem_rankine")
+    bf16 = dtype == torch.bfloat16
+
+    def counted():
+        up = {key: a[key].float() if bf16 else a[key] for key in ("c", "diag", "mask")}
+        return {"flops": k3_counts(up["c"], up["diag"], up["mask"], lids)["flops"],
+                "bytes_accessed": float(k3_bytes(n, c.element_size()))}
+
+    with ledger.launch("bem_rankine_bf16" if bf16 else "bem_rankine",
+                       f"n{n}:{_SUFFIX[dtype]}", _arith(dtype), dev, counted):
+        err = fn(*(a[k].data_ptr() for k in ("pans", "c", "nrm", "area", "diag", "mask")),
+                 lids.data_ptr(), *(a[k].data_ptr() for k in ("spot", "us", "vs", "wf")),
+                 n, R_pot.data_ptr(), R_dn.data_ptr(), work.data_ptr(), words,
+                 None if near_count is None else near_count.data_ptr(), nvcc.stream_of(dev))
+        nvcc.check(err, "bem_rankine")
     LAUNCHES["rankine_bf16" if dtype == torch.bfloat16 else "rankine"] += 1
     return R_pot, R_dn
 
 
 def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Tensor,
                   panel_mask: Tensor, lid_surface: Tensor, tab: dict, k: Tensor,
-                  fd: dict | None, *, finite_depth: bool, depth: float):
+                  fd: dict | None, *, finite_depth: bool, depth: float, fd_active=None):
     """K4: ``(S_re, S_im, Dn_re, Dn_im)`` (nf, n, n) for one frequency chunk;
-    see :func:`raft_tpu_torch.hydro.torch_bem.wave_plain` for the arguments."""
+    see :func:`raft_tpu_torch.hydro.torch_bem.wave_plain` for the arguments
+    (``fd_active``, the fit's branches on the host where the caller has
+    them, only makes the armed ledger's counts cheaper)."""
     from raft_tpu_torch.hydro import torch_bem, wavetable
 
     dev, dtype = c.device, c.dtype
@@ -211,15 +429,28 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
     outs = [torch.empty((nf, n, n), dtype=dtype, device=dev) for _ in range(4)]
     if nf == 0:
         return tuple(outs)
-    lib = build()["wave"]
+    lib = _lib(WAVE)
     fn = getattr(lib, f"bem_wave_{_SUFFIX[dtype]}")
     ptr = {key: t.data_ptr() for key, t in a.items()}
-    err = fn(ptr["Rp"], ptr["Rdn"], ptr["c"], ptr["nrm"], ptr["area"], ptr["mask"],
-             ptr["lids"], ptr["I0"], ptr["I1"], ptr["node_s"], ptr["node_w"], ptr["coef"],
-             wavetable.NX, wavetable.NS, float(wavetable.XMAX), float(wavetable.SMAX),
-             ptr["k"], ptr["k0"], ptr["A0"], ptr["active"], ptr["lam"], ptr["a"],
-             nl, n, nf, int(bool(finite_depth)), float(depth),
-             *(o.data_ptr() for o in outs), nvcc.stream_of(dev))
-    nvcc.check(err, "bem_wave")
+    bf16 = dtype == torch.bfloat16
+
+    def counted():
+        up = {key: a[key].float() if bf16 else a[key] for key in ("c", "area", "k")}
+        fit = ({key: fd[key].float() if bf16 else fd[key] for key in ("active", "k0")}
+               if finite_depth else None)
+        return {"flops": k4_counts(up["c"], up["area"], lid_surface, up["k"], fit,
+                                   float(depth), fd_active if finite_depth else None)["flops"],
+                "bytes_accessed": float(k4_bytes(n, nf, c.element_size()))}
+
+    with ledger.launch("bem_wave_bf16" if bf16 else "bem_wave",
+                       f"n{n}xf{nf}:{'fd' if finite_depth else 'deep'}:{_SUFFIX[dtype]}",
+                       _arith(dtype), dev, counted):
+        err = fn(ptr["Rp"], ptr["Rdn"], ptr["c"], ptr["nrm"], ptr["area"], ptr["mask"],
+                 ptr["lids"], ptr["I0"], ptr["I1"], ptr["node_s"], ptr["node_w"], ptr["coef"],
+                 wavetable.NX, wavetable.NS, float(wavetable.XMAX), float(wavetable.SMAX),
+                 ptr["k"], ptr["k0"], ptr["A0"], ptr["active"], ptr["lam"], ptr["a"],
+                 nl, n, nf, int(bool(finite_depth)), float(depth),
+                 *(o.data_ptr() for o in outs), nvcc.stream_of(dev))
+        nvcc.check(err, "bem_wave")
     LAUNCHES["wave_bf16" if dtype == torch.bfloat16 else "wave"] += 1
     return tuple(outs)

@@ -1,36 +1,38 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each kernel source in ``raft_tpu_torch/csrc/`` has a plain C interface and
-becomes one shared library in ``raft_tpu_torch/_build/``, named by a hash of
-the source and the flags, so a changed source is rebuilt and an unchanged
-one is loaded as it is.  :func:`compile_all` starts one ``nvcc`` per
-missing library, all at once, and waits for them; :func:`load` builds one
-library if needed and opens it.  Each build's compiler output (``-Xptxas
--v``: registers and spills per kernel) is kept beside its library as
-``lib<name>-<hash>.log``, and :func:`build_log` reads it back whether the
-library was built in this process or loaded.  :func:`run_jobs`, the step
-that runs the compilers and publishes their outputs atomically, also
-builds the host panel solver with ``g++``
-(:mod:`raft_tpu_torch.hydro.native_bem`, which retries it through
-:func:`raft_tpu_torch.resilience.retry.retry_call`).  A compiler that
-fails or outlives its timeout (``RAFT_TPU_BUILD_TIMEOUT``) raises
+becomes one shared library in ``raft_tpu_torch/_build/``.  A :class:`Spec`
+is a library of the kernel-library registry
+(:mod:`raft_tpu_torch.cache.aot`): it names its file by a key of the
+source, the flags, the target, the ``nvcc`` version, the torch and CUDA
+versions and the card, so a change to any of them rebuilds and an
+unchanged library is opened as it is.  The registry builds each library
+once per key, opens it once per process and counts the builds
+(:func:`build_counts` is a view of its counts).  :func:`compile_all`
+starts one ``nvcc`` per missing library, all at once, and waits for them.
+Each build's compiler output (``-Xptxas -v``: registers and spills per
+kernel) is kept beside its library as ``lib<name>-<key>.log``, and
+:func:`build_log` reads it back whether the library was built in this
+process or loaded.
+:func:`run_jobs`, the step that runs the compilers and publishes their
+outputs atomically, also builds the host panel solver with ``g++``
+(:mod:`raft_tpu_torch.hydro.native_bem`).  A compiler that fails or
+outlives its timeout (``RAFT_TPU_BUILD_TIMEOUT``) raises
 :class:`~raft_tpu_torch.resilience.retry.SubprocessFailed` with a
 redacted tail of its stderr; the ``hang_subprocess`` fault spec swaps a
 compiler for a process that sleeps past the timeout.
-:func:`build_counts` reports the libraries this process compiled and
-opened (the ``obs`` block's ``kernel_builds``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -41,49 +43,87 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the compiler's timeout when ``RAFT_TPU_BUILD_TIMEOUT`` is unset
 DEFAULT_TIMEOUT_S = 900.0
 
-_counts_lock = threading.Lock()
-_build_counts: dict = {}         # library name -> {"compiled": n, "loaded": n}
-
-
-def _library_name(so: Path) -> str:
-    """``lib<name>-<hash>.so`` -> ``<name>``."""
-    return so.stem.rsplit("-", 1)[0].removeprefix("lib")
-
-
-def note(so: Path, event: str) -> None:
-    """Count one ``"compiled"`` or ``"loaded"`` event of a library."""
-    with _counts_lock:
-        c = _build_counts.setdefault(_library_name(Path(so)), {"compiled": 0, "loaded": 0})
-        c[event] += 1
+#: the target every kernel library is built for
+TARGET = "sm_90a"
 
 
 def build_counts() -> dict:
     """Per library, the builds this process ran and the times it opened
-    the library."""
-    with _counts_lock:
-        return {k: dict(v) for k, v in sorted(_build_counts.items())}
+    the library (a view of :mod:`raft_tpu_torch.cache.aot`'s counts)."""
+    from raft_tpu_torch.cache import aot
+
+    built, opened = aot.compile_counts(), aot.open_counts()
+    return {tag: {"compiled": built.get(tag, 0), "loaded": opened.get(tag, 0)}
+            for tag in sorted(set(built) | set(opened))}
+
+
+@functools.cache
+def _tool_version(tool: str) -> str:
+    """What ``tool --version`` prints, or ``"unknown"``: a key salt, so a
+    new compiler rebuilds every library."""
+    try:
+        out = subprocess.run([tool, "--version"], capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return "unknown"
+    return out.stdout.strip() if out.returncode == 0 else "unknown"
+
+
+@functools.cache
+def _runtime_salts() -> tuple:
+    """The torch and CUDA versions and the card's name."""
+    import torch
+
+    card = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "no card"
+    return (torch.__version__, str(torch.version.cuda), card)
 
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
-    """One kernel library: ``name``, its source in ``csrc/`` and the flags
-    added to :data:`NVCC_FLAGS`."""
+    """One kernel library: ``name``, its source in ``csrc/``, the flags
+    added to :data:`NVCC_FLAGS`, and its C entry points ``signatures``
+    (``(entry, argtypes, restype)``; ``restype`` None means a
+    cudaError_t).  A library of the registry (:mod:`raft_tpu_torch.cache.
+    aot`): ``tag``, ``key``, ``path``, ``job`` and ``open``."""
 
     name: str
     source: str
     extra_flags: tuple = ()
+    signatures: tuple = ()
+    retries = 1
+    timeout_s = DEFAULT_TIMEOUT_S
+
+    @property
+    def tag(self) -> str:
+        return self.name
 
     @property
     def flags(self) -> tuple:
         return NVCC_FLAGS + tuple(self.extra_flags)
 
-    def path(self) -> Path:
-        src = (CSRC / self.source).read_bytes()
-        key = hashlib.sha256(src + " ".join(self.flags).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{key}.so"
+    def key(self) -> str:
+        h = hashlib.sha256((CSRC / self.source).read_bytes())
+        for part in (" ".join(self.flags), TARGET, _tool_version(_nvcc()), *_runtime_salts()):
+            h.update(b"\0" + str(part).encode())
+        return h.hexdigest()[:16]
+
+    def path(self, key: str | None = None) -> Path:
+        return BUILD_DIR / f"lib{self.name}-{key or self.key()}.so"
 
     def log_path(self) -> Path:
         return self.path().with_suffix(".log")
+
+    def job(self, path) -> "Job":
+        path = Path(path)
+        return Job(self.source, (_nvcc(), *self.flags, str(CSRC / self.source)), path,
+                   path.with_suffix(".log"))
+
+    def open(self, path) -> ctypes.CDLL:
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes, restype in self.signatures:
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int if restype is None else restype
+        return lib
 
 
 def _nvcc() -> str:
@@ -146,7 +186,6 @@ def run_jobs(jobs, timeout: float | None = None) -> None:
                 if job.log is not None:
                     job.log.write_text(err)
                 os.replace(tmp, job.so)
-                note(job.so, "compiled")
         if failed:
             raise retry.SubprocessFailed("build failed", kind, detail="\n".join(failed))
     finally:
@@ -160,12 +199,11 @@ def run_jobs(jobs, timeout: float | None = None) -> None:
 
 def compile_all(specs) -> None:
     """Compile every spec whose library is missing, one ``nvcc`` each, all
-    started together; raises if any build fails."""
-    missing = [spec for spec in specs if not spec.path().exists()]
-    if missing:
-        nvcc = _nvcc()
-        run_jobs([Job(spec.source, (nvcc, *spec.flags, str(CSRC / spec.source)), spec.path(),
-                      spec.log_path()) for spec in missing])
+    started together (through the registry, which counts the builds);
+    raises if any build fails."""
+    from raft_tpu_torch.cache import aot
+
+    aot.prepare(specs)
 
 
 def build_log(spec: Spec) -> str | None:
@@ -173,19 +211,6 @@ def build_log(spec: Spec) -> str | None:
     library was built before its log was kept."""
     log = spec.log_path()
     return log.read_text() if log.exists() else None
-
-
-def load(spec: Spec, signatures: dict) -> ctypes.CDLL:
-    """Build ``spec`` if needed and open it; ``signatures`` maps each C
-    entry point to its ``argtypes`` (every entry returns a cudaError_t)."""
-    compile_all([spec])
-    lib = ctypes.CDLL(str(spec.path()))
-    note(spec.path(), "loaded")
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def stream_of(device) -> int:

@@ -124,18 +124,38 @@ def load_wamit_coeffs(path1: str, path3: str, w_grid, rho=1025.0, g=9.81,
     """Read + dimensionalize + interpolate: returns (A, B, F) on w_grid,
     ready for ``Model(design, BEM=(A, B, F))``.  Multi-heading .3 files:
     pass ``heading`` (deg) to select one; default takes the first heading
-    (the reference reader's behavior, hams/pyhams.py:325-359)."""
-    w1, A_bar, B_bar = read_wamit1(path1)
-    w3, _hds, _, _, re, im = read_wamit3(path3, heading=heading)
-    if re.ndim == 3:                   # multi-heading, none selected
-        re, im = re[0], im[0]
-    A, B, F = dimensionalize(w1, A_bar, B_bar, re, im, rho=rho, g=g)
-    if len(w1) != len(w3) or not np.allclose(w1, w3):
-        F = interp_to_grid(w3, F, w1)
-    return (
-        interp_to_grid(w1, A, w_grid),
-        interp_to_grid(w1, B, w_grid),
-        interp_to_grid(w1, F, w_grid),
+    (the reference reader's behavior, hams/pyhams.py:325-359).
+
+    When the cache is enabled (:func:`raft_tpu_torch.cache.enable`) the
+    staged (A, B, F) arrays are memoized on disk
+    (:func:`raft_tpu_torch.cache.staging.cached_arrays`, category
+    ``"wamit_coeffs"``) keyed by the two files' CONTENTS, the grid, the
+    constants and the heading, so a repeat process skips the parse and the
+    interpolation; editing either file re-keys the entry.
+    """
+    from raft_tpu_torch.cache import staging
+
+    def _compute():
+        w1, A_bar, B_bar = read_wamit1(path1)
+        w3, _hds, _, _, re, im = read_wamit3(path3, heading=heading)
+        if re.ndim == 3:                   # multi-heading, none selected
+            re, im = re[0], im[0]
+        A, B, F = dimensionalize(w1, A_bar, B_bar, re, im, rho=rho, g=g)
+        if len(w1) != len(w3) or not np.allclose(w1, w3):
+            F = interp_to_grid(w3, F, w1)
+        return (
+            interp_to_grid(w1, A, w_grid),
+            interp_to_grid(w1, B, w_grid),
+            interp_to_grid(w1, F, w_grid),
+        )
+
+    if not staging.config.is_enabled():
+        return _compute()
+    return staging.cached_arrays(
+        "wamit_coeffs",
+        (staging.FileKey(path1), staging.FileKey(path3), np.asarray(w_grid, dtype=float),
+         float(rho), float(g), None if heading is None else float(heading)),
+        _compute,
     )
 
 

@@ -12,20 +12,24 @@ torch.
 
 * **Build.** ``g++ -O3 -march=native -fopenmp -shared -fPIC`` at first use
   into ``raft_tpu_torch/_build/``, the library named by a hash of the
-  source, the flags and the host's CPU (what ``-march=native`` compiles
-  for), published atomically by :func:`raft_tpu_torch.core.nvcc.run_jobs`,
-  as the JAX package builds its solver: a hard timeout on the compiler
+  source, the flags, the host's CPU (what ``-march=native`` compiles
+  for) and the ``g++`` version, built and opened through the
+  kernel-library registry (:mod:`raft_tpu_torch.cache.aot`, which counts
+  the build and opens the library once per process) and published
+  atomically by :func:`raft_tpu_torch.core.nvcc.run_jobs`, as the JAX
+  package builds its solver: a hard timeout on the compiler
   (``RAFT_TPU_BUILD_TIMEOUT``, default 300 s) and one bounded retry with
-  backoff (:func:`raft_tpu_torch.resilience.retry.retry_call`).  A build
-  that fails twice raises with the compiler's redacted stderr tail; it is
-  never skipped.
+  backoff.  A build that fails twice raises with the compiler's redacted
+  stderr tail; it is never skipped.
 * **Wave table.** The solver's I0/I1 table (1600 x 320, built once per
   host in about 10 s on 8 cores) is cached beside the library as
   ``native_wavetable-<hash>.bin``, published by the solver through a
   temporary file and ``rename``.
 * **Result cache.** :func:`solve_bem` results are content-addressed npz
-  files under :func:`cache_root` (``RAFT_TPU_TORCH_CACHE_DIR``, else
-  ``raft_tpu_torch/_build/cache``), in namespaces of the port's own
+  files under :func:`raft_tpu_torch.cache.config.cache_root`
+  (``RAFT_TPU_TORCH_CACHE_DIR``, else ``raft_tpu_torch/_build/cache``;
+  ``off`` turns off only the warm-start layers, and these files then stay
+  at the default root), in namespaces of the port's own
   (``torch-bem``; the on-device route's is ``torch-bem-jax``) and keyed
   with :data:`PORT_TAG` and the library's hash, published atomically; a
   corrupt file is a miss and is deleted.  ``CACHE_STATS`` counts hits,
@@ -39,7 +43,6 @@ import hashlib
 import os
 import platform
 import tempfile
-import threading
 from pathlib import Path
 
 import numpy as np
@@ -51,12 +54,8 @@ BUILD_DIR = nvcc.BUILD_DIR
 GXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
 #: salt of every result-cache key of the port
 PORT_TAG = "raft_tpu_torch"
-CACHE_ENV = "RAFT_TPU_TORCH_CACHE_DIR"
 #: result-cache outcomes in this process (a corrupt file counts as a miss too)
 CACHE_STATS = {"hit": 0, "miss": 0, "corrupt": 0}
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 @functools.cache
@@ -72,11 +71,12 @@ def _host_tag() -> str:
 
 
 def lib_key() -> str:
-    """Hash of the source, the flags and the host: the library's name and
-    the salt of its results."""
+    """Hash of the source, the flags, the host and the ``g++`` version:
+    the library's name and the salt of its results."""
     h = hashlib.sha256(SRC.read_bytes())
     h.update(" ".join(GXX_FLAGS).encode())
     h.update(_host_tag().encode())
+    h.update(nvcc._tool_version("g++").encode())
     return h.hexdigest()[:16]
 
 
@@ -89,74 +89,77 @@ def table_path() -> Path:
     return BUILD_DIR / f"native_wavetable-{lib_key()}.bin"
 
 
-def build() -> Path:
-    """Compile the library unless it exists; returns its path.  Two
-    attempts, each under the build timeout, 2 s apart."""
-    so = lib_path()
-    if so.exists():
-        return so
-    from raft_tpu_torch.obs import trace
-    from raft_tpu_torch.resilience import retry
+class _Library:
+    """The solver library as a library of the kernel-library registry
+    (:mod:`raft_tpu_torch.cache.aot`): two build attempts, each under the
+    build timeout (default 300 s), 2 s apart."""
 
-    timeout_s = retry.build_timeout_s()
-    job = nvcc.Job("g++ build of native/bem.cpp", ("g++", *GXX_FLAGS, str(SRC), "-lm"), so)
-    try:
-        with trace.span("bem/build_lib"):
-            retry.retry_call(lambda attempt: nvcc.run_jobs([job], timeout=timeout_s),
-                             retries=2, backoff_s=2.0, retry_on=(retry.SubprocessFailed,),
-                             describe="BEM solver build")
-    except retry.RetryExhausted as e:
-        last = e.last
-        raise RuntimeError(
-            f"BEM solver build failed after {e.attempts} attempt(s) ({last.kind}, timeout "
-            f"{timeout_s:.0f} s per attempt):\n{last.detail}") from e
-    return so
+    tag = "raft_bem_native"
+    retries = 2
+    timeout_s = 300.0
+
+    def key(self) -> str:
+        return lib_key()
+
+    def path(self, key: str | None = None) -> Path:
+        return lib_path()
+
+    def job(self, path) -> nvcc.Job:
+        return nvcc.Job("g++ build of native/bem.cpp", ("g++", *GXX_FLAGS, str(SRC), "-lm"),
+                        Path(path))
+
+    def open(self, path) -> ctypes.CDLL:
+        lib = ctypes.CDLL(str(path))
+        dptr = ctypes.POINTER(ctypes.c_double)
+        lib.bem_solve_mh.restype = ctypes.c_int
+        lib.bem_solve_mh.argtypes = [
+            dptr, ctypes.c_int,                                 # panels, np
+            dptr, ctypes.c_int,                                 # w, nw
+            ctypes.c_double,                                    # depth
+            ctypes.c_double, ctypes.c_double,                   # rho, g
+            dptr, ctypes.c_int,                                 # betas, nb
+            dptr, dptr, dptr, dptr,                             # A, B, Fre, Fim
+            dptr, dptr,                                 # Fhre, Fhim (Haskind, may be NULL)
+            ctypes.c_int, ctypes.c_int,                         # nthreads, nlid
+        ]
+        lib.bem_green_fd.restype = None
+        lib.bem_green_fd.argtypes = [ctypes.c_double] * 5 + [dptr]
+        lib.bem_dispersion.restype = ctypes.c_double
+        lib.bem_dispersion.argtypes = [ctypes.c_double, ctypes.c_double]
+        lib.bem_wave_integral.restype = None
+        lib.bem_wave_integral.argtypes = [ctypes.c_double, ctypes.c_double, dptr, dptr]
+        lib.bem_wave_integral_direct.restype = None
+        lib.bem_wave_integral_direct.argtypes = lib.bem_wave_integral.argtypes
+        lib.bem_set_table_path.restype = None
+        lib.bem_set_table_path.argtypes = [ctypes.c_char_p]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib.bem_set_table_path(os.fsencode(table_path()))
+        return lib
+
+
+LIBRARY = _Library()
+
+
+def build() -> Path:
+    """Compile the library unless it exists (two attempts); returns its
+    path.  A build that fails twice raises with the compiler's redacted
+    stderr tail."""
+    from raft_tpu_torch.cache import aot
+
+    aot.prepare([LIBRARY])
+    return lib_path()
 
 
 def _load() -> ctypes.CDLL:
-    """Build (if needed) and open the solver library, once per process:
-    threads that reach it together open it once."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            so = build()
-            lib = ctypes.CDLL(str(so))
-            nvcc.note(so, "loaded")
-            dptr = ctypes.POINTER(ctypes.c_double)
-            lib.bem_solve_mh.restype = ctypes.c_int
-            lib.bem_solve_mh.argtypes = [
-                dptr, ctypes.c_int,                                 # panels, np
-                dptr, ctypes.c_int,                                 # w, nw
-                ctypes.c_double,                                    # depth
-                ctypes.c_double, ctypes.c_double,                   # rho, g
-                dptr, ctypes.c_int,                                 # betas, nb
-                dptr, dptr, dptr, dptr,                             # A, B, Fre, Fim
-                dptr, dptr,                                 # Fhre, Fhim (Haskind, may be NULL)
-                ctypes.c_int, ctypes.c_int,                         # nthreads, nlid
-            ]
-            lib.bem_green_fd.restype = None
-            lib.bem_green_fd.argtypes = [ctypes.c_double] * 5 + [dptr]
-            lib.bem_dispersion.restype = ctypes.c_double
-            lib.bem_dispersion.argtypes = [ctypes.c_double, ctypes.c_double]
-            lib.bem_wave_integral.restype = None
-            lib.bem_wave_integral.argtypes = [ctypes.c_double, ctypes.c_double, dptr, dptr]
-            lib.bem_wave_integral_direct.restype = None
-            lib.bem_wave_integral_direct.argtypes = lib.bem_wave_integral.argtypes
-            lib.bem_set_table_path.restype = None
-            lib.bem_set_table_path.argtypes = [ctypes.c_char_p]
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            lib.bem_set_table_path(os.fsencode(table_path()))
-            _lib = lib
-    return _lib
+    """The opened solver library, through the registry: built if needed,
+    opened once per process (threads that reach it together open it
+    once)."""
+    from raft_tpu_torch.cache import aot
+
+    return aot.library(LIBRARY)
 
 
 # ------------------------------------------------------------ result cache
-
-def cache_root() -> Path:
-    """``RAFT_TPU_TORCH_CACHE_DIR``, else ``raft_tpu_torch/_build/cache``."""
-    root = os.environ.get(CACHE_ENV)
-    return Path(root) if root else BUILD_DIR / "cache"
-
 
 def result_cache_key(namespace: str, panels, w, betas, scalars, salt=(),
                      extra_bytes: bytes = b"") -> Path:
@@ -170,7 +173,9 @@ def result_cache_key(namespace: str, panels, w, betas, scalars, salt=(),
     h.update(np.ascontiguousarray(betas).tobytes())
     h.update(np.asarray(scalars, dtype=np.float64).tobytes())
     h.update(extra_bytes)
-    return cache_root() / namespace / (h.hexdigest()[:24] + ".npz")
+    from raft_tpu_torch.cache import config
+
+    return config.cache_root() / namespace / (h.hexdigest()[:24] + ".npz")
 
 
 def result_cache_load(key: Path, needed) -> dict | None:

@@ -869,7 +869,8 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
         fd_c = _cast({key: val[sl] for key, val in fd.items()}, a_dtype) if finite_depth else None
         wargs = (R_pot, R_dn, c_a, nrm_a, area_a, mask_a, lid_surface, tab_a, k.to(a_dtype), fd_c)
         if assembly == "kernels":
-            parts = wave_assembly(*wargs, finite_depth=finite_depth, depth=depth)
+            parts = wave_assembly(*wargs, finite_depth=finite_depth, depth=depth,
+                                  fd_active=fd_active[sl])
         else:
             parts = wave_plain(*wargs, finite_depth=finite_depth, depth=depth,
                                fd_active=fd_active[sl])

@@ -11,9 +11,11 @@ on the host in f64, over a 2-D grid of (X, log(1-Y)), with the -ln rho /
 1/rho singular closed forms subtracted; the device interpolates the
 smooth parts bilinearly (kernel K4, ``csrc/bem_wave.cu``).  The table is
 design- and frequency-independent: :func:`load_tables` keeps it in memory
-and as an atomically written npz under ``raft_tpu_torch/_build/wavetable/``,
-keyed by the build parameters, so the one-time build (about 20 s of numpy
-on one core) happens once per checkout.  The finite-depth exponential fit
+and as an atomically written npz under the cache root's ``wavetable/``
+(:func:`raft_tpu_torch.cache.config.cache_root`: ``RAFT_TPU_TORCH_CACHE_DIR``,
+else ``raft_tpu_torch/_build/cache``, as the JAX package's table follows its
+cache root), keyed by the build parameters, so the one-time build (about
+20 s of numpy on one core) happens once per root.  The finite-depth exponential fit
 (:func:`fd_fit_grid`) depends only on (w, depth) and stays on the host too.
 """
 from __future__ import annotations
@@ -38,8 +40,14 @@ _EULER = 0.5772156649015329
 _lock = threading.Lock()
 _memo: dict = {}
 
-#: where :func:`load_tables` keeps the built tables
-CACHE_DIR = Path(__file__).resolve().parents[1] / "_build" / "wavetable"
+
+
+def cache_dir() -> Path:
+    """Where :func:`load_tables` keeps the built tables: the cache root's
+    ``wavetable/``."""
+    from raft_tpu_torch.cache import config
+
+    return config.cache_root() / "wavetable"
 
 
 # ------------------------------------------------------------ closed forms
@@ -215,17 +223,20 @@ def _store(path: Path, tab: dict):
 
 def load_tables() -> dict:
     """The smooth-part tables ``{"I0", "I1", "meta"}`` (f64 numpy, (NX, NS)),
-    from the in-process memo, the npz under :data:`CACHE_DIR`, or a fresh
+    from the in-process memo, the npz under :func:`cache_dir`, or a fresh
     build that is then written there."""
     key = _params_key()
     with _lock:
         hit = _memo.get(key)
         if hit is not None:
             return hit
-        path = CACHE_DIR / f"{key}.npz"
+        path = cache_dir() / f"{key}.npz"
         tab = _load(path)
         if tab is None:
-            tab = _build()
+            from raft_tpu_torch.obs import trace
+
+            with trace.span("bem/wavetable_build"):
+                tab = _build()
             _store(path, tab)
         _memo[key] = tab
         return tab

@@ -1,6 +1,5 @@
-"""Unified observability layer: spans, bounded metrics, exporters (port of
-``raft_tpu.obs`` without its performance ledger, which joins the AOT
-registry's per-executable costs and comes with the cache slice).
+"""Unified observability layer: spans, bounded metrics, exporters and the
+per-kernel performance ledger (port of ``raft_tpu.obs``).
 
 * :mod:`raft_tpu_torch.obs.trace` — thread-safe nested span tracing with
   request-scoped trace ids that cross threads (context tokens +
@@ -14,12 +13,15 @@ registry's per-executable costs and comes with the cache slice).
   debounced via ``RAFT_TPU_OBS_FLUSH_MS``) plus the ``obs`` block a run
   report embeds;
 * :mod:`raft_tpu_torch.obs.flight` — bounded flight recorder of the
-  last-N completed request records, dumped atomically.
+  last-N completed request records, dumped atomically;
+* :mod:`raft_tpu_torch.obs.ledger` — achieved FLOP/s, bytes/s and
+  roofline fraction per kernel and shape bucket, from CUDA events around
+  each launch while the cache is enabled, persisted under the cache root.
 
 Everything here is host-side and bounded in memory; arming or reading it
 never changes what the device computes.
 """
-from raft_tpu_torch.obs import export, flight, metrics, trace  # noqa: F401
+from raft_tpu_torch.obs import export, flight, ledger, metrics, trace  # noqa: F401
 from raft_tpu_torch.obs.export import (                         # noqa: F401
     enabled, maybe_publish, obs_block, prometheus_text, publish, read_jsonl,
 )

@@ -26,10 +26,11 @@ processes never clobber each other)::
     trace-<label>-p<rank>-<pid>.json     Chrome trace-event JSON (Perfetto)
     metrics-<label>-p<rank>-<pid>.prom   Prometheus text exposition
 
-The JAX package's publish also flushes its performance ledger, and its
-``obs`` block carries the AOT registry's compile counts; the port has
-neither (no compiled executables), and its ``obs`` block reports the
-kernel builds and loads of :mod:`raft_tpu_torch.core.nvcc` instead.
+As in the JAX package, a real publish also flushes the per-kernel
+performance ledger (:mod:`raft_tpu_torch.obs.ledger`, without waiting for
+the card: only the launches already done are folded in), and the ``obs``
+block carries the compile counts of the kernel-library registry
+(:mod:`raft_tpu_torch.cache.aot`).
 """
 from __future__ import annotations
 
@@ -63,9 +64,9 @@ def root() -> str | None:
     if v.lower() in _OFF:
         return None
     if v.lower() in ("1", "on", "true", "yes"):
-        from raft_tpu_torch.hydro.native_bem import cache_root
+        from raft_tpu_torch.cache import config
 
-        return os.path.join(str(cache_root()), "obs")
+        return os.path.join(str(config.cache_root()), "obs")
     return os.path.abspath(os.path.expanduser(v))
 
 
@@ -181,7 +182,9 @@ def maybe_publish(label: str = "run", force: bool = False) -> dict | None:
     instead of taxing every call.  ``force=True`` bypasses the debounce
     — phase ends (a run's exit, a daemon's drain) always flush a
     complete final snapshot.  Never raises: a full disk must degrade the
-    telemetry, not the solve."""
+    telemetry, not the solve.  Also flushes the performance ledger
+    (:mod:`raft_tpu_torch.obs.ledger`) on every real publish, without a
+    wait for the card."""
     if not enabled():
         return None
     if not force:
@@ -192,9 +195,16 @@ def maybe_publish(label: str = "run", force: bool = False) -> dict | None:
             _metrics.counter("obs.publish_skipped").inc()
             return None
     try:
-        return publish(label)
+        out = publish(label)
     except OSError:  # pragma: no cover - disk full / permissions
         return None
+    try:
+        from raft_tpu_torch.obs import ledger as _ledger
+
+        _ledger.flush(sync=False)
+    except Exception:  # pragma: no cover - the ledger must not fail a publish
+        pass
+    return out
 
 
 def read_jsonl(path: str) -> tuple:
@@ -260,11 +270,10 @@ def prometheus_text() -> str:
 def obs_block() -> dict:
     """The ``obs`` block a run report embeds: the span roll-up (nested
     names with call counts), the full metric snapshot (histogram
-    quantiles included), and the kernel libraries this process compiled
-    and loaded (:func:`raft_tpu_torch.core.nvcc.build_counts`: the nvcc
-    and g++ builds it ran, the libraries it opened).  JSON-safe by
-    construction."""
-    from raft_tpu_torch.core import nvcc
+    quantiles included), and the exact per-library build counts of the
+    kernel-library registry (:func:`raft_tpu_torch.cache.aot.
+    compile_counts`).  JSON-safe by construction."""
+    from raft_tpu_torch.cache import aot
 
     snap = _metrics.snapshot()
     return {
@@ -275,5 +284,5 @@ def obs_block() -> dict:
         **({"sliding": snap["sliding"]} if "sliding" in snap else {}),
         **({"dropped_names": snap["dropped_names"]}
            if "dropped_names" in snap else {}),
-        "kernel_builds": nvcc.build_counts(),
+        "compiles": aot.compile_counts(),
     }

@@ -17,9 +17,11 @@ a lane of one design instead, reduced by ``case_reduce`` (robust design
 over a DLC table).  ``bem_fn``
 (:func:`raft_tpu_torch.hydro.torch_bem.make_bem_fn`) re-solves the panel
 method inside the loss, so the gradient carries the potential-flow
-coefficients' dependence on the hull.  Not ported: the JAX package's
-compiled-executable cache around the value-and-grad step (ROADMAP.md,
-queue 1, item 7.2, the cache slice: PyTorch runs eagerly).
+coefficients' dependence on the hull.  The JAX package compiles the
+value-and-grad step through its executable registry; PyTorch runs it
+eagerly, so there is no program to cache (the port's registry,
+:mod:`raft_tpu_torch.cache.aot`, keeps the kernel libraries the step
+launches).
 """
 from __future__ import annotations
 

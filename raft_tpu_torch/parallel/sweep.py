@@ -112,7 +112,9 @@ def _stage_heading_rows(bem, betas_eval, dtype, dev):
     (B,): the excitation interpolated to each heading on the host, then
     (A[nw, 6, 6], B[nw, 6, 6], F_re[B, nw, 6], F_im[B, nw, 6]) on ``dev``,
     not yet zeta-scaled.  The one staging rule of :func:`sweep_sea_states`
-    and the co-design losses."""
+    and the co-design losses.  Unlike the JAX package, the port does not
+    stage these rows through the staging cache: a hit (hashing ``F_all``
+    and reading an npz) costs more than the interpolation it skips."""
     bgrid, F_all, A_h, B_h = bem
     F_rows = _interp_rows_host(bgrid, F_all, np.asarray(betas_eval))
     return (_t(np.moveaxis(np.asarray(A_h), -1, 0), dtype, dev),
@@ -664,8 +666,10 @@ def sweep(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor: Tenso
     spectra even with ``return_xi=False``, quarantine, salvage through the
     escalation ladder with ``escalate``, a ``"health"`` block).  ``mesh``
     raises ``NotImplementedError`` (:data:`_MULTI_DEVICE_ITEM`).  The JAX
-    package's AOT executable registry is not ported: the batched solve
-    runs directly."""
+    package compiles this solve through its executable registry; eager
+    PyTorch has no program to compile (the registry of the port keeps the
+    kernel libraries, :mod:`raft_tpu_torch.cache.aot`), so the batched
+    solve runs directly."""
     if mesh is not None:
         raise _no_mesh("sweep")
     dev = resolve_device(device)
@@ -864,8 +868,12 @@ def sweep_designs(fnames=None, nw: int = 100, Hs: float = 8.0, Tp: float = 12.0,
     (lanes in the caller's order) with ``health``.  Each bucket runs
     inside the span ``sweep_designs/bucket`` and feeds the
     ``sweep_designs.*`` metrics; with ``RAFT_TPU_OBS`` armed the call ends
-    in :func:`raft_tpu_torch.obs.maybe_publish`.  The JAX package's AOT
-    executable registry and performance ledger are not ported."""
+    in :func:`raft_tpu_torch.obs.maybe_publish`.  The JAX package compiles
+    each bucket through its executable registry and feeds the dispatch's
+    whole-program cost to its performance ledger; eager PyTorch has neither
+    a program to compile nor a whole-program cost, so the dispatch feeds
+    only its ``dispatch_s`` histogram, and the per-kernel ledger
+    (:mod:`raft_tpu_torch.obs.ledger`) times K1's launches inside it."""
     from raft_tpu_torch import obs as _obs
     from raft_tpu_torch.build import buckets as _buckets
     from raft_tpu_torch.model import stage_designs

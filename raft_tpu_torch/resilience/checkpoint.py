@@ -15,7 +15,8 @@ names it by its own digest of everything that decides the results: the
 tag, the chunk arguments' shapes and dtypes, a content hash of the
 constants (the design, the staged coefficients), the caller's ``extra``
 (knobs, a content hash of the input table), the chunk count, a
-fingerprint of the port's own sources (kernels included), the device
+fingerprint of the port's own sources (kernels included;
+:func:`raft_tpu_torch.cache.config.code_fingerprint`), the device
 type, and what else decides the bits of the same program on the same
 inputs (:func:`runtime_salt`): the torch and CUDA versions, the card's
 name, the float32 matmul precision and the TF32 switch.  A store written
@@ -38,19 +39,18 @@ itself.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 import json
 import os
 import tempfile
 import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from raft_tpu_torch.cache import config
+
 _OFF = ("off", "0", "none", "disabled", "false", "no")
-_PKG = Path(__file__).resolve().parents[1]
 
 
 def root() -> str | None:
@@ -59,9 +59,7 @@ def root() -> str | None:
     if not v or v.lower() in _OFF:
         return None
     if v.lower() in ("1", "on", "true", "yes"):
-        from raft_tpu_torch.hydro.native_bem import cache_root
-
-        return os.path.join(str(cache_root()), "ckpt")
+        return os.path.join(str(config.cache_root()), "ckpt")
     return os.path.abspath(os.path.expanduser(v))
 
 
@@ -122,18 +120,6 @@ def _tree(obj, out: list, values: bool) -> None:
         out.append(np.frombuffer(repr(obj).encode(), dtype=np.uint8))
 
 
-@functools.cache
-def source_fingerprint() -> str:
-    """Hash of the port's own sources (Python, CUDA and C++), read once per
-    process: an edit anywhere in the package moves every store."""
-    h = hashlib.sha256()
-    for path in sorted(_PKG.rglob("*")):
-        if path.suffix in (".py", ".cu", ".cpp") and "_build" not in path.parts:
-            h.update(path.relative_to(_PKG).as_posix().encode())
-            h.update(path.read_bytes())
-    return h.hexdigest()[:16]
-
-
 def runtime_salt(device) -> str:
     """What decides a program's bits besides its sources and inputs: the
     torch and CUDA versions, the device type and, on the card, its name,
@@ -160,7 +146,7 @@ def store_key(tag: str, args, *, consts=(), extra=(), n_chunks: int, device) -> 
     _tree(tuple(extra), ex, values=False)
     h = hashlib.sha256()
     for part in (tag, json.dumps(sig), content_hash(const_vals), json.dumps(ex),
-                 str(int(n_chunks)), source_fingerprint(), runtime_salt(device)):
+                 str(int(n_chunks)), config.code_fingerprint(), runtime_salt(device)):
         h.update(part.encode())
         h.update(b"\0")
     return h.hexdigest()

@@ -22,11 +22,11 @@
 ``python -m raft_tpu_torch.serve fleet-smoke [--device cpu]``
     The fleet robustness proof; see :mod:`raft_tpu_torch.serve.fleet_smoke`.
 
-The JAX daemon first enables its warm-start cache (``cache.enable()``);
-the port has no AOT registry, so nothing is enabled here, and the ready
-line reports ``kernel_builds_at_ready`` (the nvcc and g++ builds this
-process ran, 0 once ``raft_tpu_torch/_build/`` is warm) in place of
-``compiles_at_ready``.
+The daemon first enables the cache (:func:`raft_tpu_torch.cache.enable`,
+``RAFT_TPU_TORCH_CACHE_DIR`` governs), as the JAX daemon does, so its
+staging and its kernels' ledger follow the cache root, and the ready line
+reports ``compiles_at_ready`` (the nvcc and g++ builds this process ran,
+0 once ``raft_tpu_torch/_build/`` is warm).
 """
 from __future__ import annotations
 
@@ -63,7 +63,10 @@ def _daemon(argv) -> int:
 
     from raft_tpu_torch.serve.config import ServeConfig
     from raft_tpu_torch.serve.server import SolverServer
-    from raft_tpu_torch.serve.solver import kernel_builds, kernel_launches
+    from raft_tpu_torch import cache
+    from raft_tpu_torch.serve.solver import compiles, kernel_launches
+
+    cache.enable()           # warm-start layers; RAFT_TPU_TORCH_CACHE_DIR governs
 
     # unset flags leave ServeConfig's defaults (the JAX daemon's) in force
     overrides: dict = {"escalate": not args.no_escalate, "device": args.device}
@@ -101,7 +104,7 @@ def _daemon(argv) -> int:
         "batch_max": cfg.batch_max,
         "batch_deadline_ms": round(cfg.batch_deadline_s * 1e3, 3),
         "device": str(server.core.device),
-        "kernel_builds_at_ready": kernel_builds(),
+        "compiles_at_ready": compiles(),
         "kernel_launches_at_ready": kernel_launches(),
     }), flush=True)
     server.wait()

@@ -7,8 +7,8 @@ its own AF_UNIX socket, started with ``subprocess`` (a new interpreter:
 a parent that has initialised CUDA is never forked into a replica) — ALL
 sharing the port's kernel build directory ``raft_tpu_torch/_build/``, so
 every replica past the first loads the kernel libraries built before it
-(zero kernel builds at ready) and a restarted replica comes back warm for
-the same reason (the JAX fleet shares its AOT cache root for this).
+(zero compiles at ready) and a restarted replica comes back warm for the
+same reason (as the JAX fleet's replicas share its AOT cache root).
 :func:`raft_tpu_torch.core.nvcc.run_jobs` publishes each library
 atomically, so two cold replicas building at once are safe.  In front of
 them it runs a :class:`~raft_tpu_torch.serve.router.FleetRouter`
@@ -180,7 +180,7 @@ class _Replica:
         self.idx = idx
         self.socket_path = socket_path
         self.handle = None           # Popen-like: poll/kill/terminate/wait
-        self.ready: dict = {}        # last ready line (kernel_builds_at_ready..)
+        self.ready: dict = {}        # last ready line (compiles_at_ready..)
         self.restarts = 0
         self.suppressed = False
         self.restart_times: deque = deque()
@@ -393,7 +393,7 @@ class Fleet:
                               and r.handle.poll() is None),
                     "restarts": r.restarts,
                     "suppressed": r.suppressed,
-                    "kernel_builds_at_ready": r.ready.get("kernel_builds_at_ready"),
+                    "compiles_at_ready": r.ready.get("compiles_at_ready"),
                     "ready_s": r.ready.get("ready_s"),
                     "socket": r.socket_path}
                    for r in self._replicas]

@@ -160,7 +160,7 @@ def run(device: str | None, tmp: str, reference_rows=None, full_width: bool = Fa
             finally:
                 fleet.stop()
             info["k1_launches"] += solver_a["k1_launches_served"]
-            checks["phase_a_zero_kernel_builds"] = solver_a["kernel_builds"] == 0
+            checks["phase_a_zero_compiles"] = solver_a["compiles"] == 0
             checks["phase_a_all_relayed"] = d["relayed"] == len(STREAM) and d["failover"] == 0
             info["n_buckets"] = len(solver_a["buckets"])
 
@@ -170,8 +170,8 @@ def run(device: str | None, tmp: str, reference_rows=None, full_width: bool = Fa
             ready = fleet.start()
             first_ready = {r.idx: r.ready for r in fleet._replicas}
             info["ready_s"]["b"] = _ready_s(ready)
-            checks["fleet_zero_kernel_builds_at_ready"] = [
-                r.get("kernel_builds_at_ready") for r in ready["replicas"].values()] == [0, 0]
+            checks["fleet_zero_compiles_at_ready"] = [
+                r.get("compiles_at_ready") for r in ready["replicas"].values()] == [0, 0]
             c0 = _counters(fleet)
             rows_b, resps_b = _drive(fleet.router.socket_path, arm_kill_after=4)
             d = _delta(_counters(fleet), c0)
@@ -190,13 +190,13 @@ def run(device: str | None, tmp: str, reference_rows=None, full_width: bool = Fa
                 len(killed) == 1 and admissions[killed[0]] == 2)
             checks["restart_counter_fired"] = (
                 _counters(fleet)["restart"] - c0["restart"] >= 1 and len(killed) == 1)
-            checks["restarted_replica_zero_kernel_builds"] = all(
-                fleet._replicas[i].ready.get("kernel_builds_at_ready") == 0 for i in killed)
+            checks["restarted_replica_zero_compiles"] = all(
+                fleet._replicas[i].ready.get("compiles_at_ready") == 0 for i in killed)
             info["ready_s"]["b_restart"] = [fleet._replicas[i].ready.get("ready_s")
                                             for i in killed]
             solver_b = _replica_solver_stats(fleet) if restarted else []
-            checks["replicas_zero_kernel_builds"] = (
-                bool(solver_b) and all(s["kernel_builds"] == 0 for s in solver_b))
+            checks["replicas_zero_compiles"] = (
+                bool(solver_b) and all(s["compiles"] == 0 for s in solver_b))
             info["k1_launches"] += sum(s["k1_launches_served"] for s in solver_b)
         finally:
             fleet.stop()

@@ -59,14 +59,16 @@ The ``stats`` op answers with the live telemetry snapshot::
         "queue_wait": {"<SxNxW>": {...same windowed shape...}, ...},
         "error_budget": {"requests", "errors", "error_rate"},
         "flight": {"capacity", "size", "recorded", "errors"},
-        "kernel_builds": ...}}
+        "compiles": ..., "ledger": {...}, "cache_enabled": ...}}
 
 (the windowed quantiles are deterministic rank-walk values over the
 sliding sub-window ring of :class:`raft_tpu_torch.obs.metrics.
-SlidingHistogram`).  The JAX daemon's ``compiles``, ``cache_enabled`` and
-``ledger`` keys have no counterpart here: the port has no AOT registry
-and no performance ledger; ``kernel_builds`` counts the kernel libraries
-this process compiled.
+SlidingHistogram`).  ``compiles`` counts the kernel libraries this
+process built (the JAX daemon's counts its executables), ``ledger`` is
+:func:`raft_tpu_torch.obs.ledger.stat` and ``cache_enabled`` the cache
+switch.  ``refresh`` answers ``staged_lanes_dropped`` and
+``executables_evicted`` (the kernel libraries evicted from the registry's
+memo).
 """
 from __future__ import annotations
 

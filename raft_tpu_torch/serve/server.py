@@ -25,9 +25,9 @@ stream order.
 Graceful shutdown (``shutdown`` op or SIGTERM via ``python -m
 raft_tpu_torch.serve``): stop intake, flush every pending bucket (the
 batcher drains closed), answer everything in flight, dump the flight
-recorder and publish the obs sinks, then exit — a client that got its
-request in gets its response out.  (The JAX daemon also flushes its
-performance ledger; the port has none.)
+recorder, flush the per-kernel performance ledger and publish the obs
+sinks, then exit — a client that got its request in gets its response
+out.
 
 Observability (armed by ``RAFT_TPU_OBS`` like every other subsystem):
 
@@ -212,9 +212,10 @@ class SolverServer:
             from raft_tpu_torch import obs as _obs
 
             self.flight.dump(label="serve", reason="shutdown")
+            _obs.ledger.flush()
             _obs.maybe_publish("serve", force=True)
-        except Exception:              # pragma: no cover - e.g. a full disk
-            pass
+        except Exception:              # pragma: no cover - e.g. a full disk, or
+            pass                       # a malformed RAFT_TPU_TORCH_ROOFLINE
 
     def wait(self, timeout: float | None = None) -> bool:
         """Block until the solver loop has drained and exited."""
@@ -310,10 +311,13 @@ class SolverServer:
                 conn.send(protocol.error_response(req["id"], e))
                 return False
             # a refresh is a natural post-mortem boundary: dump the
-            # flight tail BEFORE state turns over (best-effort: telemetry
-            # must never fail the control op)
+            # flight tail and flush the ledger BEFORE state turns over
+            # (best-effort: telemetry must never fail the control op)
             try:
+                from raft_tpu_torch import obs as _obs
+
                 self.flight.dump(label="serve", reason="refresh")
+                _obs.ledger.flush()
             except Exception:          # pragma: no cover
                 pass
             info = self.core.refresh()
@@ -589,8 +593,12 @@ class SolverServer:
         """The live SLO snapshot the extended ``stats`` op returns:
         windowed request-latency quantiles + error rate, per-bucket
         queue-wait windows, occupancy, queue depth, exact error budget,
-        the kernel builds of this process and the flight-recorder
-        counters.  All deterministic under a virtual clock."""
+        the kernel-library builds of this process, the flight-recorder
+        counters, the performance ledger's status and the cache switch.
+        All deterministic under a virtual clock."""
+        from raft_tpu_torch import obs as _obs
+        from raft_tpu_torch.cache import config as _cache_config
+
         now = self.clock()
         with self._slo_lock:
             waits = {label: w.window(now)
@@ -611,6 +619,9 @@ class SolverServer:
                 "errors": errs,
                 "error_rate": round(errs / done, 6) if done else 0.0,
             },
-            "kernel_builds": solver["kernel_builds"],
+            "compiles": solver["compiles"],
             "flight": self.flight.counts(),
+            # lightweight: a polled stats op reads no ledger file
+            "ledger": _obs.ledger.stat(),
+            "cache_enabled": _cache_config.is_enabled(),
         }

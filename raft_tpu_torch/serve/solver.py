@@ -37,11 +37,13 @@ stream (each thread starts there): the readers' staging and the solver
 loop's solves interleave in stream order, and a lane dropped from the
 memo is freed only after the kernels queued before the drop.
 
-The JAX package's core also evicts its AOT executables on ``refresh`` and
-reports its compile count; the port has no AOT registry, so ``refresh``
-drops the staged lanes only and :meth:`SolverCore.stats` reports
-``kernel_builds``, the kernel libraries this process compiled
-(:func:`raft_tpu_torch.core.nvcc.build_counts`), and ``kernel_launches``,
+As the JAX package's core evicts its AOT executables on ``refresh``, the
+port's evicts the kernel libraries it holds from the kernel-library
+registry (:func:`raft_tpu_torch.cache.aot.evict_memory`: the next launch
+re-opens its library from ``raft_tpu_torch/_build/``, or builds it anew
+when its source changed), and :meth:`SolverCore.stats` reports
+``compiles``, the kernel libraries this process built
+(:func:`raft_tpu_torch.cache.aot.compile_count`), and ``kernel_launches``,
 its K1/K2 launches.
 """
 from __future__ import annotations
@@ -67,12 +69,13 @@ def design_key(spec) -> str:
         json.dumps(spec, sort_keys=True, default=repr).encode()).hexdigest()[:24]
 
 
-def kernel_builds() -> int:
-    """Kernel and solver libraries this process compiled (nvcc and g++):
-    0 once ``raft_tpu_torch/_build/`` holds them."""
-    from raft_tpu_torch.core import nvcc
+def compiles() -> int:
+    """Kernel and solver libraries this process built (nvcc and g++), the
+    total of :func:`raft_tpu_torch.cache.aot.compile_counts`: 0 once
+    ``raft_tpu_torch/_build/`` holds them."""
+    from raft_tpu_torch.cache import aot
 
-    return sum(c["compiled"] for c in nvcc.build_counts().values())
+    return aot.compile_count()
 
 
 def kernel_launches() -> dict:
@@ -150,14 +153,19 @@ class SolverCore:
 
     # ------------------------------------------------------------ admin
     def refresh(self) -> dict:
-        """Drop the staged-lane memo (the ``refresh`` op): the next request
-        of each lane stages it afresh.  Runs between batches; results in
-        flight are never invalidated.  The port has no executables to
-        evict (no AOT registry)."""
+        """Drop the staged-lane memo and evict the kernel libraries from the
+        registry's memo (the ``refresh`` op): the next request of each lane
+        stages it afresh, and the next launch re-opens its library (from
+        disk when its source is unchanged, by a new build when it
+        changed).  Runs between batches; results in flight are never
+        invalidated, and a library a batch in flight holds stays loaded.
+        Returns the eviction counts."""
+        from raft_tpu_torch.cache import aot
+
         with self._lock:
             n_lanes = len(self._memo)
             self._memo.clear()
-        return {"staged_lanes_dropped": n_lanes}
+        return {"staged_lanes_dropped": n_lanes, "executables_evicted": aot.evict_memory()}
 
     def record_batch(self, sig, n_real: int) -> None:
         with self._stats_lock:
@@ -190,7 +198,7 @@ class SolverCore:
             "device": str(self.device),
             "dtype": str(cfg.dtype).removeprefix("torch."),
             "buckets": per,
-            "kernel_builds": kernel_builds(),
+            "compiles": compiles(),
             "kernel_launches": kernel_launches(),
         }
 

@@ -105,13 +105,13 @@ def test_load_tables_caches_atomically(tmp_path, monkeypatch):
                 "I1": np.full((wavetable.NX, wavetable.NS), -2.5),
                 "meta": np.array([wavetable.NX, wavetable.NS, wavetable.XMAX, wavetable.SMAX])}
 
-    monkeypatch.setattr(wavetable, "CACHE_DIR", tmp_path)
+    monkeypatch.setenv("RAFT_TPU_TORCH_CACHE_DIR", str(tmp_path))
     monkeypatch.setattr(wavetable, "_build", fake_build)
     monkeypatch.setattr(wavetable, "_memo", {})
     tab = wavetable.load_tables()
     assert calls == [1] and float(tab["I1"][3, 4]) == -2.5
-    files = list(tmp_path.glob("*.npz"))
-    assert len(files) == 1 and files[0].name.startswith(wavetable.TABLE_VERSION)
+    files = list((tmp_path / "wavetable").glob("*.npz"))
+    assert wavetable.cache_dir() == tmp_path / "wavetable" and len(files) == 1 and files[0].name.startswith(wavetable.TABLE_VERSION)
     monkeypatch.setattr(wavetable, "_memo", {})
     assert float(wavetable.load_tables()["I0"][0, 0]) == 1.5 and calls == [1]
     files[0].write_bytes(b"torn")

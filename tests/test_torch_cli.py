@@ -23,7 +23,7 @@ import torch
 
 from raft_tpu import cli as jcli
 
-from raft_tpu_torch import cli
+from raft_tpu_torch import cache, cli
 
 GRID = ["--wmin", "0.2", "--wmax", "1.2", "--dw", "0.2"]
 TOL = 1e-9
@@ -32,7 +32,8 @@ TOL = 1e-9
 @pytest.fixture(autouse=True)
 def _setup(monkeypatch, tmp_path):
     """One intra-op thread, the JAX package's compile cache off, the port's
-    result cache under ``tmp_path``, the BEM knobs unset."""
+    cache root under ``tmp_path``, the BEM knobs unset; the cache that
+    ``main`` enables is disabled again after each test."""
     monkeypatch.setenv("RAFT_TPU_CACHE_DIR", "off")
     monkeypatch.setenv("RAFT_TPU_TORCH_CACHE_DIR", str(tmp_path / "cache"))
     for knob in ("RAFT_TPU_BEM", "RAFT_TPU_BEM_PRECISION"):
@@ -41,6 +42,7 @@ def _setup(monkeypatch, tmp_path):
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    cache.disable()
 
 
 def run(main, args):
@@ -76,6 +78,21 @@ def test_analyze_matches_jax():
     assert got["response"]["iterations"] == ref["response"]["iterations"]
     assert keys(line) == keys(line_ref)
     assert rel(line["response"]["std dev"], line_ref["response"]["std dev"]) <= TOL
+
+
+def test_main_flushes_the_ledger_when_it_returns(tmp_path):
+    """The kernels' timings of a run persist under the root: ``main``
+    flushes the ledger as it returns (a launch fed directly stands in for
+    the card's, which the CPU path does not time)."""
+    from raft_tpu_torch.obs import ledger
+
+    ledger.reset()
+    cache.enable(str(tmp_path / "cache"))
+    ledger.record("solve6_fused", "1x1:float64", "NVIDIA H100", "float64", 1e6, 1e5, 1e-5)
+    run(cli.main, ["oc3", *GRID, "--json", "--device", "cpu"])
+    got = [e for e in ledger.entries() if e["entry"] == "solve6_fused"]
+    assert len(got) == 1 and got[0]["count"] == 1 and not ledger.pending()
+    ledger.reset()
 
 
 def test_analyze_report_without_json(capsys):

@@ -635,7 +635,7 @@ def test_restart_storm_is_bounded_per_window(tmp_path):
 
     def spawn(idx, path):
         spawns.append(path)
-        return _DeadHandle(), {"ready": True, "kernel_builds_at_ready": 0}
+        return _DeadHandle(), {"ready": True, "compiles_at_ready": 0}
 
     fleet = _mk_fleet(tmp_path, spawn, restart_max=3, restart_window_s=30.0)
     c_restart, c_supp = _counter("restart"), _counter("restart_suppressed")
@@ -787,7 +787,7 @@ def test_fleet_spawns_port_daemons_with_device(tmp_path, monkeypatch):
             seen["argv"], seen["cwd"] = argv, kw.get("cwd")
             import io
 
-            self.stdout = io.StringIO('{"ready": true, "kernel_builds_at_ready": 0}\n')
+            self.stdout = io.StringIO('{"ready": true, "compiles_at_ready": 0}\n')
 
         def poll(self):
             return None
@@ -799,7 +799,7 @@ def test_fleet_spawns_port_daemons_with_device(tmp_path, monkeypatch):
     assert seen["argv"][:4] == [sys.executable, "-m", "raft_tpu_torch.serve", "daemon"]
     assert seen["argv"][-4:] == ["--device", "cpu", "--nw", "8"]
     assert os.path.isfile(os.path.join(seen["cwd"], "raft_tpu_torch", "serve", "fleet.py"))
-    assert ready["kernel_builds_at_ready"] == 0
+    assert ready["compiles_at_ready"] == 0
 
 
 def test_router_and_fleet_import_no_solver_stack():

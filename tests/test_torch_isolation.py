@@ -253,6 +253,7 @@ def test_native_solver_and_caches_are_the_ports_own(tmp_path):
     """The port's native library is built from its own source into its own
     build directory; its wave table and result caches live there too, and
     a process with a fresh HOME writes nothing under it."""
+    from raft_tpu_torch.cache import config
     from raft_tpu_torch.hydro import native_bem
 
     assert native_bem.SRC == PKG / "native" / "bem.cpp"
@@ -265,8 +266,9 @@ def test_native_solver_and_caches_are_the_ports_own(tmp_path):
     code = (
         "import os\n"
         "from raft_tpu_torch.hydro import native_bem\n"
-        f"os.environ.pop({native_bem.CACHE_ENV!r}, None)\n"
-        "print('ROOT', native_bem.cache_root())\n"
+        "from raft_tpu_torch.cache import config\n"
+        f"os.environ.pop({config.CACHE_ENV!r}, None)\n"
+        "print('ROOT', config.cache_root())\n"
         "native_bem.wave_integral(1.0, -1.0)\n"
         "print('TABLE', native_bem.table_path().exists())\n"
     )
@@ -317,10 +319,15 @@ def test_cli_and_bem_inputs_refuse_cpu_fallback(monkeypatch):
     """Without CUDA the CLI's default device raises, as every entry point's."""
     from raft_tpu_torch import cli
 
+    from raft_tpu_torch import cache
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in (["oc3"], ["sweep", "oc3", "-n", "2"], ["optimize", "oc3", "--steps", "1"]):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            cli.main(argv + ["--wmin", "0.2", "--wmax", "1.2", "--dw", "0.2"])
+    try:
+        for argv in (["oc3"], ["sweep", "oc3", "-n", "2"], ["optimize", "oc3", "--steps", "1"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.main(argv + ["--wmin", "0.2", "--wmax", "1.2", "--dw", "0.2"])
+    finally:
+        cache.disable()                 # main enables the cache first
 
 
 def test_operations_modules_import_nothing_of_jax():

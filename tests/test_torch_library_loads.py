@@ -1,10 +1,15 @@
 """Kernel libraries load once per process: the serving daemon's warm-up
 and its solver loop may reach a wrapper's first call together, and each
-library must then be built and opened once (``kernel_builds`` counts
-them)."""
+library must then be built and opened once.  Every library resolves
+through the kernel-library registry (``raft_tpu_torch/cache/aot.py``),
+whose build counts are the daemon's ``compiles``; here a compiler stand-in writes
+empty files and the libraries' ``open`` returns fakes."""
 import threading
 import time
 
+import pytest
+
+from raft_tpu_torch.cache import aot
 from raft_tpu_torch.core import cuda6, cuda_bem, nvcc
 from raft_tpu_torch.hydro import native_bem
 
@@ -26,6 +31,24 @@ class _FakeLib:
         return fn
 
 
+@pytest.fixture
+def registry(monkeypatch, tmp_path):
+    """A registry of its own (memo, flights, counts), libraries under
+    ``tmp_path`` and a compiler stand-in that writes empty files."""
+    for name, value in (("_mem", {}), ("_inflight", {}), ("_fresh", set()),
+                        ("_compile_counts", aot.Counter()), ("_open_counts", aot.Counter())):
+        monkeypatch.setattr(aot, name, value)
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nvcc.Spec, "key", lambda self: f"k{self.name}")
+    monkeypatch.setattr(nvcc, "_nvcc", lambda: "nvcc")
+
+    def build(jobs, timeout=None):
+        for job in jobs:
+            job.so.write_bytes(b"")
+
+    monkeypatch.setattr(aot, "_compile", build)
+
+
 def _race(fn, n: int = 8) -> list:
     start = threading.Barrier(n)
     out = [None] * n
@@ -39,6 +62,7 @@ def _race(fn, n: int = 8) -> list:
         t.start()
     for t in threads:
         t.join(30)
+    assert not any(t.is_alive() for t in threads)
     return out
 
 
@@ -51,34 +75,36 @@ def _slow_counter(calls: list, result):
     return load
 
 
-def test_cuda6_library_loads_once(monkeypatch):
+def test_cuda6_library_loads_once(monkeypatch, registry):
     calls: list = []
     lib = _FakeLib()
-    monkeypatch.setattr(cuda6, "_lib", None)
-    monkeypatch.setattr(nvcc, "load", _slow_counter(calls, lib))
+    monkeypatch.setattr(nvcc.Spec, "open", _slow_counter(calls, lib))
     out = _race(cuda6.build)
     assert calls == [cuda6.SPEC]
     assert all(x is lib for x in out)
+    assert aot.compile_counts() == {"solve6": 1} and aot.open_counts() == {"solve6": 1}
 
 
-def test_cuda_bem_libraries_load_once(monkeypatch):
+def test_cuda_bem_libraries_load_once(monkeypatch, registry):
     calls: list = []
-    monkeypatch.setattr(cuda_bem, "_libs", {})
-    monkeypatch.setattr(nvcc, "compile_all", lambda specs: None)
-    monkeypatch.setattr(nvcc, "load", _slow_counter(calls, _FakeLib()))
+    monkeypatch.setattr(nvcc.Spec, "open", _slow_counter(calls, _FakeLib()))
     out = _race(cuda_bem.build)
     assert calls == [cuda_bem.RANKINE, cuda_bem.WAVE]
-    assert all(x is out[0] for x in out) and set(out[0]) == {"rankine", "wave"}
+    assert all(x == out[0] for x in out) and set(out[0]) == {"rankine", "wave"}
+    # the first build compiled both libraries in one run
+    assert aot.compile_counts() == {"bem_rankine": 1, "bem_wave": 1}
 
 
-def test_native_library_opens_once(monkeypatch, tmp_path):
+def test_native_library_opens_once(monkeypatch, registry, tmp_path):
     calls: list = []
     lib = _FakeLib()
     so = tmp_path / "libfake-0.so"
-    monkeypatch.setattr(native_bem, "_lib", None)
-    monkeypatch.setattr(native_bem, "build", lambda: so)
+    so.write_bytes(b"")
+    monkeypatch.setattr(native_bem, "lib_path", lambda: so)
+    monkeypatch.setattr(native_bem, "lib_key", lambda: "fake")
     monkeypatch.setattr(native_bem.ctypes, "CDLL", _slow_counter(calls, lib))
-    monkeypatch.setattr(nvcc, "note", lambda path, event: None)
+    monkeypatch.setattr(native_bem, "table_path", lambda: tmp_path / "table.bin")
     out = _race(native_bem._load)
     assert calls == [str(so)]
     assert all(x is lib for x in out)
+    assert aot.compile_count() == 0 and aot.open_counts() == {"raft_bem_native": 1}

@@ -22,6 +22,7 @@ import torch
 
 from raft_tpu.hydro import native_bem as jnative
 
+from raft_tpu_torch.cache import config
 from raft_tpu_torch.hydro import mesh, native_bem, torch_bem
 
 from test_native_bem import sphere_mesh
@@ -33,7 +34,7 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "cylinde
 @pytest.fixture(autouse=True)
 def _own_cache(monkeypatch, tmp_path):
     """Each test solves into a result cache of its own."""
-    monkeypatch.setenv(native_bem.CACHE_ENV, str(tmp_path / "cache"))
+    monkeypatch.setenv(config.CACHE_ENV, str(tmp_path / "cache"))
 
 
 def _cylinder():
@@ -103,7 +104,7 @@ def test_result_cache_atomic_and_corruption_tolerant(tmp_path, monkeypatch):
     """A result is published whole, served bit for bit from the port's own
     namespace, and a torn file is a counted miss: deleted, solved again and
     published again."""
-    monkeypatch.setenv(native_bem.CACHE_ENV, str(tmp_path))
+    monkeypatch.setenv(config.CACHE_ENV, str(tmp_path))
     p = sphere_mesh(nth=6, naz=10)
     w = np.array([1.0])
     stats = dict(native_bem.CACHE_STATS)

@@ -23,6 +23,7 @@ from raft_tpu import model as jmodel
 from raft_tpu.hydro import bem_io as jio
 from raft_tpu.hydro import native_bem as jnative
 
+from raft_tpu_torch.cache import config
 from raft_tpu_torch.hydro import bem_io, native_bem, torch_bem
 from raft_tpu_torch.model import Model, load_design
 
@@ -37,7 +38,7 @@ FIXTURES = {"cylinder": (os.path.join(HERE, "data", "cylinder"), 1000.0, 9.80665
 @pytest.fixture(autouse=True)
 def _own_cache(monkeypatch, tmp_path):
     """Each test solves into a result cache of its own."""
-    monkeypatch.setenv(native_bem.CACHE_ENV, str(tmp_path / "cache"))
+    monkeypatch.setenv(config.CACHE_ENV, str(tmp_path / "cache"))
 
 
 def test_dispersion_and_green_fd_match_jax_package():

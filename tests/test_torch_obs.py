@@ -7,8 +7,9 @@ identical Prometheus text; the same span sequences give the same
 ``rollup()`` names and counts and a Chrome trace of the same schema; the
 flight recorders keep and dump the same records.  Port-only: a span with
 ``jax_trace=True`` opens a ``torch.profiler`` range, the sinks publish and
-read back, and the ``obs`` block carries the kernel builds of
-``core/nvcc.py`` instead of the AOT registry's compile counts.
+read back, and the ``obs`` block carries the compile counts of the
+kernel-library registry (``cache/aot.py``) where the JAX package's carries
+its executable registry's.
 """
 import json
 import os
@@ -280,17 +281,18 @@ def test_env_arming_on_roots_under_the_ports_cache(tmp_path, monkeypatch):
     assert checkpoint.root() == os.path.join(str(tmp_path / "cache"), "ckpt")
 
 
-def test_obs_block_reports_kernel_builds():
-    from raft_tpu_torch.core import nvcc
+def test_obs_block_reports_kernel_builds(monkeypatch):
+    from raft_tpu_torch.cache import aot
 
+    monkeypatch.setattr(aot, "_compile_counts", aot.Counter())
     with trace.span("roll"):
         pass
     metrics.counter("k").inc()
-    nvcc.note(nvcc.BUILD_DIR / "libsolve6-0123456789abcdef.so", "loaded")
+    aot._record_compile("solve6")
     block = export.obs_block()
     assert block["spans"]["roll"]["count"] == 1 and block["counters"]["k"] == 1
-    assert block["kernel_builds"]["solve6"]["loaded"] >= 1
-    assert "compiles" not in block
+    assert block["compiles"] == {"solve6": 1} == aot.compile_counts()
+    assert "kernel_builds" not in block
     json.dumps(block)
 
 

@@ -380,7 +380,9 @@ def test_store_key_separates_devices_values_and_knobs():
     ]
     assert len({base, *others}) == len(others)          # all differ but cuda, cuda:0
     assert others[0] == others[1]                     # the device TYPE decides
-    assert checkpoint.source_fingerprint() == checkpoint.source_fingerprint()
+    from raft_tpu_torch.cache import config
+
+    assert config.code_fingerprint() == config.code_fingerprint()
 
 
 def test_store_key_folds_in_framework_and_precision(monkeypatch):

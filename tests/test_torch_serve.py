@@ -555,11 +555,11 @@ def test_quarantined_lane_goes_through_the_ladder(monkeypatch):
 def test_solver_refresh_drops_memo_and_stats(core3):
     core3.stage_lane(OC3, 6.0, 10.0)
     info = core3.refresh()
-    assert info["staged_lanes_dropped"] >= 1 and "executables_evicted" not in info
+    assert info["staged_lanes_dropped"] >= 1 and info["executables_evicted"] >= 0
     _sig, st = core3.stage_lane(OC3, 6.0, 10.0)
     assert st is core3.stage_lane(OC3, 6.0, 10.0)[1]
     st = core3.stats()
-    assert st["kernel_builds"] == 0 and "compiles" not in st and st["device"] == "cpu"
+    assert st["compiles"] == 0 and "kernel_builds" not in st and st["device"] == "cpu"
     assert st["batch_max"] == 3 and st["buckets"]
     core3.reset_stats()
     assert core3.stats()["buckets"] == {}
