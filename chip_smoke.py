@@ -56,9 +56,11 @@ result line):
    variants x 200 frequencies, float32) with its K1 launches counted, then
    a 16-lane subset in float64 through the kernel and through the plain
    solve on the card;
-11. ``Model(BEM="jax")`` on VolturnUS-S and OC4semi at full width in float64,
-   once through K3/K4 and once through their plain versions on the card;
-   and the VolturnUS-S panel solve in float32 against float64;
+11. ``Model(BEM="jax")`` on VolturnUS-S and OC4semi at full width in float64
+   through run_raft's steps with K3/K4, again with their plain versions on
+   the card (OC4semi through every step, its natural frequencies and std
+   dev held; VolturnUS-S through the panel solve); and the VolturnUS-S
+   panel solve in float32 against float64;
 12. the BEM-staged north star with the panel solve on the card, whose K1,
    K3 and K4 launches are counted: the nominal hull's panel solve at 48
    frequencies in float64, interpolated to 200 and staged, then the
@@ -83,11 +85,12 @@ result line):
    none: d sigma_nacelle / d theta (radial scale) through
    ``torch_bem.make_bem_fn`` (VolturnUS-S, 850 panels, 48 w, 200 m, the
    panel solve's plain assembly differentiated), scan at 25 iterations,
-   at theta 1.01, float32 and float64 with the wall time and peak memory,
-   float32 against float64 and float64 against a central difference with
-   theta's branches held (``tools/bem_grad_fd.py``), and the float64 value
-   and gradient against the same loss with the plain solve in K1's place;
-   then ``optimize_design(bem_fn=...)``, 1 Adam step in float32;
+   at theta 1.01: float64 with the wall time and peak memory, against the
+   same loss with the plain solve in K1's place (value and gradient) and
+   against a central difference with theta's branches held
+   (``tools/bem_grad_fd.py``); then float32 through the entry point,
+   ``optimize_design(bem_fn=...)`` from theta 1.01, 1 Adam step at full
+   width, its first value and gradient held against float64;
 17. the DLC table: ``Model(BEM="jax")`` on VolturnUS-S at the north star's
    200 w with a 7-heading grid (K3 once, K4 per chunk counted), then
    ``sweep_sea_states`` over 64 cases (8 Hs/Tp rows x 8 headings), float64,
@@ -157,7 +160,21 @@ result line):
    nTurbines=16, BEM="jax")`` on a 4 x 4 grid at 1,500 m, 59 w, float64,
    every step timed; turbines against single-turbine runs, K1 and K3/K4
    against their plain versions, ``airgap`` at 4 deck points;
-24. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
+24. the multi-device slice, K1's launches on the sharded paths counted:
+   ``make_mesh()`` joins this process to a world of one under NCCL; the
+   north star's 1,000 variants x 200 w (float32, scan at 40) through
+   ``sweep(mesh=)`` bit for bit ``sweep()`` with the same K1 launches;
+   ``forward_response_freq_sharded`` on VolturnUS-S at 200 w, float64,
+   with the native-staged BEM against the unsharded solve (1e-12,
+   identical iterations) and against itself with the plain solve in K1's
+   place (1e-10); ``forward_response_dp_sp`` on a (1, 1) mesh;
+   ``sweep_sea_states(mesh=)`` on the 64-case DLC table;
+   ``sweep_designs(mesh=)`` on the mixed designs;
+   ``ArrayModel.solveDynamics(mesh=)`` on 4 turbines; one sharded scan
+   chunk under CUDA's sync debug mode "error"; the sharded and unsharded
+   north star and freq-sharded solve timed in turns (the cost of NCCL's
+   all-reduces at world one); ``dist.destroy_process_group()`` at the end;
+25. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
    (VolturnUS-S, 1,024 class; OC4semi with its lid, 2,048) and K4 (every
    chunk of the 48-w staging) against their plain versions on the same
    bf16 inputs, elementwise within one bf16 step of the plain output plus
@@ -167,12 +184,12 @@ result line):
    launches counted) in turns with the f32 staging: A and B within 0.1 of
    it, F's gap and the gaps to native printed, the refinement residual
    below 1e-4;
-25. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
+26. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
    the card against the CPU; a Capytaine dataset written from the card's
    panel solve of VolturnUS-S read back through ``Model(BEM=
    load_capytaine_nc(...))`` against ``Model(BEM=(A, B, F))``; a Nemoh mesh
    of that hull through ``nemoh_to_pnl``;
-26. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
+27. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
    ``RAFT_TPU_BEM=jax`` at full width (850 panels, 59 w), with the f32
    precision (the Model's BEM in float64) and with ``RAFT_TPU_BEM_PRECISION=
    bf16`` (float32, bf16 assembly), in process with K1/K3/K4 launches
@@ -181,19 +198,20 @@ result line):
    without ``--bem``) and ``optimize`` at small counts, five subprocesses
    at once with ``--plot`` into a temporary directory (where matplotlib is
    not installed, ``--plot`` must exit non-zero naming it);
-27. the cache slice: ``python -m raft_tpu_torch.cache smoke`` in a
-   subprocess (two children on one fresh cache root: the second with
+28. the cache slice: ``python -m raft_tpu_torch.cache smoke`` in a
+   subprocess (two children on one fresh cache root holding only the wave
+   tables phase 2 built: the second with
    staging disk hits and no miss, neither building a library, the second
    launching no K3/K4, the same bits, the ledger's K1 count the children's
    K1 launches); then, armed in process, 5 K1 launches at 250 x 200 float32
    timed by the ledger (best time within 0.5-2x of phase 3's, roofline
    fraction phase 3's bound over it) and one scan chunk of the strip sweep
    under CUDA's sync debug mode "error";
-28. panel-solve copies: one solve and the refined solve's backward under
-   the profiler, no host-device copy and no synchronisation inside; two
-   ``bem_fn`` steps after a first under CUDA's sync debug mode, with every
+29. panel-solve copies: one solve and the refined solve's backward under
+   the profiler, no host-device copy and no synchronisation inside; one
+   ``bem_fn`` step after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-29. the sweeps and one gradient chunk again under ``torch.profiler``: device
+30. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    same gradient chunk with the adjoint's transposed copies, profiled in the
    same call, must run at least 75 copy and negation kernels more (3
@@ -448,6 +466,7 @@ class Smoke:
         self.cli_cold_root = None
         self.record_native: dict = {}
         self.native_coeffs = None
+        self.native_staged = None
         self.record_batches: dict = {}
         self.record_bf16: dict = {}
         self.record_cli: dict = {}
@@ -1121,7 +1140,9 @@ class Smoke:
         from raft_tpu_torch.model import load_design
 
         torch = self.torch
-        for name in ("VolturnUS-S", "OC4semi"):
+        # OC4semi's plain route runs the whole Model too, so its natural
+        # frequencies and std dev are held; VolturnUS-S's stops after the panels
+        for name, plain_whole in (("VolturnUS-S", False), ("OC4semi", True)):
             design = load_design(DESIGNS / f"{name}.yaml")
             runs = {}
             for route in ("kernels", "plain"):
@@ -1132,7 +1153,8 @@ class Smoke:
                     torch_bem.wave_assembly = torch_bem.wave_plain
                 try:
                     t0 = time.perf_counter()
-                    m, t_bem = self._model(design, torch.float64)
+                    m, t_bem = self._model(design, torch.float64,
+                                           full=route == "kernels" or plain_whole)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
                 finally:
@@ -1141,25 +1163,36 @@ class Smoke:
                 runs[route] = (m, t_bem, wall, grew)
             (mk, tk, wk, gk), (mp, tp, wp, gp) = runs["kernels"], runs["plain"]
             d_abf = max(torch_bem.parity_err(a, b) for a, b in zip(mk.bem, mp.bem))
-            fk, fp = mk.results["eigen"]["frequencies"], mp.results["eigen"]["frequencies"]
-            sk, sp = mk.results["response"]["std dev"], mp.results["response"]["std dev"]
-            d_f = float(np.max(np.abs(fk - fp) / np.abs(fp)))
-            d_s = torch_bem.parity_err(sk, sp)
-            ik, ip = mk.results["response"]["iterations"], mp.results["response"]["iterations"]
+            fk = mk.results["eigen"]["frequencies"]
+            sk = mk.results["response"]["std dev"]
+            ik = mk.results["response"]["iterations"]
             diag = mk.bem_diagnostics
+            if plain_whole:
+                fp = mp.results["eigen"]["frequencies"]
+                sp = mp.results["response"]["std dev"]
+                ip = mp.results["response"]["iterations"]
+                d_f = float(np.max(np.abs(fk - fp) / np.abs(fp)))
+                d_s = torch_bem.parity_err(sk, sp)
+                whole = (f"whole run {wk:.2f} s / {wp:.2f} s; fn rel diff {d_f:.2e}, std "
+                         f"scale-rel diff {d_s:.2e}, iterations {ik}/{ip}")
+                held = d_f <= 1e-9 and d_s <= 1e-9 and ik == ip
+                what = "kernels == plain (A/B/F 1e-10, fn and std 1e-9, identical iterations)"
+            else:
+                whole = (f"whole run {wk:.2f} s (the plain route solves the panels only, "
+                         f"{wp:.2f} s); iterations {ik}")
+                held = True
+                what = "the panel solve through K3/K4 == through their plain versions (A/B/F 1e-10)"
             print(f"  Model(BEM='jax') {name} float64: {diag['panels']} panels -> "
                   f"{diag['padded']}, {diag['nw']} w; calcBEM {tk:.2f} s with K3/K4, {tp:.2f} s "
-                  f"plain; whole run {wk:.2f} s / {wp:.2f} s; launches {gk} (plain run {gp}); "
-                  f"A/B/F scale-rel diff {d_abf:.2e}, fn rel diff {d_f:.2e}, std scale-rel diff "
-                  f"{d_s:.2e}, iterations {ik}/{ip}, max refinement residual "
-                  f"{diag['max_residual']:.2e}")
+                  f"plain; {whole}; launches {gk} (plain run {gp}); A/B/F scale-rel diff "
+                  f"{d_abf:.2e}, max refinement residual {diag['max_residual']:.2e}")
             print(f"    natural frequencies [Hz]: {np.array2string(fk, precision=5)}; "
                   f"std dev: {np.array2string(sk, precision=5)}")
-            self.check(d_abf <= 1e-10 and d_f <= 1e-9 and d_s <= 1e-9 and ik == ip
-                       and all(gk[k] > 0 for k in gk) and gp["rankine"] == gp["wave"] == 0
-                       and diag["max_residual"] < 1e-4 and mk.results["response"]["converged"],
-                       f"Model(BEM='jax') {name}: kernels == plain (A/B/F 1e-10, fn and std "
-                       f"1e-9, identical iterations), K1/K3/K4 launched, residual < 1e-4")
+            self.check(d_abf <= 1e-10 and held and all(gk[k] > 0 for k in gk)
+                       and gp["rankine"] == gp["wave"] == 0 and diag["max_residual"] < 1e-4
+                       and mk.results["response"]["converged"] and np.isfinite(sk).all(),
+                       f"Model(BEM='jax') {name}: {what}, K1/K3/K4 launched, residual < 1e-4, "
+                       f"the run converged")
             if name == "VolturnUS-S":
                 m32, t32 = self._model(design, torch.float32, full=False)
                 d32 = max(torch_bem.parity_err(a, b) for a, b in zip(m32.bem, mk.bem))
@@ -1369,6 +1402,7 @@ class Smoke:
                    and set(sweep_launches) == {"fused"},
                    f"native-staged sweep: {n_conv}/{n} lanes converged, all finite, K1 launched")
         self.native_coeffs = diag["coeffs"]
+        self.native_staged = staged
         self.record_native = {"stage_s": t_native, "solve_s": diag["seconds"], "cores": cores,
                               "card_stage_s": t_card, "sweep_wall_s": wall}
 
@@ -1555,9 +1589,9 @@ class Smoke:
         """The BEM gradient at full width: d sigma_nacelle / d theta (radial
         scale) through ``make_bem_fn`` (VolturnUS-S, 850 panels, 1,024 class,
         48 w, 200 m), the panel solve's plain assembly differentiated, K1
-        forward and adjoint in every scan step; float32 against float64 and
-        float64 against central differences; then ``optimize_design`` with
-        ``bem_fn``."""
+        forward and adjoint in every scan step; float64 against the plain
+        solve in K1's place and against central differences; float32
+        through ``optimize_design`` with ``bem_fn`` against float64."""
         from raft_tpu_torch.hydro import torch_bem
         from raft_tpu_torch.hydro.mesh import mesh_design
         from raft_tpu_torch.parallel.optimize import (_make_loss, _value_and_grad,
@@ -1568,43 +1602,45 @@ class Smoke:
         torch = self.torch
         nw, depth, n_iter = 48, 200.0, 25
         w = np.linspace(0.05, 2.95, nw)            # _north_star_wave(48, 200.0)'s grid
-        runs = {}
-        for dtype in (torch.float32, torch.float64):
-            dn = str(dtype).split(".")[-1]
+        f32, f64 = torch.float32, torch.float64
+
+        def staged(dtype):
             design, members, rna, env, wave, C = _volturnus(nw, dtype, self.dev)
             panels = mesh_design(design, dz_max=3.0, da_max=2.0)
             t0 = time.perf_counter()
             bem_fn = torch_bem.make_bem_fn(panels, w, rho=float(env.rho), g=float(env.g),
                                            depth=depth, beta=0.0, dtype=dtype, device=self.dev)
-            t_stage = time.perf_counter() - t0
-            loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, scale_diameters,
-                              None, n_iter, False, bem_fn=bem_fn, dtype=dtype, device=self.dev)
-            th = torch.tensor(BEM_THETA, dtype=dtype, device=self.dev)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            self.zero_counts()
-            t0 = time.perf_counter()
-            val, g = _value_and_grad(loss, th)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated()
-            launches = self.counts()
-            if dtype == torch.float32:
-                self.add_main(launches, ("fused", "fused_adjoint"))
-            runs[dn] = (float(val), float(g), loss, th)
-            print(f"  BEM gradient {dn}: {len(panels)} panels -> "
-                  f"{torch_bem.pad_panel_count(len(panels))}, {nw} w, {depth:.0f} m, scan "
-                  f"{n_iter}: bem_fn staged in {t_stage:.2f} s; value and gradient {wall:.2f} s, "
-                  f"peak memory {peak / 2**30:.2f} GiB; sigma_nacelle {float(val):.6e}, "
-                  f"d sigma / d theta {float(g):.6e}; launches "
-                  f"{ {k: v for k, v in launches.items() if v} }")
-            self.check(bool(torch.isfinite(val)) and bool(torch.isfinite(g)) and float(g) != 0.0
-                       and launches["fused"] == n_iter and launches["fused_adjoint"] == n_iter
-                       and launches["rankine"] == launches["wave"] == 0,
-                       f"BEM gradient {dn}: finite, K1 {n_iter} forward + {n_iter} adjoint "
-                       f"launches, K3/K4 none (the plain assembly)")
-        g32, g64 = runs["float32"][1], runs["float64"][1]
-        v64, _g, loss64, th64 = runs["float64"]
+            return (members, rna, env, wave, C), panels, bem_fn, time.perf_counter() - t0
+
+        def launched(launches, n):
+            return (launches["fused"] == launches["fused_adjoint"] == n
+                    and launches["rankine"] == launches["wave"] == 0)
+
+        # float64: the value and gradient through K1, then with the plain solve in
+        # K1's place (autograd through it), then the central difference
+        inputs, panels, bem_fn, t_stage = staged(f64)
+        loss64 = _make_loss(*inputs, nacelle_accel_std, scale_diameters, None, n_iter, False,
+                            bem_fn=bem_fn, dtype=f64, device=self.dev)
+        th64 = torch.tensor(BEM_THETA, dtype=f64, device=self.dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        val, g = _value_and_grad(loss64, th64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = self.counts()
+        v64, g64 = float(val), float(g)
+        print(f"  BEM gradient float64: {len(panels)} panels -> "
+              f"{torch_bem.pad_panel_count(len(panels))}, {nw} w, {depth:.0f} m, scan "
+              f"{n_iter}: bem_fn staged in {t_stage:.2f} s; value and gradient {wall:.2f} s, "
+              f"peak memory {peak / 2**30:.2f} GiB; sigma_nacelle {v64:.6e}, d sigma / d theta "
+              f"{g64:.6e}; launches { {k: v for k, v in launches.items() if v} }")
+        self.check(np.isfinite(v64) and np.isfinite(g64) and g64 != 0.0
+                   and launched(launches, n_iter),
+                   f"BEM gradient float64: finite, K1 {n_iter} forward + {n_iter} adjoint "
+                   f"launches, K3/K4 none (the plain assembly)")
         t0 = time.perf_counter()
         with plain_solve():
             vp, gp = (float(x) for x in _value_and_grad(loss64, th64))
@@ -1617,39 +1653,52 @@ class Smoke:
                    f"BEM gradient float64: K1 forward and adjoint == the plain solve "
                    f"({BEM_TOL_PLAIN:.0e}, value and gradient)")
         with torch.no_grad():
-            up, down = (float(loss64(th64 + s * BEM_FD_H)) for s in (1.0, -1.0))
             with FrozenBranches() as frozen:                  # record theta's branches
                 loss64(th64)
             frozen_fd = []
             for s in (1.0, -1.0):
                 with frozen.replay():
                     frozen_fd.append(float(loss64(th64 + s * BEM_FD_H)))
-        fd = (up - down) / (2 * BEM_FD_H)
         fd_frozen = (frozen_fd[0] - frozen_fd[1]) / (2 * BEM_FD_H)
-        d32, d_fd = abs(g32 - g64) / abs(g64), abs(g64 - fd_frozen) / abs(fd_frozen)
-        print(f"  BEM gradient at theta {BEM_THETA}: float32 {g32:.9e} vs float64 {g64:.9e}, rel "
-              f"{d32:.3e} (limit {BEM_TOL_32:.0e}); float64 vs the central difference (h "
-              f"{BEM_FD_H}) with theta's branches held {fd_frozen:.9e}, rel {d_fd:.3e} (limit "
-              f"{BEM_FD_RTOL:.0e}); with the branches taken afresh {fd:.9e}, rel "
-              f"{abs(g64 - fd) / abs(fd):.3e} ({frozen.n_held} comparisons and integer casts "
-              f"held)")
-        self.check(d32 <= BEM_TOL_32 and d_fd <= BEM_FD_RTOL,
-                   f"BEM gradient: float32 == float64 ({BEM_TOL_32:.0e}), float64 == central "
-                   f"difference ({BEM_FD_RTOL:.0e})")
+        d_fd = abs(g64 - fd_frozen) / abs(fd_frozen)
+        print(f"  BEM gradient at theta {BEM_THETA}: float64 {g64:.9e} vs the central difference "
+              f"(h {BEM_FD_H}) with theta's branches held {fd_frozen:.9e}, rel {d_fd:.3e} (limit "
+              f"{BEM_FD_RTOL:.0e}; {frozen.n_held} comparisons and integer casts held)")
+        self.check(d_fd <= BEM_FD_RTOL,
+                   f"BEM gradient: float64 == central difference ({BEM_FD_RTOL:.0e})")
 
-        design, members, rna, env, wave, C = _volturnus(nw, torch.float32, self.dev)
-        bem_fn = torch_bem.make_bem_fn(mesh_design(design, dz_max=3.0, da_max=2.0), w,
-                                       rho=float(env.rho), g=float(env.g), depth=depth,
-                                       dtype=torch.float32, device=self.dev)
+        # float32 through the entry point: optimize_design(bem_fn=...) from theta
+        # BEM_THETA, 1 Adam step; its first value and gradient are the float32
+        # ones at theta, held against float64 (the step's sign gives the gradient's)
+        inputs, panels, bem_fn, _t = staged(f32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
         t0 = time.perf_counter()
-        res = optimize_design(members, rna, env, wave, C, theta0=1.0, steps=1,
-                              learning_rate=0.02, bounds=(0.8, 1.25), n_iter=n_iter,
-                              bem_fn=bem_fn, dtype=torch.float32, device=self.dev)
-        print(f"  optimize_design(bem_fn) float32, 1 Adam step: {time.perf_counter() - t0:.2f} s; "
-              f"objective {np.array2string(res.history, precision=7)}; theta "
-              f"{np.array2string(res.thetas, precision=6)}; |grad| {res.grad_norm:.4e}")
-        self.check(bool(np.isfinite(res.history).all()) and bool(np.isfinite(res.thetas).all()),
-                   "optimize_design(bem_fn): finite history")
+        res = optimize_design(*inputs, theta0=BEM_THETA, steps=1, learning_rate=0.02,
+                              bounds=(0.8, 1.25), n_iter=n_iter, bem_fn=bem_fn, dtype=f32,
+                              device=self.dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = self.counts()
+        self.add_main(launches, ("fused", "fused_adjoint"))
+        v32 = float(res.history[0])
+        g32 = float(np.sign(res.thetas[0] - res.thetas[1])) * float(res.grad_norm)
+        dv32, d32 = abs(v32 - v64) / abs(v64), abs(g32 - g64) / abs(g64)
+        print(f"  optimize_design(bem_fn) float32, {len(panels)} panels, 1 Adam step from theta "
+              f"{BEM_THETA} (2 values and gradients): {wall:.2f} s, peak memory "
+              f"{peak / 2**30:.2f} GiB; objective {np.array2string(res.history, precision=7)}; "
+              f"theta {np.array2string(res.thetas, precision=6)}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"  BEM gradient at theta {BEM_THETA}: float32 value {v32:.7e} vs float64 rel "
+              f"{dv32:.3e}, gradient {g32:.9e} vs float64 {g64:.9e} rel {d32:.3e} (limit "
+              f"{BEM_TOL_32:.0e})")
+        self.check(bool(np.isfinite(res.history).all()) and bool(np.isfinite(res.thetas).all())
+                   and res.thetas[1] != res.thetas[0] and launched(launches, 2 * n_iter),
+                   f"optimize_design(bem_fn) float32: finite history, K1 2 x {n_iter} forward + "
+                   f"2 x {n_iter} adjoint launches, K3/K4 none (the plain assembly)")
+        self.check(dv32 <= BEM_TOL_32 and d32 <= BEM_TOL_32,
+                   f"BEM gradient: float32 == float64 ({BEM_TOL_32:.0e}, value and gradient)")
 
     def phase_dlc(self):
         """The DLC table: ``Model(VolturnUS-S, BEM="jax")`` on the north star's
@@ -2757,6 +2806,257 @@ class Smoke:
         ta = 0.5 * (ta + self.time_ms(fa, reps))
         return ta, tb
 
+    def _walls_in_turns(self, fa, fb, reps: int = 2):
+        """Walls of fa and fb (host clock, each ending in a synchronise) in
+        turns a, b, b, a, ``reps`` times; returns (walls a, walls b)."""
+        torch = self.torch
+        wa, wb = [], []
+        for _ in range(reps):
+            for f, acc in ((fa, wa), (fb, wb), (fb, wb), (fa, wa)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                acc.append(time.perf_counter() - t0)
+        return wa, wb
+
+    def phase_multi_device(self):
+        """The multi-device slice at world one: this process joins a world
+        of one under NCCL (``make_mesh``), then each ``mesh=`` path runs
+        against its unsharded counterpart on the card: the north star's
+        1,000 variants x 200 w (float32, scan at 40) through ``sweep``;
+        ``forward_response_freq_sharded`` on VolturnUS-S at 200 w, float64,
+        with the native-staged BEM (K1 against the plain solve there too);
+        ``forward_response_dp_sp`` on a (1, 1) mesh; ``sweep_sea_states`` on
+        the 64-case DLC table; ``sweep_designs`` on the mixed designs;
+        ``ArrayModel.solveDynamics`` on 4 turbines; one sharded scan chunk
+        under CUDA's sync debug mode "error"; the sharded and unsharded
+        north star and freq-sharded solve timed in turns."""
+        import torch.distributed as dist
+
+        from raft_tpu_torch.array import ArrayModel
+        from raft_tpu_torch.core.cplx import Cx
+        from raft_tpu_torch.model import load_design, stage_designs
+        from raft_tpu_torch.parallel.geometry import make_scale_plan, make_stretch_draft
+        from raft_tpu_torch.parallel.multihost import global_mesh, pmax, psum
+        from raft_tpu_torch.parallel.sweep import (_apply_lanes, _volturnus, forward_response,
+                                                   forward_response_dp_sp,
+                                                   forward_response_freq_sharded, make_mesh,
+                                                   make_wave_states, north_star_grid,
+                                                   scale_diameters, stage_north_star_bem, sweep,
+                                                   sweep_designs, sweep_sea_states)
+
+        torch = self.torch
+        f32, f64 = torch.float32, torch.float64
+        nw = self.nw
+        t0 = time.perf_counter()
+        mesh = make_mesh()
+        t_join = time.perf_counter() - t0
+        try:
+            self.check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+                       and mesh.device_type == "cuda" and mesh.mesh_dim_names == ("designs",),
+                       f"make_mesh(): a world of one under NCCL on the card, joined in "
+                       f"{t_join:.2f} s")
+
+            def same(a, b):
+                return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a
+                           if isinstance(a[k], np.ndarray))
+
+            # 1. the north star's variants through sweep(mesh=), the same bits and K1 launches
+            _d, members, rna, env, wave, C = _volturnus(nw, f32, self.dev)
+            draft, plan = make_stretch_draft(members), make_scale_plan(members)
+
+            def apply_fn(m, th):
+                return plan(draft(m, th[..., 1]), th[..., 0])
+
+            thetas = north_star_grid(self.n_designs)
+            kw = dict(apply_fn=apply_fn, n_iter=40, return_xi=False, dtype=f32, device=self.dev)
+
+            def ns(mesh_=None):
+                return sweep(members, rna, env, wave, C, thetas, mesh=mesh_, **kw)
+
+            self.zero_counts()
+            got = ns(mesh)
+            k_sharded = self.counts()["fused"]
+            self.add_main(self.counts(), ("fused",))
+            self.zero_counts()
+            want = ns()
+            k_plain = self.counts()["fused"]
+            walls_u, walls_s = self._walls_in_turns(ns, lambda: ns(mesh))
+            conv = bool(np.isfinite(got["std dev"]).all())
+            print(f"  north star {self.n_designs} x {nw} float32 through sweep(mesh=make_mesh()), "
+                  f"scan 40: K1 launches {k_sharded} (unsharded {k_plain}); walls in turns "
+                  f"unsharded {[round(x, 4) for x in walls_u]} s, sharded "
+                  f"{[round(x, 4) for x in walls_s]} s; {nvidia_smi()}")
+            self.check(same(got, want) and k_sharded == k_plain == 40 and conv,
+                       "sweep(mesh=make_mesh()) == sweep() bit for bit, the same K1 launches")
+
+            # 2. the frequency-sharded solve, native-staged BEM, f64; K1 against plain there
+            if self.native_staged is None:
+                self.native_staged, diag = stage_north_star_bem(
+                    nw=nw, nw_bem=48, mode="native", cache=False, dtype=f64, device=self.dev,
+                    return_diagnostics=True)
+                self.native_coeffs = diag["coeffs"]
+            bem = self.native_staged
+            _d, m64, rna64, env64, wave64, C64 = _volturnus(nw, f64, self.dev)
+
+            def fs(mesh_=mesh):
+                return forward_response_freq_sharded(m64, rna64, env64, wave64, C64, mesh_,
+                                                     bem=bem, device=self.dev)
+
+            def fu():
+                return forward_response(m64, rna64, env64, wave64, C64, bem=bem, n_iter=40,
+                                        method="while", device=self.dev)
+
+            def rel(a, b):
+                return float((a - b).abs().max() / b.abs().max())
+
+            self.zero_counts()
+            out_s = fs()
+            k_fs = self.counts()["fused"]
+            self.add_main(self.counts(), ("fused",))
+            out_u = fu()
+            with plain_solve():
+                out_p = fs()
+            d_u = max(rel(out_s.Xi.re, out_u.Xi.re), rel(out_s.Xi.im, out_u.Xi.im))
+            d_p = max(rel(out_s.Xi.re, out_p.Xi.re), rel(out_s.Xi.im, out_p.Xi.im))
+            n_s, n_u, n_p = int(out_s.n_iter), int(out_u.n_iter), int(out_p.n_iter)
+            walls_fu, walls_fs = self._walls_in_turns(fu, fs, reps=3)
+            per_it = (min(walls_fs) - min(walls_fu)) / n_s
+            print(f"  forward_response_freq_sharded VolturnUS-S {nw} w float64, native-staged "
+                  f"BEM, while 40: {n_s} iterations (unsharded {n_u}, plain solve {n_p}), K1 "
+                  f"launches {k_fs}; against unsharded {d_u:.3e}, K1 against the plain solve "
+                  f"{d_p:.3e}; walls in turns unsharded {[round(x, 4) for x in walls_fu]} s, "
+                  f"sharded {[round(x, 4) for x in walls_fs]} s: {1e3 * per_it:.3f} ms an "
+                  f"iteration for the SUM and MAX all-reduce at world one")
+            self.check(n_s == n_u == n_p == k_fs and bool(out_s.converged) and d_u <= 1e-12
+                       and d_p <= 1e-10,
+                       "freq-sharded == unsharded (1e-12, identical iterations); K1 == the plain "
+                       "solve on the sharded path (1e-10, identical iterations)")
+            # one iteration's collectives alone: the SUM of the (3, nodes) spectral
+            # moments and the MAX of the lane error, 200 pairs, host clock
+            moments = torch.rand(3, m64.node_r.shape[-2], dtype=f64, device=self.dev)
+            err = torch.rand((), dtype=f64, device=self.dev)
+            axis = (mesh, "designs")
+            pair_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    psum(moments, axis)
+                    pmax(err, axis)
+                torch.cuda.synchronize()
+                pair_ms.append(1e3 * (time.perf_counter() - t0) / 200)
+            print(f"  one iteration's all-reduces at world one (SUM of 3 x "
+                  f"{m64.node_r.shape[-2]} moments, MAX of the error; 200 pairs, host clock): "
+                  f"{[round(x, 4) for x in pair_ms]} ms a pair")
+
+            # 3. design x frequency on a (1, 1) mesh
+            mesh2 = global_mesh(("designs", "freq"), (1, 1))
+            th4 = np.array([0.95, 1.0, 1.05, 1.1])
+            self.zero_counts()
+            dp = forward_response_dp_sp(m64, rna64, env64, wave64, C64, th4, mesh2, bem=bem,
+                                        device=self.dev)
+            self.add_main(self.counts(), ("fused",))
+            with torch.no_grad():
+                ref = forward_response(
+                    _apply_lanes(scale_diameters, m64, torch.as_tensor(th4, device=self.dev)),
+                    rna64, env64, wave64, C64, bem=bem, n_iter=40, method="while",
+                    device=self.dev)
+            d_dp = max(rel(dp.Xi.re, ref.Xi.re), rel(dp.Xi.im, ref.Xi.im))
+            print(f"  forward_response_dp_sp (1, 1) mesh, 4 thetas x {nw} w float64: iterations "
+                  f"{dp.n_iter.tolist()}, against unsharded {d_dp:.3e}")
+            self.check(torch.equal(dp.n_iter, ref.n_iter) and d_dp <= 1e-12,
+                       "dp x sp (1, 1) == unsharded (1e-12, identical iterations)")
+
+            # 4. the DLC table's cases over the mesh
+            w, (mem, rna_, env_, C_), cases = self._dlc_inputs()
+            waves = make_wave_states(w, cases, env_.depth, dtype=f64, device=self.dev)
+            self.zero_counts()
+            dlc_s = sweep_sea_states(mem, rna_, env_, waves, C_, bem=self.dlc_grid, n_iter=25,
+                                     mesh=mesh, dtype=f64, device=self.dev)
+            self.add_main(self.counts(), ("fused",))
+            dlc_u = sweep_sea_states(mem, rna_, env_, waves, C_, bem=self.dlc_grid, n_iter=25,
+                                     dtype=f64, device=self.dev)
+            d_dlc = max(float(np.abs(dlc_s[k] - dlc_u[k]).max() / np.abs(dlc_u[k]).max())
+                        for k in ("std dev", "nacelle accel std dev", "Xi_abs2"))
+            print(f"  sweep_sea_states(mesh=) {len(cases)} cases x {nw} w float64: against "
+                  f"unsharded {d_dlc:.3e}, bit for bit {same(dlc_s, dlc_u)}")
+            self.check(np.array_equal(dlc_s["iterations"], dlc_u["iterations"])
+                       and d_dlc <= 1e-12,
+                       "sweep_sea_states(mesh=) == unsharded (1e-12, identical iterations)")
+
+            # 5. the mixed designs over the mesh
+            staged = self.mixed_staged
+            if staged is None:
+                staged = stage_designs(self._mixed_designs(self.per_family,
+                                                           np.random.default_rng(20261017)),
+                                       nw=nw, Hs=8.0, Tp=12.0, w_min=0.05, w_max=2.95,
+                                       dtype=f32, device=self.dev)
+            self.zero_counts()
+            mix_s = sweep_designs(staged=staged, n_iter=25, return_xi=False, mesh=mesh,
+                                  dtype=f32, device=self.dev)
+            self.add_main(self.counts(), ("fused",))
+            mix_u = sweep_designs(staged=staged, n_iter=25, return_xi=False, dtype=f32,
+                                  device=self.dev)
+            print(f"  sweep_designs(mesh=) {len(mix_s['designs'])} designs in "
+                  f"{mix_s['buckets']['n_buckets']} buckets float32: bit for bit "
+                  f"{same(mix_s, mix_u)}")
+            self.check(same(mix_s, mix_u), "sweep_designs(mesh=) == unsharded bit for bit")
+
+            # 6. four turbines over the mesh
+            design = load_design(DESIGNS / "VolturnUS-S.yaml")
+            farm = ArrayModel(design, nT=4, positions=[[0, 0], [1500, 0], [0, 1500],
+                                                       [1500, 1500]], dtype=f64,
+                              device=self.dev)
+            farm.setEnv(Hs=8.0, Tp=12.0, V=10.0, Fthrust=float(design["turbine"]["Fthrust"]))
+            farm.calcSystemProps()
+            farm.solveDynamics()
+            r_u = {k: np.copy(v) for k, v in farm.results["response"].items()
+                   if isinstance(v, np.ndarray)}
+            self.zero_counts()
+            farm.solveDynamics(mesh=mesh)
+            self.add_main(self.counts(), ("fused",))
+            r_s = farm.results["response"]
+            print(f"  ArrayModel(4 VolturnUS-S).solveDynamics(mesh=) float64: iterations "
+                  f"{r_s['iterations'].tolist()}, bit for bit {same(r_s, r_u)}")
+            self.check(np.array_equal(r_s["iterations"], r_u["iterations"])
+                       and float(np.abs(r_s["Xi per turbine"] - r_u["Xi per turbine"]).max())
+                       <= 1e-12 * float(np.abs(r_u["Xi per turbine"]).max()),
+                       "ArrayModel.solveDynamics(mesh=) == unsharded (1e-12, identical "
+                       "iterations)")
+
+            # 7. one sharded scan chunk (250 variants, the freq psum) under sync debug "error"
+            th = torch.as_tensor(thetas[:250], dtype=f32, device=self.dev)
+            bem32 = (bem[0].to(f32), bem[1].to(f32), Cx(bem[2].re.to(f32), bem[2].im.to(f32)))
+
+            def chunk():
+                with torch.no_grad():
+                    return forward_response(_apply_lanes(apply_fn, members, th), rna, env,
+                                            wave, C, bem=bem32, n_iter=25, method="scan",
+                                            dtype=f32, device=self.dev, axis=(mesh, "designs"))
+
+            chunk()
+            torch.cuda.synchronize()
+            raised = None
+            n0 = self.counts()["fused"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                chunk()
+            except RuntimeError as e:
+                raised = str(e)[:300]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            n_k1 = self.counts()["fused"] - n0
+            print(f"  one scan chunk (250 variants x {nw} w, 25 iterations, float32) with the "
+                  f"psum and pmax over the mesh under sync debug \"error\": "
+                  f"{raised or 'no synchronisation'}; K1 launches {n_k1}")
+            self.check(raised is None and n_k1 == 25,
+                       "the collectives add no synchronisation to a sharded scan chunk")
+        finally:
+            dist.destroy_process_group()
+
     def phase_bf16(self):
         """The bf16 entries of K3 and K4 (``RAFT_TPU_BEM_PRECISION=bf16``)
         against their plain versions on the same bf16 inputs, elementwise
@@ -3077,8 +3377,8 @@ class Smoke:
             tables already built, as a user's cache root does after its
             first BEM solve: the subprocess measures the CLI's start-up,
             not the tables' one-time build (21-24 s on a root without them:
-            they follow the cache root, as the JAX package's do; the cache
-            smoke's cold child measures that build)."""
+            they follow the cache root, as the JAX package's do; phase
+            "build" measures that build on the checkout's fresh root)."""
             root = Path(tmp) / name
             shutil.copytree(tables, root / "wavetable")
             return str(root)
@@ -3200,7 +3500,8 @@ class Smoke:
 
     def phase_cache(self):
         """The cache slice.  (1) ``python -m raft_tpu_torch.cache smoke`` on
-        the card in a subprocess (two children on one fresh root: warm
+        the card in a subprocess (two children on one fresh root that holds
+        only the wave tables already built: warm
         staging hits, no library built in either, no K3/K4 launch in the
         warm child, the same bits, the ledger's K1 count the children's K1
         launches).  (2) The full-width warm start: phase "CLI"'s
@@ -3236,14 +3537,22 @@ class Smoke:
         torch = self.torch
         env = {**os.environ, "PYTHONPATH": str(ROOT)}
         env.pop("RAFT_TPU_TORCH_CACHE_DIR", None)
+        # the smoke's root holds the wave tables phase "build" made, so its
+        # cold child does not build them again (they follow the cache root)
+        smoke_root = Path(tempfile.mkdtemp(prefix="raft_torch_cache_smoke_"))
+        wavetable.load_tables()
+        shutil.copytree(wavetable.cache_dir(), smoke_root / "wavetable")
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([sys.executable, "-m", "raft_tpu_torch.cache", "smoke"],
+            proc = subprocess.run([sys.executable, "-m", "raft_tpu_torch.cache", "smoke",
+                                   "--dir", str(smoke_root)],
                                   cwd=str(ROOT), env=env, capture_output=True, text=True,
                                   timeout=420)
             rc, out, err = proc.returncode, proc.stdout, proc.stderr
         except subprocess.TimeoutExpired as e:
             rc, out, err = "timeout", e.stdout or "", e.stderr or ""
+        finally:
+            shutil.rmtree(smoke_root, ignore_errors=True)
         wall = time.perf_counter() - t0
         res = None
         try:
@@ -3454,8 +3763,8 @@ class Smoke:
         solve (VolturnUS-S, 1,024 class, a finite-depth and a deep chunk,
         K3/K4) and the refined solve's backward at a chunk's shapes, the
         library calls (LU, triangular solves) that both routes share; no
-        host-device copy, no synchronisation, no ``cudaFree``.  Then two
-        bem_fn steps at full width (value and gradient, float32, the plain
+        host-device copy, no synchronisation, no ``cudaFree``.  Then one
+        bem_fn step at full width (value and gradient, float32, the plain
         assembly) after a first, under CUDA's sync debug mode (every
         synchronisation PyTorch issues) with every host-to-device copy
         counted."""
@@ -3548,16 +3857,16 @@ class Smoke:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                grads = [step() for _ in range(2)]
+                grads = [step()]
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         syncs = [str(c.message)[:80] for c in caught
                  if "called a synchronizing CUDA operation" in str(c.message)]
-        print(f"  two bem_fn steps (float32, value and gradient) after the first: host-to-device "
+        print(f"  one bem_fn step (float32, value and gradient) after the first: host-to-device "
               f"copies {hc.ops or 'none'}; synchronisations {syncs or 'none'}; gradients "
               f"{[float(g) for g in grads]}")
         self.check(not hc.ops and not syncs and bool(torch.isfinite(torch.stack(grads)).all()),
-                   "bem_fn steps: no host-to-device copy, no synchronisation")
+                   "bem_fn step: no host-to-device copy, no synchronisation")
 
     def _count_device_ops(self, fn) -> dict:
         """Device operations (kernels, copies) of one run of ``fn`` under
@@ -3753,6 +4062,7 @@ class Smoke:
                   ("serve", self.phase_serve),
                   ("fleet", self.phase_fleet),
                   ("array farm", self.phase_array_farm),
+                  ("multi-device", self.phase_multi_device),
                   ("bf16 assembly", self.phase_bf16),
                   ("BEM inputs", self.phase_bem_inputs),
                   ("CLI", self.phase_cli),

@@ -9,7 +9,10 @@ the card unless the caller passes ``device="cpu"``.
 The entry points below load on first use, so ``import raft_tpu_torch``
 stays light: ``Model``, ``run_raft``, ``sweep_north_star``,
 ``forward_response``, ``grad_response_std``, ``grad_nacelle_accel_std`` and
-``optimize_design``; and the coefficient type ``HydroCoeffs``.
+``optimize_design``; the multi-device layer ``init_multihost``,
+``global_mesh``, ``stage_global``, ``make_mesh``,
+``forward_response_freq_sharded`` and ``forward_response_dp_sp``; and the
+coefficient type ``HydroCoeffs``.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +26,12 @@ _EXPORTS = {
     "grad_nacelle_accel_std": "raft_tpu_torch.parallel.optimize",
     "optimize_design": "raft_tpu_torch.parallel.optimize",
     "HydroCoeffs": "raft_tpu_torch.core.types",
+    "init_multihost": "raft_tpu_torch.parallel.multihost",
+    "global_mesh": "raft_tpu_torch.parallel.multihost",
+    "stage_global": "raft_tpu_torch.parallel.multihost",
+    "make_mesh": "raft_tpu_torch.parallel.sweep",
+    "forward_response_freq_sharded": "raft_tpu_torch.parallel.sweep",
+    "forward_response_dp_sp": "raft_tpu_torch.parallel.sweep",
 }
 
 

@@ -33,7 +33,8 @@ from raft_tpu_torch.mooring.system import (
     fairlead_tensions, mooring_stiffness, parse_mooring, solve_equilibrium, stack_systems,
     tension_jacobian,
 )
-from raft_tpu_torch.parallel.sweep import _no_mesh, stage_bem
+from raft_tpu_torch.parallel import multihost as _mh
+from raft_tpu_torch.parallel.sweep import _gather_rao, stage_bem
 from raft_tpu_torch.solve.dynamics import LinearCoeffs, solve_dynamics
 from raft_tpu_torch.solve.eigen import diagonal_estimates, eigen_with_bem_batched, solve_eigen
 from raft_tpu_torch.statics import assemble_statics
@@ -75,6 +76,20 @@ def _phase_kin(kin: StripKin, ph: Cx) -> StripKin:
     ph3 = Cx(ph.re[..., None, :, None], ph.im[..., None, :, None])
     ph2 = Cx(ph.re[..., None, :], ph.im[..., None, :])
     return StripKin(u=kin.u * ph3, ud=kin.ud * ph3, pDyn=kin.pDyn * ph2)
+
+
+def _turbines(obj, sl: slice):
+    """The turbines ``sl`` of a turbine-leading dataclass (MemberSet,
+    StripKin, LinearCoeffs, Cx): every tensor field cut on its leading
+    axis, as views."""
+    if sl == slice(None):
+        return obj
+    if isinstance(obj, torch.Tensor):
+        return obj[sl] if obj.ndim else obj
+    return dataclasses.replace(obj, **{
+        f.name: _turbines(getattr(obj, f.name), sl) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)
+        or dataclasses.is_dataclass(getattr(obj, f.name))})
 
 
 class ArrayModel:
@@ -359,10 +374,16 @@ class ArrayModel:
         """RAO solve of every turbine at once: one batched fixed point over
         the turbine axis (each iteration one K1 launch for all turbines and
         frequencies).  ``history=True`` records each turbine's convergence
-        error per iteration.  ``mesh`` (sharding the turbines over devices)
-        raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 7.3)."""
+        error per iteration.  ``mesh``: a 1-D ``DeviceMesh``
+        (``parallel.sweep.make_mesh``); the turbine axis is pure data
+        parallelism: each rank solves its block of turbines (``nT`` a
+        multiple of the mesh's size) with no collective inside, and one
+        all-gather gives every rank the whole farm's result."""
+        sl = slice(None)
         if mesh is not None:
-            raise _no_mesh("ArrayModel.solveDynamics")
+            _mh.check_mesh(mesh, "ArrayModel.solveDynamics", self.device)
+            sl = _mh.lane_block(mesh, self.nT, "ArrayModel.solveDynamics",
+                                "nT={n} not a multiple of the {size}-device mesh")
         if self.statics is None or self.kin is None:
             self.calcSystemProps()
         if self.C_moor is None:
@@ -376,8 +397,13 @@ class ArrayModel:
             A_b, B_b, F_t = self._bem_staged
             M, B, F = M + A_b, B + B_b, F + F_t
         lin = LinearCoeffs(M=M, B=B, C=s.C_struc + s.C_hydro + self.C_moor, F=F)
-        self.rao = solve_dynamics(self.members, self.kin, self.wave, self.env, lin,
-                                  n_iter=nIter, tol=tol, method=method, history=history)
+        members, kin, lin = (_turbines(x, sl) for x in (self.members, self.kin, lin))
+        self.rao = solve_dynamics(members, kin, self.wave, self.env, lin, n_iter=nIter,
+                                  tol=tol, method=method, history=history)
+        if mesh is not None:
+            with torch.no_grad():
+                self.rao = _gather_rao(self.rao, mesh, None, mesh.mesh_dim_names[0],
+                                       lanes=True)
         Xi_c = self.rao.Xi.to_complex()                            # (nT, nw, 6)
         amp = np.abs(Xi_c)
         zeta = np.maximum(_np(self.wave.zeta), 1e-12)

@@ -22,6 +22,7 @@ from raft_tpu_torch.core.transforms import (
 from raft_tpu_torch.core.device import to_device
 from raft_tpu_torch.core.types import Env, MemberSet, WaveState, per_lane
 from raft_tpu_torch.core.waves import wave_kinematics
+from raft_tpu_torch.core.collectives import psum
 
 Tensor = torch.Tensor
 
@@ -220,24 +221,30 @@ def node_motion(m: MemberSet, Xi: Cx, w: Tensor) -> Cx:
 
 
 def linearized_drag(m: MemberSet, kin: StripKin, Xi: Cx, wave: WaveState,
-                    env: Env):
+                    env: Env, axis=None):
     """Stochastically linearized Morison drag about the iterate Xi.
 
     Returns (B_drag (..., 6, 6), F_drag Cx (..., nw, 6)); the vRMS spectral
-    moment reduces per design over (frequency, xyz) only."""
+    moment reduces per design over (frequency, xyz) only.
+
+    ``axis``: set when the frequency grid is sharded over ranks (a process
+    group, or ``(mesh, dim name)``): the spectral moment is the only
+    frequency reduction in the fixed point, so the three moments of every
+    node complete with one SUM all-reduce over ``axis`` before the square
+    root (:func:`raft_tpu_torch.core.collectives.psum`, autograd kept)."""
     vnode = node_motion(m, Xi, wave.w)
     vrel = kin.u - vnode
+    v2 = vrel.re**2 + vrel.im**2
 
-    def vrms(unit):
-        w2 = unit[..., None, :] ** 2
-        s = ((vrel.re**2 + vrel.im**2) * w2).sum(dim=(-1, -2))
-        pos = s > 0
-        s_safe = torch.where(pos, s, torch.ones_like(s))
-        return torch.where(pos, torch.sqrt(s_safe), torch.zeros_like(s))
+    def moment(unit):
+        return (v2 * unit[..., None, :] ** 2).sum(dim=(-1, -2))
 
-    vRMS_q = vrms(m.node_q)
-    vRMS_p1 = vrms(m.node_p1)
-    vRMS_p2 = vrms(m.node_p2)
+    s = torch.stack([moment(m.node_q), moment(m.node_p1), moment(m.node_p2)])
+    if axis is not None:
+        s = psum(s, axis)
+    pos = s > 0
+    vRMS_q, vRMS_p1, vRMS_p2 = torch.where(
+        pos, torch.sqrt(torch.where(pos, s, torch.ones_like(s))), torch.zeros_like(s))
 
     uc = node_current(m, env)
     U_q = (uc * m.node_q).sum(-1)

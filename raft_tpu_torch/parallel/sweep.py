@@ -29,8 +29,18 @@ the card) with the durable chunk store of
 n_iter)`` verdict (the first two reduced on the device) and re-solve
 failed lanes through the escalation ladder
 (:mod:`raft_tpu_torch.resilience.ladder`); the spans and metrics go to
-:mod:`raft_tpu_torch.obs`.  ``mesh`` (sharding over devices) is the one
-option still to come (:data:`_MULTI_DEVICE_ITEM`).
+:mod:`raft_tpu_torch.obs`.
+
+``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``, one rank per
+device: :func:`make_mesh`,
+:func:`raft_tpu_torch.parallel.multihost.global_mesh`) shards over ranks.
+The design, case and turbine axes are pure data parallelism: each rank
+solves its own block of lanes with no collective inside, and one all-gather
+at the end gives every rank the whole result.  The frequency axis
+(:func:`forward_response_freq_sharded`, and the second dimension of
+:func:`forward_response_dp_sp`) couples its shards through the drag
+linearization's spectral moment and the convergence test: one SUM and one
+MAX all-reduce per fixed-point iteration (``solve_dynamics(axis=...)``).
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from raft_tpu_torch.core.types import Env, MemberSet, RNA, WaveState
 from raft_tpu_torch.core.waves import jonswap, spreading_weights, wave_number
 from raft_tpu_torch.hydro.strip import node_kinematics, strip_added_mass, strip_excitation
 from raft_tpu_torch.mooring.system import mooring_stiffness, parse_mooring
+from raft_tpu_torch.parallel import multihost as _mh
 from raft_tpu_torch.parallel.geometry import make_scale_plan, make_stretch_draft
 from raft_tpu_torch.solve.dynamics import LinearCoeffs, RAOResult, solve_dynamics
 from raft_tpu_torch.statics import assemble_statics
@@ -58,6 +69,28 @@ Tensor = torch.Tensor
 
 #: the north star's platform, read as a data file
 VOLTURNUS_S = Path(__file__).resolve().parents[2] / "raft_tpu" / "designs" / "VolturnUS-S.yaml"
+
+
+def make_mesh(n_devices: int | None = None, axis: str = "designs", device=None):
+    """A 1-D ``DeviceMesh`` named ``axis`` over the world, for the
+    data-parallel ``mesh=`` options.
+
+    In a process that has joined no world (:func:`raft_tpu_torch.parallel.
+    multihost.init_multihost`) it joins a world of one first: a local port,
+    NCCL on the card (``device=None``, raising without CUDA), Gloo for
+    ``device="cpu"``; so ``sweep(..., mesh=make_mesh())`` runs on one card as
+    the JAX package's runs on one device.  ``n_devices``, when given, must
+    be the world's size (a rank is a device)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        _mh.init_multihost(f"127.0.0.1:{_mh.free_port()}", 1, 0, device=dev)
+    world = dist.get_world_size()
+    if n_devices is not None and int(n_devices) != world:
+        raise ValueError(f"make_mesh: n_devices={n_devices} but the world has {world} ranks "
+                         f"(one device each)")
+    return _mh.check_mesh(_mh.global_mesh((axis,)), "make_mesh", dev)
 
 
 def scale_diameters(members: MemberSet, scale) -> MemberSet:
@@ -146,7 +179,8 @@ def stage_bem(bem, wave: WaveState):
 def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
                      C_moor: Tensor, bem=None, n_iter: int = 25,
                      method: str = "scan", remat: bool = False, relax: float = 0.8,
-                     tik: float = 0.0, dtype=torch.float64, device=None) -> RAOResult:
+                     tik: float = 0.0, dtype=torch.float64, device=None,
+                     axis=None) -> RAOResult:
     """Design (batch) -> RAO solve: statics, strip hydro, drag fixed point.
 
     Three kinds of lanes, each the job ``jax.vmap`` does in the JAX package:
@@ -169,7 +203,10 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     ``method="scan"`` (the default, with ``remat``) is the
     reverse-differentiable loop: it always runs ``n_iter`` steps, so keep
     the cap tight for gradient work; ``"while"`` exits early.  Inputs must
-    already lie on ``device`` in ``dtype``.
+    already lie on ``device`` in ``dtype``.  ``axis``: the wave (and
+    ``bem``) hold this rank's shard of a frequency grid sharded over
+    ``axis`` (``solve_dynamics(axis=...)``): the JAX package's
+    ``_local_freq_solve``.
     """
     dev = resolve_device(device)
     require_on(dev, dtype, node_r=members.node_r, w=wave.w, zeta=wave.zeta, C_moor=C_moor)
@@ -196,7 +233,7 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
         B = B + bem[1]
     lin = LinearCoeffs(M=M, B=B, C=stat.C_struc + stat.C_hydro + C_moor, F=F)
     return solve_dynamics(members, kin, wave, env, lin, n_iter=n_iter, relax=relax,
-                          method=method, remat=remat, tik=tik)
+                          method=method, remat=remat, tik=tik, axis=axis)
 
 
 def response_std(Xi_abs2: Tensor, w: Tensor) -> Tensor:
@@ -224,17 +261,139 @@ def grad_response_std(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     return torch.autograd.grad(sigma.sum(), th)[0]
 
 
+# ------------------------------------------------------ sharded solves
+
+
+def _refuse_grad(what: str, *inputs) -> None:
+    """The sharded entry points solve without autograd (their psum carries
+    it, :func:`raft_tpu_torch.core.collectives.psum`, but the gathered
+    results do not): refuse inputs that require grad rather than return
+    results detached from them."""
+    from raft_tpu_torch.parallel.pipeline import tensors
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors(inputs)):
+        raise ValueError(f"{what} returns gathered results without gradient history; call "
+                         f"forward_response(..., axis=...) on this rank's shard to "
+                         f"differentiate through the sharded solve")
+
+
+def _freq_specs(wave: WaveState, bem, dim: str):
+    """Shard specs of a wave and a staged bem over the frequency dimension
+    ``dim`` (a heading on the wave is replicated)."""
+    f = (dim,)
+    wave_spec = WaveState(w=f, k=f, zeta=f, beta=None, freq_mask=f)
+    bem_spec = None if bem is None else (f, f, Cx(f, f))
+    return wave_spec, bem_spec
+
+
+def _gather_rao(out: RAOResult, mesh, freq_dim: str | None, lane_dim: str | None,
+                lanes: bool) -> RAOResult:
+    """Every rank's whole RAOResult: the frequency blocks gathered over
+    ``freq_dim``, then (with ``lanes``) the lane blocks over ``lane_dim``."""
+    def full(t, freq):
+        if freq and freq_dim is not None:
+            t = _mh.all_gather(t, (mesh, freq_dim), dim=t.ndim - 2)
+        if lanes and lane_dim is not None:
+            t = _mh.all_gather(t, (mesh, lane_dim), dim=0)
+        return t
+
+    return RAOResult(Xi=Cx(full(out.Xi.re, True), full(out.Xi.im, True)),
+                     n_iter=full(out.n_iter, False), converged=full(out.converged, False),
+                     B_drag=full(out.B_drag, False),
+                     F_drag=Cx(full(out.F_drag.re, True), full(out.F_drag.im, True)),
+                     err_hist=None if out.err_hist is None else full(out.err_hist, False))
+
+
+def forward_response_freq_sharded(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
+                                  C_moor: Tensor, mesh, bem=None, n_iter: int = 40,
+                                  method: str = "while", dtype=torch.float64,
+                                  device=None) -> RAOResult:
+    """The RAO solve of one design with its frequency grid sharded over a
+    1-D mesh (sequence parallelism).
+
+    Each rank evaluates its own bins' kinematics, excitation and 6x6
+    solves (K1 on the card); the two quantities that couple bins, the drag
+    linearization's spectral moment and the convergence error, complete
+    with one SUM and one MAX all-reduce over the mesh per fixed-point
+    iteration, so every rank runs the same iterations.  Equal to
+    :func:`forward_response` up to the order of the frequency sum.
+    ``bem``: staged (A[nw, 6, 6], B[nw, 6, 6], F Cx[nw, 6]) (:func:`stage_bem`).
+    Requires ``len(wave.w)`` divisible by the mesh's size.  Every rank
+    returns the whole RAOResult (the frequency blocks all-gathered);
+    inputs that require grad are refused (:func:`_refuse_grad`)."""
+    dev = resolve_device(device)
+    _mh.check_mesh(mesh, "forward_response_freq_sharded", dev)
+    if mesh.ndim != 1:
+        raise ValueError(f"forward_response_freq_sharded expects a 1-D mesh; got shape "
+                         f"{tuple(mesh.shape)} with axes {mesh.mesh_dim_names}")
+    _refuse_grad("forward_response_freq_sharded", members, rna, env, wave, C_moor, bem)
+    dim = mesh.mesh_dim_names[0]
+    n_dev, nw = mesh.size(), int(wave.w.shape[-1])
+    if nw % n_dev != 0:
+        raise ValueError(f"nw={nw} not divisible by {n_dev} devices")
+    wave_l, bem_l = _mh.stage_global((wave, bem), mesh, _freq_specs(wave, bem, dim))
+    with torch.no_grad():
+        out = forward_response(members, rna, env, wave_l, C_moor, bem=bem_l, n_iter=n_iter,
+                               method=method, dtype=dtype, device=dev, axis=(mesh, dim))
+        return _gather_rao(out, mesh, dim, None, lanes=False)
+
+
+def forward_response_dp_sp(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
+                           C_moor: Tensor, thetas, mesh, apply_fn=scale_diameters, bem=None,
+                           n_iter: int = 40, method: str = "while", dtype=torch.float64,
+                           device=None) -> RAOResult:
+    """Design x frequency parallelism over a 2-D mesh.
+
+    ``mesh.mesh_dim_names[0]`` is the design axis (each row of ranks owns a
+    block of ``thetas``; no collective), ``[1]`` the frequency axis (each
+    column owns a block of the grid; the spectral moment and the
+    convergence test complete over it per iteration, as in
+    :func:`forward_response_freq_sharded`).  Each rank solves its design
+    lanes (``apply_fn(members, theta)`` per row) on its frequency block at
+    once.  Requires ``len(thetas)`` divisible by the design axis and
+    ``len(wave.w)`` by the frequency axis; ``bem`` must be the STAGED tuple
+    of :func:`stage_bem` (A[nw, 6, 6], B, F Cx[nw, 6]).  Every rank returns
+    the whole RAOResult with a leading design axis."""
+    if bem is not None and not isinstance(bem[2], Cx):
+        raise ValueError(
+            "forward_response_dp_sp expects the STAGED bem tuple from stage_bem(bem_raw, wave) "
+            "— (A[nw,6,6], B[nw,6,6], F Cx[nw,6]) — got F of type "
+            f"{type(bem[2]).__name__}; pass the raw (A[6,6,nw], B, F complex) host tuple "
+            "through stage_bem first")
+    dev = resolve_device(device)
+    _mh.check_mesh(mesh, "forward_response_dp_sp", dev)
+    if mesh.ndim != 2:
+        raise ValueError(f"forward_response_dp_sp needs a 2-D mesh (design x frequency axes); "
+                         f"got shape {tuple(mesh.shape)} with axes {mesh.mesh_dim_names}")
+    th = torch.as_tensor(thetas, device=dev).to(dtype)
+    _refuse_grad("forward_response_dp_sp", members, rna, env, wave, C_moor, th, bem)
+    axis_d, axis_f = mesh.mesh_dim_names
+    n_d, n_f = mesh.shape
+    B, nw = int(th.shape[0]), int(wave.w.shape[-1])
+    if B % n_d != 0:
+        raise ValueError(f"design batch {B} not divisible by {n_d} (axis {axis_d!r})")
+    if nw % n_f != 0:
+        raise ValueError(f"nw={nw} not divisible by {n_f} (axis {axis_f!r})")
+    wave_spec, bem_spec = _freq_specs(wave, bem, axis_f)
+    th_l, wave_l, bem_l = _mh.stage_global((th, wave, bem), mesh, ((axis_d,), wave_spec,
+                                                                   bem_spec))
+    with torch.no_grad():
+        m = _apply_lanes(apply_fn, members, th_l)
+        out = forward_response(m, rna, env, wave_l, C_moor, bem=bem_l, n_iter=n_iter,
+                               method=method, dtype=dtype, device=dev, axis=(mesh, axis_f))
+        return _gather_rao(out, mesh, axis_f, axis_d, lanes=True)
+
+
+_LANES_MSG = "{n} lanes not divisible by {size} devices"
+
+
+def _gather_lanes(outs, mesh):
+    """Every rank's whole lane axis of each output tensor (one all-gather
+    each over the mesh's dimension)."""
+    return tuple(_mh.all_gather(o, (mesh, mesh.mesh_dim_names[0]), dim=0) for o in outs)
+
+
 # ------------------------------------------------------ sea-state batches
-
-#: the ROADMAP item of the JAX package's ``mesh`` options (sharding over
-#: devices), the multi-device slice that is still to come
-_MULTI_DEVICE_ITEM = ("ROADMAP.md, queue 1, item 7.3, the multi-device slice "
-                      "(parallel/multihost.py, spmd.py and every mesh= option)")
-
-
-def _no_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}(mesh=...): sharding over devices comes with "
-                               f"{_MULTI_DEVICE_ITEM}")
 
 
 def make_wave_states(w, cases, depth, g: float = 9.81, dtype=torch.float64,
@@ -398,21 +557,26 @@ def sweep_sea_states(members: MemberSet, rna: RNA, env: Env, waves: WaveState, C
     place, unsalvaged ones stay NaN but are reported.  Off (the default)
     the call returns exactly what it always did.
 
-    ``mesh`` (sharding the cases over devices) raises
-    ``NotImplementedError`` (:data:`_MULTI_DEVICE_ITEM`)."""
+    ``mesh``: a 1-D ``DeviceMesh`` (:func:`make_mesh`); the case axis is
+    pure data parallelism: each rank solves its block of cases (the case
+    count divisible by the mesh's size), with no collective inside, and one
+    all-gather gives every rank the whole result.  With ``health`` every
+    rank quarantines and salvages the gathered lanes identically (the
+    salvage solves one case alone on the host's orders, no collective)."""
     if chunk is not None and mesh is not None:
         raise ValueError(
             "chunked (pipelined) sweep_sea_states does not compose with a mesh: chunking bounds "
             "one device's memory while a mesh shards the case axis — pick one")
-    if mesh is not None:
-        raise _no_mesh("sweep_sea_states")
     dev = resolve_device(device)
+    if mesh is not None:
+        _mh.check_mesh(mesh, "sweep_sea_states", dev)
     w_rows = waves.w.reshape(-1, waves.w.shape[-1])
     if not bool((w_rows == w_rows[0]).all()):
         raise ValueError("sweep_sea_states requires one shared frequency grid across cases "
                          "(make_wave_states builds one)")
     B = int(waves.zeta.shape[0])
     betas_case = None if waves.beta is None else _host(waves.beta)
+    sl = slice(None) if mesh is None else _mh.lane_block(mesh, B, "sweep_sea_states", _LANES_MSG)
     if chunk is not None:
         return _sweep_sea_states_chunked(members, rna, env, waves, C_moor, bem, n_iter,
                                          int(chunk), pipeline_depth, B, betas_case, health,
@@ -429,7 +593,12 @@ def sweep_sea_states(members: MemberSet, rna: RNA, env: Env, waves: WaveState, C
     run = _make_dlc_case_fn(members, rna, env, C_moor, staged, n_iter, health=health,
                             dtype=dtype, device=dev)
     with torch.no_grad():
-        outs = run(waves, F_re, F_im)
+        if mesh is None:
+            outs = run(waves, F_re, F_im)
+        else:
+            per_case = mode == "grid"
+            outs = _gather_lanes(run(_case_slice(waves, sl), F_re[sl] if per_case else F_re,
+                                     F_im[sl] if per_case else F_im), mesh)
         abs2, a_nac, iters = outs[:3]
         sigma = response_std(abs2, w_rows[0])
     res = {"std dev": _host(sigma), "nacelle accel std dev": _host(a_nac),
@@ -619,7 +788,8 @@ def directional_response(members: MemberSet, rna: RNA, env: Env, waves_dir: Wave
     :func:`mixed_sea_state`) are independent linear components, solved as a
     DLC table by :func:`sweep_sea_states` (each with its own drag
     linearization), and their variances add:
-    ``sigma_total^2 = sum_j sigma_j^2``.  Returns ``{"std dev": (6,),
+    ``sigma_total^2 = sum_j sigma_j^2``.  ``mesh`` shards the directions as
+    :func:`sweep_sea_states` shards cases.  Returns ``{"std dev": (6,),
     "nacelle accel std dev": float, "per direction": the sweep's dict}``."""
     per = sweep_sea_states(members, rna, env, waves_dir, C_moor, bem=bem, n_iter=n_iter,
                            mesh=mesh, dtype=dtype, device=device)
@@ -664,23 +834,31 @@ def sweep(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor: Tenso
     ``health=True``: the lane-health contract of :func:`sweep_sea_states`
     (per-lane verdicts, ``finite`` reduced on the device over the full
     spectra even with ``return_xi=False``, quarantine, salvage through the
-    escalation ladder with ``escalate``, a ``"health"`` block).  ``mesh``
-    raises ``NotImplementedError`` (:data:`_MULTI_DEVICE_ITEM`).  The JAX
-    package compiles this solve through its executable registry; eager
-    PyTorch has no program to compile (the registry of the port keeps the
-    kernel libraries, :mod:`raft_tpu_torch.cache.aot`), so the batched
+    escalation ladder with ``escalate``, a ``"health"`` block).  ``mesh``:
+    a 1-D ``DeviceMesh`` (:func:`make_mesh`); each rank solves its block of
+    the variants (their count divisible by the mesh's size) with no
+    collective inside, one all-gather gives every rank the whole result,
+    and with ``health`` every rank salvages the gathered lanes identically.
+    The JAX package compiles this solve through its executable registry;
+    eager PyTorch has no program to compile (the registry of the port keeps
+    the kernel libraries, :mod:`raft_tpu_torch.cache.aot`), so the batched
     solve runs directly."""
-    if mesh is not None:
-        raise _no_mesh("sweep")
     dev = resolve_device(device)
     th = torch.as_tensor(thetas, device=dev).to(dtype)
+    sl = slice(None)
+    if mesh is not None:
+        _mh.check_mesh(mesh, "sweep", dev)
+        sl = _mh.lane_block(mesh, int(th.shape[0]), "sweep", _LANES_MSG)
     with torch.no_grad():
-        m = _apply_lanes(apply_fn, members, th)
+        m = _apply_lanes(apply_fn, members, th[sl])
         out = forward_response(m, rna, env, wave, C_moor, n_iter=n_iter, dtype=dtype, device=dev)
         abs2 = out.Xi.abs2()
-        sigma = response_std(abs2, wave.w)
-        finite = _lane_finite(abs2) if health else None
-    res = {"std dev": _host(sigma), "iterations": _host(out.n_iter)}
+        outs = (response_std(abs2, wave.w), out.n_iter, abs2 if return_xi else None,
+                out.converged if health else None, _lane_finite(abs2) if health else None)
+        if mesh is not None:
+            outs = tuple(None if o is None else _gather_lanes((o,), mesh)[0] for o in outs)
+    sigma, iters, abs2, conv, finite = outs
+    res = {"std dev": _host(sigma), "iterations": _host(iters)}
     if return_xi:
         res["Xi_abs2"] = _host(abs2)
     if not health:
@@ -698,7 +876,7 @@ def sweep(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor: Tenso
                 int(o.n_iter[0]))
 
     return _health_finish(
-        res, _host(out.converged), _host(finite),
+        res, _host(conv), _host(finite),
         ["Xi_abs2", "iterations"] if return_xi else ["std dev", "iterations"],
         solve_lane, n_iter, escalate, std_from=("Xi_abs2", wave.w) if return_xi else None)
 
@@ -738,9 +916,26 @@ def _lane_slice(args, sl: slice):
     return (lanes(members), lanes(rna), lanes(env), lanes(wave, keep=("w",)), C_moor[sl], bem)
 
 
+def _stage_bucket_global(args, mesh):
+    """This rank's block of a bucket's lanes (views of every per-lane
+    tensor), the lane count divisible by the mesh's size."""
+    return _lane_slice(args, _mh.lane_block(
+        mesh, int(args[0].seg_l.shape[0]), "sweep_designs",
+        "bucket lane count {n} is not divisible by mesh axis {dim!r} size {size} — pad the "
+        "design batch or use a divisor-sized mesh"))
+
+
+def _dispatch_sharded_bucket(one, args, mesh):
+    """One bucket with its design axis sharded over the 1-D ``mesh``: each
+    rank solves its own lane block (no collective; the lanes are
+    independent) and the outputs are gathered, so every rank holds them
+    whole."""
+    return _gather_lanes(one(*_stage_bucket_global(args, mesh)), mesh)
+
+
 def _sweep_designs_bucket(batch, n_iter: int, return_xi: bool, dtype, dev, health: bool = False,
                           escalate: bool = True, chunk: int | None = None,
-                          pipeline_depth: int | None = None) -> dict:
+                          pipeline_depth: int | None = None, mesh=None) -> dict:
     """One shape bucket's stacked designs (a ``model.DesignBatch``) as one
     batched :func:`forward_response`: every per-design tensor carries the
     lane axis (the JAX package vmaps its per-design function over them).
@@ -753,8 +948,11 @@ def _sweep_designs_bucket(batch, n_iter: int, return_xi: bool, dtype, dev, healt
     ``"pipeline"`` (and ``"checkpoint"`` under ``RAFT_TPU_CKPT``).
     ``health``: per-lane verdicts, quarantine and the ladder
     (:func:`_health_finish`); a bad design's lane is salvaged without
-    touching its bucket-mates.  The span ``sweep_designs/bucket`` times
-    each bucket through its results on the host."""
+    touching its bucket-mates.  ``mesh``: the lanes sharded over a 1-D
+    ``DeviceMesh`` (:func:`_dispatch_sharded_bucket`; the span gains
+    ``"sharded": True``); salvage runs on the gathered lanes.  The span
+    ``sweep_designs/bucket`` times each bucket through its results on the
+    host."""
     from raft_tpu_torch import obs as _obs
     from raft_tpu_torch.parallel import pipeline as _pipe
     from raft_tpu_torch.resilience import checkpoint as _ckpt
@@ -800,9 +998,10 @@ def _sweep_designs_bucket(batch, n_iter: int, return_xi: bool, dtype, dev, healt
             sigma = (_host(response_std(torch.as_tensor(outs[0], device=dev), batch.wave.w))
                      if return_xi else outs[0])
     else:
-        with _obs.trace.span("sweep_designs/bucket", attrs={"sig": label, "lanes": B}):
+        attrs = {"sig": label, "lanes": B, **({} if mesh is None else {"sharded": True})}
+        with _obs.trace.span("sweep_designs/bucket", attrs=attrs):
             t0 = time.perf_counter()
-            outs_dev = one(*args)
+            outs_dev = one(*args) if mesh is None else _dispatch_sharded_bucket(one, args, mesh)
             with torch.no_grad():
                 sigma = _host(response_std(outs_dev[0], batch.wave.w) if return_xi
                               else outs_dev[0])
@@ -854,9 +1053,13 @@ def sweep_designs(fnames=None, nw: int = 100, Hs: float = 8.0, Tp: float = 12.0,
     the dispatch-ahead pipeline (:func:`_sweep_designs_bucket`);
     ``pipeline_depth`` without ``chunk`` is accepted and ignored, as in
     the JAX package.  ``health=True``: the lane-health contract per lane
-    (see :func:`sweep_sea_states`).  ``mesh`` raises
-    ``NotImplementedError`` (:data:`_MULTI_DEVICE_ITEM`), ``mesh`` with
-    ``chunk`` ``ValueError``.
+    (see :func:`sweep_sea_states`).  ``mesh``: a 1-D ``DeviceMesh``
+    (:func:`make_mesh`, :func:`raft_tpu_torch.parallel.multihost.
+    global_mesh`): every rank stages the whole batch, solves its block of
+    each bucket's lanes (each bucket's lane count divisible by the mesh's
+    size) and gathers the rest, so every rank returns the whole result;
+    with ``health`` every rank salvages the gathered lanes identically.
+    ``mesh`` with ``chunk`` raises ``ValueError``.
 
     Returns numpy arrays in the caller's original design order:
     ``"designs"``, ``"std dev"`` (D, 6), ``"iterations"`` (D,),
@@ -881,9 +1084,9 @@ def sweep_designs(fnames=None, nw: int = 100, Hs: float = 8.0, Tp: float = 12.0,
     if mesh is not None and chunk is not None:
         raise ValueError("sweep_designs: mesh= and chunk= both split the design axis (mesh over "
                          "devices, chunk over pipelined dispatches) — pass one or the other")
-    if mesh is not None:
-        raise _no_mesh("sweep_designs")
     dev = resolve_device(device)
+    if mesh is not None:
+        _mh.check_mesh(mesh, "sweep_designs", dev)
     if staged is None:
         if fnames is None:
             raise ValueError("sweep_designs needs a design list (fnames) or a prebuilt staged= "
@@ -901,7 +1104,8 @@ def sweep_designs(fnames=None, nw: int = 100, Hs: float = 8.0, Tp: float = 12.0,
     nw_phys = batches[0].nw
     per_bucket = [_sweep_designs_bucket(b, n_iter, return_xi, dtype, dev, health=health,
                                         escalate=escalate, chunk=chunk,
-                                        pipeline_depth=pipeline_depth) for b in batches]
+                                        pipeline_depth=pipeline_depth, mesh=mesh)
+                  for b in batches]
 
     def scatter(key, trim_nw=False):
         first = per_bucket[0][key]

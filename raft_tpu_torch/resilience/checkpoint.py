@@ -135,9 +135,21 @@ def runtime_salt(device) -> str:
                        bool(torch.backends.cuda.matmul.allow_tf32)])
 
 
-def store_key(tag: str, args, *, consts=(), extra=(), n_chunks: int, device) -> str:
+def topology(mesh) -> list:
+    """The layout a sharded program ran on, as the JAX package's AOT key
+    folds it in (``raft_tpu/cache/aot.py::_topology``): the backend, the
+    mesh's device type, dimension names and shape, and the world's size."""
+    import torch.distributed as dist
+
+    return [dist.get_backend(), mesh.device_type, list(mesh.mesh_dim_names or ()),
+            [int(n) for n in mesh.shape], dist.get_world_size()]
+
+
+def store_key(tag: str, args, *, consts=(), extra=(), n_chunks: int, device,
+              mesh=None) -> str:
     """The digest :func:`store_for` names a store by (see the module
-    docstring)."""
+    docstring); with ``mesh`` its :func:`topology` too, so a resume on
+    another layout never reuses a chunk."""
     sig: list = []
     _tree(args, sig, values=False)
     const_vals: list = []
@@ -149,6 +161,8 @@ def store_key(tag: str, args, *, consts=(), extra=(), n_chunks: int, device) -> 
                  str(int(n_chunks)), config.code_fingerprint(), runtime_salt(device)):
         h.update(part.encode())
         h.update(b"\0")
+    if mesh is not None:
+        h.update(json.dumps(topology(mesh)).encode())
     return h.hexdigest()
 
 
@@ -292,16 +306,17 @@ class ChunkStore:
 
 
 def store_for(tag: str, args, *, consts=(), extra=(), n_chunks: int,
-              device) -> ChunkStore | None:
+              device, mesh=None) -> ChunkStore | None:
     """A :class:`ChunkStore` for the chunked program identified by
     :func:`store_key`, or None when ``RAFT_TPU_CKPT`` is off (then nothing
     is hashed: the constants' content hash copies them off the card).
     ``args``: one chunk's arguments (only shapes and dtypes are read);
     ``consts``: the value-bearing constants the chunks close over;
-    ``device``: where the chunks run."""
+    ``device``: where the chunks run; ``mesh``: the ``DeviceMesh`` a
+    sharded program's chunks run on (its layout is in the key)."""
     base = root()
     if base is None:
         return None
     key = store_key(tag, args, consts=consts, extra=extra, n_chunks=n_chunks,
-                    device=device)
+                    device=device, mesh=mesh)
     return ChunkStore(key[:24], n_chunks, base)

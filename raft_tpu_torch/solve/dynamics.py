@@ -33,6 +33,7 @@ from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.cuda6 import solve_rao, solve_rao_ad
 from raft_tpu_torch.core.types import Env, MemberSet, WaveState
 from raft_tpu_torch.hydro.strip import StripKin, linearized_drag
+from raft_tpu_torch.core.collectives import pmax
 
 Tensor = torch.Tensor
 
@@ -76,7 +77,7 @@ def _error(Xi: Cx, Xi_last: Cx, tol: float) -> Tensor:
 def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
                    lin: LinearCoeffs, n_iter: int = 15, tol: float = 0.01,
                    relax: float = 0.8, method: str = "scan", remat: bool = False,
-                   history: bool = False, tik: float = 0.0) -> RAOResult:
+                   history: bool = False, tik: float = 0.0, axis=None) -> RAOResult:
     """Solve Xi(w) by fixed-point drag linearization.
 
     Per iteration: linearize the drag about the current iterate, solve all
@@ -90,6 +91,15 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
     past its exit); ``tik`` > 0 lifts each frequency's impedance diagonal
     by ``tik`` times its largest diagonal magnitude (sign-following), as in
     the JAX package.
+
+    ``axis``: set when the frequency grid is sharded over ranks (a process
+    group, or ``(mesh, dim name)``; ``forward_response_freq_sharded``): the
+    drag linearization's spectral moment completes with a SUM all-reduce
+    and each lane's convergence error with a MAX all-reduce over ``axis``
+    before any decision reads it, in both drivers.  Every rank of the group
+    then takes the same decisions, runs the same iterations and issues the
+    same collectives in the same order, and reproduces the unsharded fixed
+    point up to the order of the frequency sum.
     """
     if method not in ("while", "scan"):
         raise ValueError(f"unknown method {method!r}")
@@ -126,9 +136,11 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
             active = ~done & (count < n_iter)
             if not bool(active.any()):
                 break
-            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env)
+            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
             Xi = solve_rao(Z0, wave.w, B_drag, lin.F + F_drag)
             err = _error(Xi, Xi_last, tol)
+            if axis is not None:
+                err = pmax(err, axis)       # the host's exit test reads the group's error
             a = active[..., None, None]
             Xi_out = cplx.where(a, Xi, Xi_out)
             Xi_last = cplx.where(a, Xi_last * (1.0 - relax) + Xi * relax, Xi_last)
@@ -141,7 +153,7 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
             """One step with the post-convergence freeze, in the JAX
             loop's order of selects (Xi_out, then Xi_next)."""
             Xi_last = Cx(last_re, last_im)
-            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env)
+            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
             Xi = solve_rao_ad(Z0, wave.w, B_drag, lin.F + F_drag)
             # only decides convergence: |.| at an exact zero would put NaN
             # into the backward pass
@@ -158,12 +170,15 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
                 *state, err = checkpoint(advance, *state, done, use_reentrant=False)
             else:
                 *state, err = advance(*state, done)
+            if axis is not None:
+                # outside ``advance``: a recomputed step issues no MAX
+                err = pmax(err, axis)
             if hist is not None:
                 hist = log_error(hist, err, ~done, count)
             count = count + (~done).to(count.dtype)
             done = done | (err < tol)
         Xi_out = Cx(state[2], state[3])
 
-    B_drag, F_drag = linearized_drag(m, kin, Xi_out, wave, env)
+    B_drag, F_drag = linearized_drag(m, kin, Xi_out, wave, env, axis=axis)
     return RAOResult(Xi=Xi_out, n_iter=count, converged=done, B_drag=B_drag,
                      F_drag=F_drag, err_hist=hist)

@@ -157,7 +157,7 @@ def test_mixed_design_array_with_bem_raises_and_unported_options():
     with pytest.raises(ValueError, match="BEM="):
         ArrayModel(d3, nT=2, w=W, BEM="hams", **CPU)
     a = ArrayModel(d3, nT=2, w=W, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
+    with pytest.raises(TypeError, match="solveDynamics: mesh must be a .*DeviceMesh"):
         a.solveDynamics(mesh=object())
     # the plots are ported (tests/test_torch_plot.py): the RAO grid needs a solve
     with pytest.raises(RuntimeError, match="solveDynamics"):

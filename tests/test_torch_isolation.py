@@ -72,6 +72,33 @@ def test_bem_modules_import_nothing_of_jax():
             "core/cuda6.py", "hydro/native_bem.py"} <= names
 
 
+def test_multi_device_modules_import_nothing_of_jax():
+    """The multi-device layer (``core.collectives``, ``parallel.multihost``,
+    ``spmd``, ``spmd_smoke``) and the package's lazy names load in a fresh
+    process without JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "import raft_tpu_torch.core.collectives\n"
+        "import raft_tpu_torch.parallel.multihost, raft_tpu_torch.parallel.spmd\n"
+        "import raft_tpu_torch.parallel.spmd_smoke\n"
+        "import raft_tpu_torch as rt, raft_tpu_torch.parallel as par\n"
+        "assert rt.make_mesh is par.make_mesh\n"
+        "assert rt.forward_response_freq_sharded.__module__ == 'raft_tpu_torch.parallel.sweep'\n"
+        "assert par.init_multihost.__module__ == 'raft_tpu_torch.parallel.multihost'\n"
+        "from raft_tpu_torch.parallel import multihost as mh\n"
+        "assert mh.psum.__module__ == 'raft_tpu_torch.core.collectives'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
 def test_no_forbidden_import_in_source():
     found = []
     for path in sorted(PKG.rglob("*.py")):

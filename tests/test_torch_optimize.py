@@ -116,8 +116,9 @@ def test_unported_options_raise(oc3):
     """The batched sea-state sweep's options: pipelined chunks, the
     dispatch window and lane health now run, each as the JAX package's on
     the same two cases (1e-12 scale-relative, identical iterations and
-    verdicts); sharding over a mesh still raises and names the
-    multi-device slice of its ROADMAP item."""
+    verdicts); ``mesh`` takes a ``DeviceMesh`` only (anything else
+    raises ``TypeError`` naming it; the sharded runs are in
+    ``tests/test_torch_mesh_sweeps.py``)."""
     (jm, jrna, jenv, jwave, C), (tm, trna, tenv, twave, tC) = oc3
     from raft_tpu.parallel.sweep import make_wave_states as jax_make_wave_states
     from raft_tpu.parallel.sweep import sweep_sea_states as jax_sweep_sea_states
@@ -126,7 +127,7 @@ def test_unported_options_raise(oc3):
     rows = [[6.0, 10.0], [8.0, 12.0]]
     waves = make_wave_states(twave.w.numpy(), rows, tenv.depth, device="cpu")
     jwaves = jax_make_wave_states(np.asarray(jwave.w), rows, float(jenv.depth))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-device"):
+    with pytest.raises(TypeError, match="sweep_sea_states: mesh must be a .*DeviceMesh"):
         sweep_sea_states(tm, trna, tenv, waves, tC, device="cpu", mesh=object())
     for kw in ({"chunk": 1}, {"pipeline_depth": 2}, {"health": True}):
         got = sweep_sea_states(tm, trna, tenv, waves, tC, device="cpu", **kw)

@@ -265,7 +265,7 @@ def test_chunk_validation(table):
         sweep_sea_states(m, rna, env, three, C, chunk=0, device="cpu")
     with pytest.raises(ValueError, match="does not compose"):
         sweep_sea_states(m, rna, env, three, C, chunk=3, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="mesh must be a .*DeviceMesh"):
         sweep_sea_states(m, rna, env, three, C, mesh=object(), device="cpu")
 
 

@@ -43,6 +43,17 @@ class _FakeConn:
         return True
 
 
+@pytest.fixture(autouse=True)
+def _cache_disabled_after():
+    """The daemon's entry (``serve.__main__._daemon``) enables the port's
+    cache for its process; each test disables it again, so a later test in
+    the same process resolves its own cache root."""
+    yield
+    from raft_tpu_torch import cache
+
+    cache.disable()
+
+
 @pytest.fixture()
 def server(tmp_path):
     from raft_tpu_torch.serve.server import SolverServer

@@ -10,7 +10,8 @@ seeded synthetic BEM tuples on a padded grid (10 physical bins in a
 with identical iteration counts, in the caller's order, with the same
 bucket signatures and promotions; the mixed result equals each design's
 solo solve.  The options of ROADMAP queue 1 item 7 (chunks, the dispatch
-window, lane health) agree with the JAX package's; ``mesh`` raises.
+window, lane health) agree with the JAX package's; ``mesh`` takes a
+``DeviceMesh`` only.
 """
 import os
 
@@ -131,13 +132,14 @@ def test_unported_options_name_item_7(kw):
     """ROADMAP queue 1 item 7's options of the design batches: ``chunk``,
     ``pipeline_depth`` and ``health`` now run, each as the JAX package's
     on the same design and variants (1e-12 scale-relative, identical
-    iterations and verdicts); ``mesh`` still raises and names the
-    multi-device slice (item 7.3)."""
+    iterations and verdicts); ``mesh`` (item 7.3) takes a
+    ``DeviceMesh`` only, and anything else raises ``TypeError`` naming it
+    (the sharded runs: ``tests/test_torch_mesh_sweeps.py``)."""
     _, m, rna, env, wave, C = stage_design_base(DESIGNS[0], device="cpu", **KW)
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="queue 1, item 7.3.*multi-device"):
+        with pytest.raises(TypeError, match="sweep_designs: mesh must be a .*DeviceMesh"):
             sweep_designs(DESIGNS[:1], device="cpu", **KW, **kw)
-        with pytest.raises(NotImplementedError, match="queue 1, item 7.3.*multi-device"):
+        with pytest.raises(TypeError, match="sweep: mesh must be a .*DeviceMesh"):
             sweep(m, rna, env, wave, C, THETAS, device="cpu", **kw)
         return
     got = sweep_designs(DESIGNS[:1], device="cpu", **KW, **kw)
