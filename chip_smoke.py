@@ -174,7 +174,20 @@ result line):
    chunk under CUDA's sync debug mode "error"; the sharded and unsharded
    north star and freq-sharded solve timed in turns (the cost of NCCL's
    all-reduces at world one); ``dist.destroy_process_group()`` at the end;
-25. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
+25. the port's lint (``raft_tpu_torch.lint``): the static pass over
+   ``raft_tpu_torch/`` and this script against the committed baseline (no
+   new violation); the race scenarios in a child process (8 threads, a
+   1 us switch interval, every check exact); the runtime audit of every
+   registered entry at
+   float32 on the card against the ``"cuda"`` budgets of
+   ``lint/budgets.json``: no float64 op, no rebuild, host syncs equal to
+   the CPU budget's and to the warnings of CUDA's sync debug mode "warn";
+   ``fused_rao_solve`` (K1) held to the plain solve at 1e-5 and
+   ``torch_bem_kernels`` (K3, K4) to ``torch_bem`` (the plain assembly) at
+   ``INTERP_PARITY_RTOL``, each kernel's launches counted (the audit's
+   launches, warming and measured calls, join the kernels line); each
+   entry's ops, host syncs, launches and peak bytes printed;
+26. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
    (VolturnUS-S, 1,024 class; OC4semi with its lid, 2,048) and K4 (every
    chunk of the 48-w staging) against their plain versions on the same
    bf16 inputs, elementwise within one bf16 step of the plain output plus
@@ -184,12 +197,12 @@ result line):
    launches counted) in turns with the f32 staging: A and B within 0.1 of
    it, F's gap and the gaps to native printed, the refinement residual
    below 1e-4;
-26. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
+27. BEM inputs: a WEIS-array design (``io/weis.py``) through the Model on
    the card against the CPU; a Capytaine dataset written from the card's
    panel solve of VolturnUS-S read back through ``Model(BEM=
    load_capytaine_nc(...))`` against ``Model(BEM=(A, B, F))``; a Nemoh mesh
    of that hull through ``nemoh_to_pnl``;
-27. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
+28. the CLI (``raft_tpu_torch.cli``): ``volturn --bem --json`` with
    ``RAFT_TPU_BEM=jax`` at full width (850 panels, 59 w), with the f32
    precision (the Model's BEM in float64) and with ``RAFT_TPU_BEM_PRECISION=
    bf16`` (float32, bf16 assembly), in process with K1/K3/K4 launches
@@ -198,7 +211,7 @@ result line):
    without ``--bem``) and ``optimize`` at small counts, five subprocesses
    at once with ``--plot`` into a temporary directory (where matplotlib is
    not installed, ``--plot`` must exit non-zero naming it);
-28. the cache slice: ``python -m raft_tpu_torch.cache smoke`` in a
+29. the cache slice: ``python -m raft_tpu_torch.cache smoke`` in a
    subprocess (two children on one fresh cache root holding only the wave
    tables phase 2 built: the second with
    staging disk hits and no miss, neither building a library, the second
@@ -207,11 +220,11 @@ result line):
    timed by the ledger (best time within 0.5-2x of phase 3's, roofline
    fraction phase 3's bound over it) and one scan chunk of the strip sweep
    under CUDA's sync debug mode "error";
-29. panel-solve copies: one solve and the refined solve's backward under
+30. panel-solve copies: one solve and the refined solve's backward under
    the profiler, no host-device copy and no synchronisation inside; one
    ``bem_fn`` step after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-30. the sweeps and one gradient chunk again under ``torch.profiler``: device
+31. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    same gradient chunk with the adjoint's transposed copies, profiled in the
    same call, must run at least 75 copy and negation kernels more (3
@@ -265,6 +278,10 @@ BEM_TOL_PLAIN = 1e-10
 # roundoff; f32 at the JAX package's assembly-route bound INTERP_PARITY_RTOL
 TOL_BEM = {"float64": {"rankine": 1e-12, "wave": 1e-10},
            "float32": {"rankine": 1e-4, "wave": 1e-4}}
+# the lint audit's BEM entries, K3/K4 against the plain assembly in float32
+# after the whole solve: the JAX package's assembly-route bound
+# (raft_tpu/core/pallas_bem.py::INTERP_PARITY_RTOL)
+INTERP_PARITY_RTOL = 1e-4
 # the bf16 entries of K3/K4 against their plain versions on the same bf16
 # inputs, elementwise: both compute in float32 (TOL_BEM["float32"] apart)
 # and round once to bf16, so where their float32 results straddle a
@@ -3057,6 +3074,85 @@ class Smoke:
         finally:
             dist.destroy_process_group()
 
+    def phase_lint(self):
+        """The port's lint on the card: the static pass against the baseline,
+        the race scenarios, and the runtime audit of every registered entry
+        at float32 against the "cuda" budgets, with K1 and K3/K4 held to
+        their plain versions on the audit's own inputs."""
+        from raft_tpu_torch.core import linalg6
+        from raft_tpu_torch.lint import audit
+        from raft_tpu_torch.lint import baseline as bl
+        from raft_tpu_torch.lint.cli import DEFAULT_TARGETS
+        from raft_tpu_torch.lint.registry import fused_rao_args
+        from raft_tpu_torch.lint.rules import lint_paths
+
+        torch = self.torch
+        # the races run in a child, beside the static pass and the audit:
+        # their scenarios reset process-wide counters and set a 1 us switch
+        # interval, which this process must not inherit
+        races = self._cli_start([], {}, cwd=str(ROOT), module="raft_tpu_torch.lint.race")
+        try:
+            t0 = time.perf_counter()
+            violations = lint_paths(list(DEFAULT_TARGETS), str(ROOT))
+            fresh, absorbed = bl.filter_new(violations)
+            t1 = time.perf_counter()
+            self.zero_counts()
+            reports = audit.run_audit(device="cuda")
+            self.add_main(self.counts(), ("fused", "fused_adjoint", "rankine", "wave"))
+            t2 = time.perf_counter()
+        finally:
+            rc, rep, wall, err = self._cli_wait(races, timeout=300)
+        for v in fresh:
+            print("    " + v.format())
+        self.check(not fresh, f"static pass over the port ({t1 - t0:.1f} s): {len(fresh)} new "
+                              f"violations, {absorbed} triaged in the baseline")
+        if rep is None:
+            print(err)
+            rep = {"ok": False, "elapsed_s": None, "failures": "no report"}
+        checks = [ok for s in rep.values() if isinstance(s, dict)
+                  for ok in s.get("checks", {}).values()]
+        self.check(rc == 0 and rep["ok"],
+                   f"race scenarios in a child (exit {rc}, {rep['elapsed_s']} s of scenarios, "
+                   f"{wall:.1f} s of process): {sum(checks)} of {len(checks)} checks hold "
+                   f"{rep.get('failures', '')}")
+        cpu = audit.load_budgets()["platforms"]["cpu"]
+        print(f"  the runtime audit, float32 on the card ({t2 - t1:.1f} s; "
+              f"{nvidia_smi()}):")
+        for r in reports:
+            print(f"    {r.name}: ops {r.ops}, host syncs {r.host_syncs}, launches "
+                  f"{r.launches or 'none'}, peak_bytes {r.peak_bytes}, f64 ops {r.f64_ops}, "
+                  f"rebuilds {r.rebuilds}")
+            for note in r.budget_notes:
+                print(f"      {note}")
+            self.check(r.ok and r.f64_ops == 0 and r.rebuilds == 0,
+                       f"audit {r.name}: within its cuda budget, no float64 op, no rebuild")
+            want = cpu.get(r.name, {}).get("host_syncs")
+            self.check(r.host_syncs == want == r.sync_debug,
+                       f"audit {r.name}: host syncs {r.host_syncs} == the CPU audit's {want} "
+                       f"== sync-debug warnings {r.sync_debug} {r.sync_examples}")
+        by = {r.name: r for r in reports}
+        k1 = by["fused_rao_solve"]
+        Z0, w, Bd, F = fused_rao_args(1, self.dev, torch.float32)
+        plain = linalg6.solve_cx_fused(Z0, w, Bd, F)
+        xr, xi = k1.outputs
+        scale = float(torch.maximum(plain.re.abs().max(), plain.im.abs().max()))
+        err = float(torch.maximum((xr - plain.re).abs().max(),
+                                  (xi - plain.im).abs().max())) / scale
+        self.check(k1.launches.get("k1_fused") == 1 and err <= TOL["float32"],
+                   f"audit fused_rao_solve: K1 launched {k1.launches.get('k1_fused')} time(s), "
+                   f"scale-relative {err:.3e} from the plain solve (tolerance {TOL['float32']})")
+        kb, pb = by["torch_bem_kernels"], by["torch_bem"]
+        errs = {}
+        for name, a, b in zip(("A", "B", "F.re", "F.im"), kb.outputs[:4], pb.outputs[:4]):
+            errs[name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        launched = (kb.launches.get("bem_rankine", 0), kb.launches.get("bem_wave", 0))
+        self.check(min(launched) >= 1 and not pb.launches
+                   and max(errs.values()) <= INTERP_PARITY_RTOL,
+                   f"audit torch_bem_kernels: K3 {launched[0]}, K4 {launched[1]} launches "
+                   f"(the plain entry {pb.launches or 'none'}), scale-relative "
+                   + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                   + f" from the plain assembly (tolerance {INTERP_PARITY_RTOL})")
+
     def phase_bf16(self):
         """The bf16 entries of K3 and K4 (``RAFT_TPU_BEM_PRECISION=bf16``)
         against their plain versions on the same bf16 inputs, elementwise
@@ -3287,18 +3383,18 @@ class Smoke:
 
     # ------------------------------------------------------------------ CLI
 
-    def _cli_start(self, args, env_extra, cwd=None):
-        """Start ``python3 -m raft_tpu_torch.cli`` on the default device in a
-        subprocess: (process, start time)."""
+    def _cli_start(self, args, env_extra, cwd=None, module="raft_tpu_torch.cli"):
+        """Start ``python3 -m <module>`` (the CLI by default) on the default
+        device in a subprocess: (process, start time)."""
         import os
 
         env = {**os.environ, "PYTHONPATH": str(ROOT), **env_extra}
-        return (subprocess.Popen([sys.executable, "-m", "raft_tpu_torch.cli", *args], cwd=cwd,
+        return (subprocess.Popen([sys.executable, "-m", module, *args], cwd=cwd,
                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                  text=True), time.perf_counter())
 
     def _cli_wait(self, started, timeout=600):
-        """Wait for a started CLI process (killed past ``timeout`` s): (exit
+        """Wait for a started process (killed past ``timeout`` s): (exit
         code, last stdout line parsed as JSON or None, wall s, stderr tail)."""
         proc, t0 = started
         try:
@@ -4063,6 +4159,7 @@ class Smoke:
                   ("fleet", self.phase_fleet),
                   ("array farm", self.phase_array_farm),
                   ("multi-device", self.phase_multi_device),
+                  ("lint", self.phase_lint),
                   ("bf16 assembly", self.phase_bf16),
                   ("BEM inputs", self.phase_bem_inputs),
                   ("CLI", self.phase_cli),

@@ -48,6 +48,7 @@ per-kernel performance ledger (:mod:`raft_tpu_torch.obs.ledger`, entries
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -57,6 +58,7 @@ from raft_tpu_torch.obs import ledger
 
 #: kernel launches per entry (the plain PyTorch path is never counted)
 LAUNCHES = {"fused": 0, "plain": 0, "fused_adjoint": 0, "plain_adjoint": 0}
+_launch_lock = threading.Lock()
 
 _FUSED_SIGNATURE = (ctypes.c_void_p,) * 8 + (ctypes.c_longlong,) * 3 + (ctypes.c_void_p,)
 _PLAIN_SIGNATURE = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
@@ -182,7 +184,8 @@ def _solve_rao(Z0: Cx, w, B_drag, F: Cx, adjoint: bool = False) -> Cx:
                  F.re.data_ptr(), F.im.data_ptr(), xr.data_ptr(), xi.data_ptr(),
                  n, nw, int(adjoint), nvcc.stream_of(dev))
         nvcc.check(err, "solve6_fused")
-    LAUNCHES["fused_adjoint" if adjoint else "fused"] += 1
+    with _launch_lock:
+        LAUNCHES["fused_adjoint" if adjoint else "fused"] += 1
     return Cx(xr, xi)
 
 
@@ -206,7 +209,8 @@ def _solve_cx(A: Cx, b: Cx, adjoint: bool = False) -> Cx:
         err = fn(A.re.data_ptr(), A.im.data_ptr(), b.re.data_ptr(), b.im.data_ptr(),
                  xr.data_ptr(), xi.data_ptr(), n, int(adjoint), nvcc.stream_of(dev))
         nvcc.check(err, "solve6_plain")
-    LAUNCHES["plain_adjoint" if adjoint else "plain"] += 1
+    with _launch_lock:
+        LAUNCHES["plain_adjoint" if adjoint else "plain"] += 1
     return Cx(xr, xi)
 
 

@@ -53,6 +53,7 @@ launch and reach the host without a wait.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -63,6 +64,7 @@ Tensor = torch.Tensor
 
 #: kernel launches per wrapper (never the plain path)
 LAUNCHES = {"rankine": 0, "wave": 0, "rankine_bf16": 0, "wave_bf16": 0}
+_launch_lock = threading.Lock()
 #: the C entries' suffix for each storage dtype
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -379,7 +381,8 @@ def rankine_assembly(pans: Tensor, c: Tensor, nrm: Tensor, area: Tensor, diag: T
                  n, R_pot.data_ptr(), R_dn.data_ptr(), work.data_ptr(), words,
                  None if near_count is None else near_count.data_ptr(), nvcc.stream_of(dev))
         nvcc.check(err, "bem_rankine")
-    LAUNCHES["rankine_bf16" if dtype == torch.bfloat16 else "rankine"] += 1
+    with _launch_lock:
+        LAUNCHES["rankine_bf16" if dtype == torch.bfloat16 else "rankine"] += 1
     return R_pot, R_dn
 
 
@@ -452,5 +455,6 @@ def wave_assembly(R_pot: Tensor, R_dn: Tensor, c: Tensor, nrm: Tensor, area: Ten
                  nl, n, nf, int(bool(finite_depth)), float(depth),
                  *(o.data_ptr() for o in outs), nvcc.stream_of(dev))
         nvcc.check(err, "bem_wave")
-    LAUNCHES["wave_bf16" if dtype == torch.bfloat16 else "wave"] += 1
+    with _launch_lock:
+        LAUNCHES["wave_bf16" if dtype == torch.bfloat16 else "wave"] += 1
     return tuple(outs)

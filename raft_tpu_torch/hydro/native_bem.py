@@ -43,6 +43,7 @@ import hashlib
 import os
 import platform
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +57,13 @@ GXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
 PORT_TAG = "raft_tpu_torch"
 #: result-cache outcomes in this process (a corrupt file counts as a miss too)
 CACHE_STATS = {"hit": 0, "miss": 0, "corrupt": 0}
+_stats_lock = threading.Lock()
+
+
+def _count(*events: str) -> None:
+    with _stats_lock:
+        for e in events:
+            CACHE_STATS[e] += 1
 
 
 @functools.cache
@@ -182,7 +190,7 @@ def result_cache_load(key: Path, needed) -> dict | None:
     """A cached result with every ``needed`` array, or None (a miss); a
     corrupt or incomplete file is counted, deleted and missed."""
     if not key.exists():
-        CACHE_STATS["miss"] += 1
+        _count("miss")
         return None
     try:
         with np.load(key) as z:
@@ -191,11 +199,10 @@ def result_cache_load(key: Path, needed) -> dict | None:
                 raise KeyError(sorted(missing))
             out = {k: z[k].copy() for k in needed}
     except Exception:                    # any unreadable artifact is a miss
-        CACHE_STATS["corrupt"] += 1
-        CACHE_STATS["miss"] += 1
+        _count("corrupt", "miss")
         key.unlink(missing_ok=True)
         return None
-    CACHE_STATS["hit"] += 1
+    _count("hit")
     return out
 
 

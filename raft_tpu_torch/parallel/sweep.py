@@ -514,6 +514,16 @@ def _case_slice(waves: WaveState, sl: slice) -> WaveState:
                      freq_mask=None if waves.freq_mask is None else waves.freq_mask[sl])
 
 
+def _stage_cases_global(waves: WaveState, F_re, F_im, per_case: bool, mesh):
+    """This rank's block of a DLC table's cases (views), and of their
+    excitation rows when each case has its own (``per_case``); the case
+    count divisible by the mesh's size."""
+    sl = _mh.lane_block(mesh, int(waves.zeta.shape[0]), "sweep_sea_states", _LANES_MSG)
+    if per_case:
+        F_re, F_im = F_re[sl], F_im[sl]
+    return _case_slice(waves, sl), F_re, F_im
+
+
 def sweep_sea_states(members: MemberSet, rna: RNA, env: Env, waves: WaveState, C_moor: Tensor,
                      bem=None, n_iter: int = 25, mesh=None, chunk: int | None = None,
                      pipeline_depth: int | None = None, health: bool = False,
@@ -576,7 +586,6 @@ def sweep_sea_states(members: MemberSet, rna: RNA, env: Env, waves: WaveState, C
                          "(make_wave_states builds one)")
     B = int(waves.zeta.shape[0])
     betas_case = None if waves.beta is None else _host(waves.beta)
-    sl = slice(None) if mesh is None else _mh.lane_block(mesh, B, "sweep_sea_states", _LANES_MSG)
     if chunk is not None:
         return _sweep_sea_states_chunked(members, rna, env, waves, C_moor, bem, n_iter,
                                          int(chunk), pipeline_depth, B, betas_case, health,
@@ -596,9 +605,8 @@ def sweep_sea_states(members: MemberSet, rna: RNA, env: Env, waves: WaveState, C
         if mesh is None:
             outs = run(waves, F_re, F_im)
         else:
-            per_case = mode == "grid"
-            outs = _gather_lanes(run(_case_slice(waves, sl), F_re[sl] if per_case else F_re,
-                                     F_im[sl] if per_case else F_im), mesh)
+            outs = _gather_lanes(run(*_stage_cases_global(waves, F_re, F_im, mode == "grid",
+                                                          mesh)), mesh)
         abs2, a_nac, iters = outs[:3]
         sigma = response_std(abs2, w_rows[0])
     res = {"std dev": _host(sigma), "nacelle accel std dev": _host(a_nac),
@@ -816,6 +824,12 @@ def _apply_lanes(apply_fn, members: MemberSet, thetas: Tensor) -> MemberSet:
     return MemberSet(**dict(zip(names, fields)))
 
 
+def _stage_variants_global(thetas: Tensor, mesh) -> Tensor:
+    """This rank's block of :func:`sweep`'s variants (a view), their count
+    divisible by the mesh's size."""
+    return thetas[_mh.lane_block(mesh, int(thetas.shape[0]), "sweep", _LANES_MSG)]
+
+
 def sweep(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor: Tensor, thetas,
           apply_fn=scale_diameters, mesh=None, n_iter: int = 25, return_xi: bool = True,
           health: bool = False, escalate: bool = True, dtype=torch.float64,
@@ -845,12 +859,12 @@ def sweep(members: MemberSet, rna: RNA, env: Env, wave: WaveState, C_moor: Tenso
     solve runs directly."""
     dev = resolve_device(device)
     th = torch.as_tensor(thetas, device=dev).to(dtype)
-    sl = slice(None)
+    th_l = th
     if mesh is not None:
         _mh.check_mesh(mesh, "sweep", dev)
-        sl = _mh.lane_block(mesh, int(th.shape[0]), "sweep", _LANES_MSG)
+        th_l = _stage_variants_global(th, mesh)
     with torch.no_grad():
-        m = _apply_lanes(apply_fn, members, th[sl])
+        m = _apply_lanes(apply_fn, members, th_l)
         out = forward_response(m, rna, env, wave, C_moor, n_iter=n_iter, dtype=dtype, device=dev)
         abs2 = out.Xi.abs2()
         outs = (response_std(abs2, wave.w), out.n_iter, abs2 if return_xi else None,

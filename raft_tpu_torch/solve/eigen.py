@@ -31,12 +31,14 @@ def dominance_order(modes: Tensor) -> Tensor:
     rel = mag / torch.where(norm > 0, norm, torch.ones_like(norm))
     n = modes.shape[-1]
     avail = torch.ones(rel.shape[:-2] + (n,), dtype=rel.dtype, device=rel.device)
+    cols = torch.arange(n, device=rel.device)
     picks = []
     for dof in range(n):
         score = torch.where(avail > 0, rel[..., dof, :], torch.full_like(avail, -1.0))
         pick = torch.argmax(score, dim=-1)
         picks.append(pick)
-        avail = avail * (1.0 - torch.nn.functional.one_hot(pick, n).to(rel.dtype))
+        # one_hot(pick, n) without its range check, which reads back on the CPU
+        avail = avail * (1.0 - (cols == pick[..., None]).to(rel.dtype))
     return torch.stack(picks, dim=-1)
 
 

@@ -341,7 +341,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=30)
     print("card:", out.stdout.strip())
     work = nvcc.BUILD_DIR / "k1_layouts"
     work.mkdir(parents=True, exist_ok=True)

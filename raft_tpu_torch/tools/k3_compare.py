@@ -96,7 +96,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=30)
     print("card:", out.stdout.strip())
     cuda_bem.build()
     print("  ptxas K3 (csrc/bem_rankine.cu):", *(

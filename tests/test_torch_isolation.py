@@ -99,6 +99,34 @@ def test_multi_device_modules_import_nothing_of_jax():
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
 
 
+
+def test_lint_modules_import_nothing_of_jax():
+    """The port's lint (``raft_tpu_torch.lint``: rules, knobs, registry,
+    audit, race, baseline, cli) loads in a fresh process without JAX or the
+    JAX package, and its static pass runs there."""
+    code = (
+        "import sys\n"
+        "import raft_tpu_torch.lint.rules, raft_tpu_torch.lint.knobs\n"
+        "import raft_tpu_torch.lint.registry, raft_tpu_torch.lint.audit\n"
+        "import raft_tpu_torch.lint.race, raft_tpu_torch.lint.baseline\n"
+        "import raft_tpu_torch.lint.cli\n"
+        "from raft_tpu_torch.lint import lint_paths, RULES\n"
+        "assert 'GL106' in RULES\n"
+        "lint_paths(['raft_tpu_torch/lint'], '.')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {f"lint/{m}.py" for m in ("__init__", "__main__", "rules", "knobs", "registry",
+                                     "audit", "race", "baseline", "cli")} <= names
+
 def test_no_forbidden_import_in_source():
     found = []
     for path in sorted(PKG.rglob("*.py")):

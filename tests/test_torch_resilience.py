@@ -317,8 +317,15 @@ def test_native_build_retries_then_raises(tmp_path, monkeypatch):
     (two attempts): one hung compiler is retried and the library is
     built; two exhaust the retries and the build raises (it is never
     skipped).  A one-line source stands in for ``native/bem.cpp``."""
+    from collections import Counter, deque
+
+    from raft_tpu_torch.cache import aot
     from raft_tpu_torch.hydro import native_bem
 
+    # the stand-in's build is counted here, not in the process's totals
+    # (a serving test later in the same process holds a daemon's to 0)
+    monkeypatch.setattr(aot, "_compile_counts", Counter())
+    monkeypatch.setattr(aot, "_compile_events", deque(maxlen=aot._COMPILE_EVENTS_MAX))
     src = tmp_path / "tiny.cpp"
     src.write_text('extern "C" int tiny() { return 1; }\n')
     so = tmp_path / "libraft_bem_native-test.so"
@@ -335,6 +342,7 @@ def test_native_build_retries_then_raises(tmp_path, monkeypatch):
         monkeypatch.setenv("RAFT_TPU_FAULT_INJECT", "hang_subprocess:1")
         faults.reset_counts()
         assert native_bem.build() == so and so.exists()
+        assert aot.compile_counts() == {"raft_bem_native": 1}
     finally:
         faults.reset_counts()
 
