@@ -86,7 +86,8 @@ result line):
    ``torch_bem.make_bem_fn`` (VolturnUS-S, 850 panels, 48 w, 200 m, the
    panel solve's plain assembly differentiated), scan at 25 iterations,
    at theta 1.01: float64 with the wall time and peak memory, against the
-   same loss with the plain solve in K1's place (value and gradient) and
+   same loss with the plain solve in K1's place on the panel solve's A, B,
+   F at theta (value, and gradient in theta and in A, B, F) and
    against a central difference with theta's branches held
    (``tools/bem_grad_fd.py``); then float32 through the entry point,
    ``optimize_design(bem_fn=...)`` from theta 1.01, 1 Adam step at full
@@ -143,9 +144,11 @@ result line):
    p99, solves/s, their ratio and the occupancy per bucket (reported, not
    gated); then a daemon child (``python -m raft_tpu_torch.serve daemon
    --warm oc3,oc4,volturnus``, at the daemon's defaults) serving the
-   smoke's stream, SIGTERM with exit 0 and its socket unlinked, and a
-   restarted child with the same rows bit for bit, each child's ready time,
-   kernel builds and K1 launches printed;
+   smoke's stream, its rows bit for bit the solo rows, SIGTERM with exit 0
+   and its socket unlinked, its ready time, kernel builds and K1 launches
+   printed (other daemon processes serving the same rows bit for bit
+   without a build, a restarted one among them, are phase "fleet"'s
+   replicas);
 22. the fleet (``raft_tpu_torch.serve.fleet_smoke``): two replicas at the
    daemon's defaults started at once, ``kill_replica:1``
    mid-stream (every request answered once, the rows bit for bit the
@@ -186,7 +189,10 @@ result line):
    ``torch_bem_kernels`` (K3, K4) to ``torch_bem`` (the plain assembly) at
    ``INTERP_PARITY_RTOL``, each kernel's launches counted (the audit's
    launches, warming and measured calls, join the kernels line); each
-   entry's ops, host syncs, launches and peak bytes printed;
+   entry's ops, host syncs, launches and peak bytes printed; then the
+   backward probe (``audit.backward_probe``): ``val_grad`` with a hook
+   inside its backward, which autograd runs on its device thread, and the
+   ops, host syncs and sync-debug warnings the audit sees from there;
 26. bf16 assembly (``RAFT_TPU_BEM_PRECISION=bf16``): the bf16 entries of K3
    (VolturnUS-S, 1,024 class; OC4semi with its lid, 2,048) and K4 (every
    chunk of the 48-w staging) against their plain versions on the same
@@ -220,11 +226,25 @@ result line):
    timed by the ledger (best time within 0.5-2x of phase 3's, roofline
    fraction phase 3's bound over it) and one scan chunk of the strip sweep
    under CUDA's sync debug mode "error";
-30. panel-solve copies: one solve and the refined solve's backward under
+30. the smokes: the hetero smoke (``raft_tpu_torch.build.smoke``, the
+   mixed stream of OC3spar, VolturnUS-S and OC4semi at 200 w through
+   ``sweep_designs`` in two children on one root: solo parity 1e-5, the
+   second child bit for bit the first, no build in either), the BEM smoke
+   (``raft_tpu_torch.hydro.bem_smoke``: novel two-column meshes with
+   ``g++`` poisoned, children on K3/K4 and on the plain assembly, each
+   within ``PARITY_RTOL`` of the native oracle, the kernels within
+   ``INTERP_PARITY_RTOL`` of the plain legs) and the obs smoke
+   (``python -m raft_tpu_torch.obs --nw 200``: the JSONL log, the Chrome
+   trace, the per-bucket histograms, the Prometheus file, overhead within
+   2x), all three at once through ``evidence.run_step``, every check of
+   their JSON held and their children's K1, K3 and K4 launches counted;
+   beside them ``utils.torch_trace`` around one ``sweep_designs`` call,
+   whose trace must hold K1's kernels and the phase's range;
+31. panel-solve copies: one solve and the refined solve's backward under
    the profiler, no host-device copy and no synchronisation inside; one
    ``bem_fn`` step after a first under CUDA's sync debug mode, with every
    host-to-device copy counted;
-31. the sweeps and one gradient chunk again under ``torch.profiler``: device
+32. the sweeps and one gradient chunk again under ``torch.profiler``: device
    busy time, idle share and the operations that take the device time; the
    same gradient chunk with the adjoint's transposed copies, profiled in the
    same call, must run at least 75 copy and negation kernels more (3
@@ -1609,6 +1629,7 @@ class Smoke:
         forward and adjoint in every scan step; float64 against the plain
         solve in K1's place and against central differences; float32
         through ``optimize_design`` with ``bem_fn`` against float64."""
+        from raft_tpu_torch.core.cplx import Cx
         from raft_tpu_torch.hydro import torch_bem
         from raft_tpu_torch.hydro.mesh import mesh_design
         from raft_tpu_torch.parallel.optimize import (_make_loss, _value_and_grad,
@@ -1636,8 +1657,14 @@ class Smoke:
         # float64: the value and gradient through K1, then with the plain solve in
         # K1's place (autograd through it), then the central difference
         inputs, panels, bem_fn, t_stage = staged(f64)
+        solved = {}
+
+        def recording_bem_fn(th):
+            solved["bem"] = bem_fn(th)
+            return solved["bem"]
+
         loss64 = _make_loss(*inputs, nacelle_accel_std, scale_diameters, None, n_iter, False,
-                            bem_fn=bem_fn, dtype=f64, device=self.dev)
+                            bem_fn=recording_bem_fn, dtype=f64, device=self.dev)
         th64 = torch.tensor(BEM_THETA, dtype=f64, device=self.dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1658,15 +1685,36 @@ class Smoke:
                    and launched(launches, n_iter),
                    f"BEM gradient float64: finite, K1 {n_iter} forward + {n_iter} adjoint "
                    f"launches, K3/K4 none (the plain assembly)")
+        # K1 against the plain solve in its place on the same inputs: the panel
+        # solve's A, B, F at theta, held as leaves, through the rest of the loss
+        # (value, and gradient in theta and in A, B, F); the panel solve and its
+        # backward are the same on both sides, so they are not run again
+        A, B, F = solved["bem"]
+        leaves = [t.detach().clone().requires_grad_(True) for t in (A, B, F.re, F.im)]
+        loss_frozen = _make_loss(*inputs, nacelle_accel_std, scale_diameters, None, n_iter,
+                                 False, bem_fn=lambda _th: (leaves[0], leaves[1],
+                                                            Cx(leaves[2], leaves[3])),
+                                 dtype=f64, device=self.dev)
+
+        def frozen_value_and_grads():
+            th = th64.detach().requires_grad_(True)
+            v = loss_frozen(th)
+            return float(v), torch.autograd.grad(v.sum(), [th, *leaves])
+
         t0 = time.perf_counter()
+        vk, gk = frozen_value_and_grads()
         with plain_solve():
-            vp, gp = (float(x) for x in _value_and_grad(loss64, th64))
+            vp, gp = frozen_value_and_grads()
         t_plain = time.perf_counter() - t0
-        dv, dg = abs(v64 - vp) / abs(vp), abs(g64 - gp) / abs(gp)
-        print(f"  BEM gradient float64, K1 vs the plain solve (autograd through it; {t_plain:.2f} "
-              f"s): value {vp:.12e} rel {dv:.3e}, gradient {gp:.12e} rel {dg:.3e} (limit "
-              f"{BEM_TOL_PLAIN:.0e})")
-        self.check(dv <= BEM_TOL_PLAIN and dg <= BEM_TOL_PLAIN,
+        dv = abs(vk - vp) / abs(vp)
+        dgs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+               for a, b in zip(gk, gp)]
+        print(f"  BEM gradient float64, K1 vs the plain solve (autograd through it) on the panel "
+              f"solve's A, B, F at theta ({t_plain:.2f} s): value {vp:.12e} rel {dv:.3e} (the "
+              f"whole loss's {v64:.12e}), gradient in theta, A, B, F.re, F.im rel "
+              + ", ".join(f"{d:.3e}" for d in dgs) + f" (limit {BEM_TOL_PLAIN:.0e})")
+        self.check(dv <= BEM_TOL_PLAIN and max(dgs) <= BEM_TOL_PLAIN
+                   and abs(vk - v64) <= BEM_TOL_PLAIN * abs(v64),
                    f"BEM gradient float64: K1 forward and adjoint == the plain solve "
                    f"({BEM_TOL_PLAIN:.0e}, value and gradient)")
         with torch.no_grad():
@@ -2464,8 +2512,8 @@ class Smoke:
 
     def phase_serve(self):
         """The serving daemon at its defaults, in process through a real
-        socket client, then as two daemon children (see the module
-        docstring, phase 21)."""
+        socket client, then as a daemon child (see the module docstring,
+        phase 21)."""
         import os
         import shutil
         import tempfile
@@ -2615,31 +2663,27 @@ class Smoke:
             server.stop()
             server = None
 
-            # the daemon as a child process, SIGTERM and a restart
-            children = []
-            for k in (1, 2):
-                sock = os.path.join(tmp, f"child{k}.sock")
-                proc, ready = smoke.spawn_daemon(sock, os.path.join(tmp, f"child{k}.err"), None,
-                                                 full_width=True)
-                rows_c, full_c, info_c = smoke.drive_stream(sock)
-                rc = smoke.stop_daemon(proc)
-                fused = (full_c["solver"]["kernel_launches"]["fused"]
-                         - ready["kernel_launches_at_ready"]["fused"])
-                self.add_main({"fused": fused}, ("fused",))
-                children.append((ready, rows_c, rc, not os.path.exists(sock),
-                                 full_c["solver"]["compiles"]))
-                print(f"  daemon child {k}: ready_s {ready['ready_s']} (spawn to ready "
-                      f"{ready['spawn_to_ready_s']} s), compiles_at_ready "
-                      f"{ready['compiles_at_ready']}, stream {info_c['wall_s']:.3f} s, "
-                      f"K1 launches {fused}, exit {rc}")
+            # the daemon as a child process and its SIGTERM (other processes serving
+            # these rows bit for bit without a build, a restarted one among them:
+            # phase "fleet"'s replicas, held against these rows)
+            sock = os.path.join(tmp, "child.sock")
+            proc, ready = smoke.spawn_daemon(sock, os.path.join(tmp, "child.err"), None,
+                                             full_width=True)
+            rows1, full_c, info_c = smoke.drive_stream(sock)
+            rc1 = smoke.stop_daemon(proc)
+            fused = (full_c["solver"]["kernel_launches"]["fused"]
+                     - ready["kernel_launches_at_ready"]["fused"])
+            self.add_main({"fused": fused}, ("fused",))
+            print(f"  daemon child: ready_s {ready['ready_s']} (spawn to ready "
+                  f"{ready['spawn_to_ready_s']} s), compiles_at_ready "
+                  f"{ready['compiles_at_ready']}, stream {info_c['wall_s']:.3f} s, "
+                  f"K1 launches {fused}, exit {rc1}")
             solo_rows = smoke.solo_reference(None, full_width=True)
-            (r1, rows1, rc1, gone1, b1), (r2, rows2, rc2, gone2, b2) = children
-            self.check(rc1 == 0 and gone1 and rc2 == 0 and gone2,
-                       "serve: SIGTERM drains each child with exit 0, socket unlinked")
-            self.check(rows1 == solo_rows and rows2 == rows1,
-                       "serve: child rows == in-process solo rows, restart bit for bit")
-            self.check(r1["compiles_at_ready"] == r2["compiles_at_ready"] == 0
-                       and b1 == b2 == 0, "serve: no kernel build in either child (compiles 0)")
+            self.check(rc1 == 0 and not os.path.exists(sock),
+                       "serve: SIGTERM drains the child with exit 0, socket unlinked")
+            self.check(rows1 == solo_rows, "serve: child rows == in-process solo rows")
+            self.check(ready["compiles_at_ready"] == 0 and full_c["solver"]["compiles"] == 0,
+                       "serve: no kernel build in the child (compiles 0)")
             self.serve_child_rows = rows1
         finally:
             if server is not None:
@@ -3098,6 +3142,7 @@ class Smoke:
             t1 = time.perf_counter()
             self.zero_counts()
             reports = audit.run_audit(device="cuda")
+            probe = audit.backward_probe(device="cuda")
             self.add_main(self.counts(), ("fused", "fused_adjoint", "rankine", "wave"))
             t2 = time.perf_counter()
         finally:
@@ -3130,6 +3175,14 @@ class Smoke:
             self.check(r.host_syncs == want == r.sync_debug,
                        f"audit {r.name}: host syncs {r.host_syncs} == the CPU audit's {want} "
                        f"== sync-debug warnings {r.sync_debug} {r.sync_examples}")
+        print(f"  backward probe (val_grad, float32): hook on the calling thread "
+              f"{probe['hook_on_calling_thread']}; ops forward {probe['forward_ops']}, backward "
+              f"{probe['backward_ops']}; inside the hook the mode saw {probe['hook_ops_seen']} "
+              f"of {probe['hook_ops_run']} ops and {probe['hook_syncs_seen']} of "
+              f"{probe['hook_syncs_run']} host syncs; host syncs {probe['host_syncs']}, "
+              f"sync-debug warnings {probe['sync_debug_warnings']}")
+        self.check(probe["forward_ops"] > 0 and probe["backward_ops"] > 0,
+                   "lint: the backward probe's hook ran inside val_grad's backward")
         by = {r.name: r for r in reports}
         k1 = by["fused_rao_solve"]
         Z0, w, Bd, F = fused_rao_args(1, self.dev, torch.float32)
@@ -3853,6 +3906,95 @@ class Smoke:
             ledger.reset()
             shutil.rmtree(root, ignore_errors=True)
 
+    def phase_smokes(self):
+        """The slice's three smokes on the card, at once, each through
+        ``evidence.run_step`` on a thread of its own from the default cache
+        root (which holds the wave tables phase "build" made; no kernel is
+        built here): the hetero smoke (``python -m raft_tpu_torch.build.smoke
+        --nw 200``), the BEM smoke (``python -m raft_tpu_torch.hydro.bem_smoke``,
+        its own protocol: K3/K4 legs and plain legs) and the obs smoke
+        (``python -m raft_tpu_torch.obs --nw 200``).  Every check of each
+        smoke's JSON line must hold; each smoke's wall and its children's are
+        printed, and the children's K1, K3 and K4 launches join the kernels
+        line.  Meanwhile, in this process, ``utils.torch_trace`` wraps one
+        ``sweep_designs`` call of the same stream under a ``phase(...,
+        jax_trace=True)``: the trace written must hold K1's kernel and the
+        phase's range."""
+        import os
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        from raft_tpu_torch.build.smoke import design_paths, stage_kw
+        from raft_tpu_torch.evidence import last_json, run_step
+        from raft_tpu_torch.parallel.sweep import sweep_designs
+        from raft_tpu_torch.utils import phase, torch_trace
+
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        env.pop("RAFT_TPU_TORCH_CACHE_DIR", None)
+        py = sys.executable
+        cmds = {"hetero": [py, "-m", "raft_tpu_torch.build.smoke", "--nw", "200"],
+                "bem": [py, "-m", "raft_tpu_torch.hydro.bem_smoke"],
+                "obs": [py, "-m", "raft_tpu_torch.obs", "--nw", "200"]}
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            futs = {k: pool.submit(run_step, cmd, 420, f"{k} smoke", env)
+                    for k, cmd in cmds.items()}
+            # in process, beside them: one sweep_designs call under the profiler
+            self.zero_counts()
+            with tempfile.TemporaryDirectory(prefix="raft_torch_trace_") as d:
+                with torch_trace(d) as path:
+                    with phase("smokes_traced_sweep", jax_trace=True):
+                        sweep_designs(design_paths(), n_iter=8, return_xi=False,
+                                      device=self.dev, **stage_kw(200))
+                launched = self.counts()["fused"]
+                self.add_main(self.counts(), ("fused",))
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            steps = {k: f.result() for k, f in futs.items()}
+        k1_events = [e for e in events if e.get("cat") == "kernel"
+                     and "solve6_kernel" in e.get("name", "")]
+        ranges = [e for e in events if e.get("name") == "smokes_traced_sweep"]
+        print(f"  torch_trace of one sweep_designs call (3 designs x 200 w, float64): "
+              f"{len(events)} events, {len(k1_events)} K1 kernels ({launched} launched), "
+              f"{len(ranges)} phase range(s)")
+        self.check(len(k1_events) == launched > 0 and len(ranges) >= 1,
+                   "smokes: the torch_trace file holds each K1 kernel of the call and the "
+                   "phase's range")
+        res = {}
+        for k, step in steps.items():
+            res[k] = last_json(step["stdout_tail"]) or {}
+            print(f"  {k} smoke: rc {step['rc']}, {step['elapsed_s']:.1f} s; children "
+                  f"{res[k].get('child_wall_s')}")
+            if not step["ok"] or not res[k].get("ok"):
+                print("    " + "\n    ".join(step["tail"]))
+        het, bem, obs = res["hetero"], res["bem"], res["obs"]
+        for key in ("fewer_buckets_than_designs", "solo_parity_1e5",
+                    "zero_builds_both_children", "results_identical", "k1_launches_equal"):
+            self.check(het.get(key) is True, f"hetero smoke: {key}")
+        print(f"    hetero: {het.get('n_designs')} designs in {het.get('n_buckets')} buckets "
+              f"{het.get('signatures')}, solo {het.get('solo_max_rel')}, builds "
+              f"{het.get('builds')}, K1 launches {het.get('k1_launches')}")
+        bem_checks = bem.get("checks", {})
+        for key in ("gxx_never_invoked", "parity_all_legs", "residual_small",
+                    "warm_equals_cold_bits", "zero_builds_all_children", "routes",
+                    "kernels_plain_agree", "k3_k4_on_kernel_legs_only"):
+            self.check(bem_checks.get(key) is True, f"BEM smoke: {key}")
+        print(f"    BEM: parity {bem.get('parity')}; kernels against plain "
+              f"{bem.get('cross_route')}; launches {bem.get('launches')}; solves "
+              f"{bem.get('solve_s')} s; builds {bem.get('builds')}; {bem.get('error', '')}")
+        for key in ("jsonl_valid", "chrome_trace_valid", "per_bucket_histograms",
+                    "prom_written", "overhead_bounded", "unarmed_published_nothing"):
+            self.check(obs.get(key) is True, f"obs smoke: {key}")
+        print(f"    obs: solves/s off {obs.get('solves_per_s_obs_off')}, on "
+              f"{obs.get('solves_per_s_obs_on')}; histograms {obs.get('dispatch_histograms')}; "
+              f"trace {obs.get('chrome_trace')}; K1 launches {obs.get('k1_launches')}")
+        self.check(all(step["ok"] and res[k].get("ok") is True for k, step in steps.items()),
+                   "smokes: all three exit 0 with ok")
+        k1 = (sum((het.get("k1_launches") or {}).values())
+              + sum((obs.get("k1_launches") or {}).values()))
+        legs = (bem.get("launches") or {}).values()
+        self.add_main({"fused": k1, "rankine": sum(v["rankine"] for v in legs),
+                       "wave": sum(v["wave"] for v in legs)}, ("fused", "rankine", "wave"))
+
     def phase_solve_copies(self):
         """solve_panels copies nothing from the host and never waits for the
         device.  Under the profiler, every CUDA runtime call counted: one
@@ -4164,6 +4306,7 @@ class Smoke:
                   ("BEM inputs", self.phase_bem_inputs),
                   ("CLI", self.phase_cli),
                   ("cache", self.phase_cache),
+                  ("smokes", self.phase_smokes),
                   ("panel-solve copies", self.phase_solve_copies),
                   ("profile", self.phase_profile)]
         if only is not None:

@@ -227,7 +227,7 @@ class ArrayModel:
         calls re-stage the excitation by interpolation."""
         from raft_tpu_torch.hydro.mesh import mesh_design, mesh_lid
         from raft_tpu_torch.hydro.torch_bem import model_solve_dtype, solve_bem_any
-        from raft_tpu_torch.model import interp_heading_excitation
+        from raft_tpu_torch.model import solve_bem_heading_grid
 
         panels = mesh_design(self.designs[0], dz_max=dz_max, da_max=da_max)
         if len(panels) == 0:
@@ -238,15 +238,8 @@ class ArrayModel:
                      device=self.device, return_diagnostics=True)
         w = _np(self.w)
         if headings is not None:
-            beta = float(self.env.beta)
-            betas = np.sort(np.asarray(headings, dtype=float))
-            if not (betas[0] - 1e-9 <= beta <= betas[-1] + 1e-9):
-                raise ValueError(
-                    f"current heading {beta:.3f} rad outside the requested grid "
-                    f"[{betas[0]:.3f}, {betas[-1]:.3f}]: include it or setEnv first")
-            A, B, F_all, self.bem_diagnostics = solve_bem_any(panels, w, beta=betas, **solve)
-            self._bem_headings = (betas, F_all, A, B)
-            self.bem = (A, B, interp_heading_excitation(betas, F_all, beta))
+            self._bem_headings, self.bem, self.bem_diagnostics = solve_bem_heading_grid(
+                panels, w, headings=headings, beta=float(self.env.beta), **solve)
         else:
             A, B, F, self.bem_diagnostics = solve_bem_any(panels, w, beta=float(self.env.beta),
                                                           **solve)

@@ -59,7 +59,11 @@ package's XLA route rounds after every operation instead).
 (:mod:`raft_tpu_torch.hydro.native_bem`, mode ``"native"``); ``"auto"``
 (the default, through ``RAFT_TPU_BEM``) takes the kernels on the card and
 the native solver on the CPU (:func:`resolved_mode`).  Results of both
-routes are cached on disk, content-addressed (``cache=True``).
+routes are cached on disk, content-addressed (``cache=True``).  Within the
+on-device route, ``RAFT_TPU_BEM_ASSEMBLY`` (:func:`resolved_assembly`;
+the JAX package's ``xla`` is ``"plain"`` here, ``pallas`` is
+``"kernels"``) picks the assembly: unset, K3/K4 on the card and the plain
+versions on the CPU.
 
 The module's name avoids the old one, which names a framework; the
 ``BEM="jax"`` mode name and :func:`solve_bem_jax` keep the JAX package's
@@ -71,6 +75,7 @@ import functools
 import hashlib
 import math
 import os
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -102,6 +107,8 @@ LEVELS = (1, 3, 6, 12, 24)
 N_SERIES = 12
 #: the assembly-precision knob: ``f32`` (default) | ``bf16``
 PRECISION_ENV = "RAFT_TPU_BEM_PRECISION"
+#: the assembly-route knob: ``xla`` (the plain versions) | ``pallas`` (K3/K4) | ``auto``
+ASSEMBLY_ENV = "RAFT_TPU_BEM_ASSEMBLY"
 
 _PI = float(np.pi)
 _TWO_PI = float(2.0 * np.pi)
@@ -149,6 +156,47 @@ def bem_precision(env: str | None = None) -> str:
         _precision_warned = True
         warnings.warn(f"{PRECISION_ENV}={raw!r} is not one of f32|bf16; using f32", stacklevel=2)
     return "f32"
+
+
+#: the JAX package's route names -> :data:`ASSEMBLIES`
+_ASSEMBLY_NAMES = {"xla": "plain", "pallas": "kernels"}
+_assembly_lock = threading.Lock()
+_assembly_warned = False
+
+
+def assembly_mode(env: str | None = None) -> str:
+    """The ``RAFT_TPU_BEM_ASSEMBLY`` knob (or ``env`` in its place):
+    ``"plain"`` for xla, ``"kernels"`` for pallas, ``"auto"`` when unset or
+    empty.  Any other value warns once per process and is ``"auto"``, as
+    in the JAX package."""
+    global _assembly_warned
+    raw = os.environ.get(ASSEMBLY_ENV, "") if env is None else env
+    val = raw.strip().lower()
+    if val in ("", "auto"):
+        return "auto"
+    if val in _ASSEMBLY_NAMES:
+        return _ASSEMBLY_NAMES[val]
+    with _assembly_lock:
+        warn, _assembly_warned = not _assembly_warned, True
+    if warn:
+        warnings.warn(f"{ASSEMBLY_ENV}={raw!r} is not one of xla|pallas|auto; using auto",
+                      stacklevel=2)
+    return "auto"
+
+
+def resolved_assembly(mode: str | None = None, device=None) -> str:
+    """``"kernels"`` (K3/K4) or ``"plain"`` (their plain versions) for a
+    solve on ``device`` (None means the card).  An explicit ``mode`` forces
+    the route; an explicit ``"auto"`` defers to the knob first, as the JAX
+    package's ``resolved_assembly`` does; ``auto`` takes the kernels on a
+    CUDA device and the plain versions on the CPU (where the wrappers run
+    the plain versions anyway)."""
+    m = assembly_mode() if mode is None else assembly_mode(env=mode)
+    if m == "auto" and mode is not None:
+        m = assembly_mode()
+    if m != "auto":
+        return m
+    return "kernels" if resolve_device(device).type == "cuda" else "plain"
 
 
 def assembly_dtype(precision: str | None, dtype):
@@ -1031,23 +1079,27 @@ def _table_digest(tab: dict) -> str:
 def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
                   beta=0.0, depth: float = 0.0, lid: np.ndarray | None = None,
                   cache: bool = True, dtype=torch.float64, device=None,
-                  return_diagnostics: bool = False, precision: str | None = None):
+                  return_diagnostics: bool = False, precision: str | None = None,
+                  assembly: str | None = None):
     """On-device panel solve with the JAX package's ``solve_bem_jax``
     contract: returns numpy (A[6, 6, nw], B[6, 6, nw], F), F[6, nw] complex
     for a scalar heading or F[nb, 6, nw] for a grid.  With
     ``return_diagnostics`` a fourth item gives the panel counts, the
-    largest refinement residual, the route (``"kernels"`` on the card,
-    ``"plain"`` on the CPU), the precision and the assembly's dtype, whether
-    the result came from the cache and the wall-clock (ending in a device
-    synchronisation).  ``precision``: see :func:`solve_panels` (None reads
-    ``RAFT_TPU_BEM_PRECISION``).
+    largest refinement residual, the assembly route, the precision and the
+    assembly's dtype, whether the result came from the cache and the
+    wall-clock (ending in a device synchronisation).  ``precision``: see
+    :func:`solve_panels` (None reads ``RAFT_TPU_BEM_PRECISION``).
+    ``assembly``: the route of :func:`resolved_assembly` (None reads
+    ``RAFT_TPU_BEM_ASSEMBLY``; unset, the kernels on the card and the plain
+    versions on the CPU).
 
     With ``cache`` results are content-cached on disk in the ``torch-bem-jax``
     namespace of :func:`raft_tpu_torch.hydro.native_bem.result_cache_key`,
-    salted with the route, the dtype, the resolved precision, ``N_REFINE``,
-    the wave tables and the hash of the route's sources: a result of the
-    plain version is never served to a call on the card, nor a bf16 result
-    to an f32 call."""
+    salted with the route, the device type, the dtype, the resolved
+    precision, ``N_REFINE``, the wave tables and the hash of the route's
+    sources: a result of the plain version is never served to a call on the
+    card's kernels, nor a bf16 result to an f32 call.  Nothing here asks for
+    the host compiler (the native solver's keys name ``g++``'s version)."""
     from raft_tpu_torch.hydro import native_bem
 
     dev = resolve_device(device)
@@ -1058,7 +1110,7 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
     betas = np.ascontiguousarray(np.atleast_1d(beta), dtype=np.float64)
     depth_f = float(depth) if depth and depth > 0 else -1.0
     finite_depth = depth_f > 0
-    route = "kernels" if dev.type == "cuda" else "plain"
+    route = resolved_assembly(assembly, dev)
     prec = bem_precision(precision)
     a_dtype = assembly_dtype(prec, dtype)
     tab = wavetable.load_tables()
@@ -1076,8 +1128,8 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
     if cache:
         key = native_bem.result_cache_key(
             "torch-bem-jax", panels, w_np, betas, (rho, g, depth_f, 0.0, float(n_lid)),
-            salt=(route, str(dtype), prec, N_REFINE, wavetable.TABLE_VERSION, _table_digest(tab),
-                  _route_sources_digest()),
+            salt=(route, dev.type, str(dtype), prec, N_REFINE, wavetable.TABLE_VERSION,
+                  _table_digest(tab), _route_sources_digest()),
             extra_bytes=np.asarray(lid, dtype=np.float64).tobytes() if n_lid else b"")
         hit = native_bem.result_cache_load(key, ("A", "B", "F", "resid"))
         if hit is not None:
@@ -1093,7 +1145,7 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
     A6, B6, F_cx, resid = solve_panels(
         **staged, tab=stage_tables(tab, dtype, dev), rho=float(rho), g=float(g),
         depth=float(depth_f if finite_depth else 0.0), finite_depth=finite_depth,
-        precision=prec, dtype=dtype, device=dev)
+        assembly=route, precision=prec, dtype=dtype, device=dev)
     A = A6.double().cpu().numpy().transpose(1, 2, 0)              # (6, 6, nw)
     B = B6.double().cpu().numpy().transpose(1, 2, 0)
     F = (F_cx.re.double().cpu().numpy()

@@ -46,6 +46,10 @@ runs each entry's inputs through the staging its API runs with ``mesh=``
 each rank's staged input bytes to 0.5 x (1 + tolerance) of the whole:
 an API that stops splitting an input fails it.  This is the run-time
 form of the JAX package's GL403.
+
+:func:`backward_probe` shows that the counting mode and the sync debug
+mode see a backward pass that autograd runs on its device thread (on the
+card, not the caller's thread), so an entry's budget covers its backward.
 """
 from __future__ import annotations
 
@@ -242,6 +246,85 @@ def audit_entry(entry, device, dtype=None) -> AuditReport:
         sync_examples=mode.sync_examples, rebuilds=rebuilds,
         seconds=time.perf_counter() - t0, ok=(mode.f64 == 0 and rebuilds == 0),
         launches=launches, peak_bytes=peak, sync_debug=sync_debug, outputs=out)
+
+
+#: the ops the backward probe's hook runs: a multiply, an add, a sum and
+#: the host read of ``.item()`` (one host sync)
+PROBE_HOOK_OPS, PROBE_HOOK_SYNCS = 4, 1
+
+
+def backward_probe(device=None, dtype=None) -> dict:
+    """Does the counting mode see the backward pass?  On the card, autograd
+    runs a backward on a device thread of its own, not the caller's.
+
+    ``val_grad``'s loss (:func:`raft_tpu_torch.lint.registry.
+    _entry_val_grad`'s) goes through ``optimize._value_and_grad`` at
+    ``dtype`` (float32) on ``device`` under the counting mode and, on the
+    card, CUDA's sync debug mode "warn", as :func:`audit_entry` runs an
+    entry.  A hook on the loss's input fires inside the backward; it runs
+    :data:`PROBE_HOOK_OPS` ops with :data:`PROBE_HOOK_SYNCS` host read and
+    reads the mode's counts around them.  Returns whether the hook ran on
+    the calling thread, the ops the mode saw in the forward and the
+    backward, the ops and syncs it saw inside the hook (against those the
+    hook ran), and the host syncs against the sync-debug warnings of the
+    whole call (None on the CPU)."""
+    import threading
+
+    import torch
+
+    from raft_tpu_torch.core.device import resolve_device
+    from raft_tpu_torch.lint.registry import _N_ITER, _small_base
+    from raft_tpu_torch.parallel.optimize import _make_loss, _value_and_grad, nacelle_accel_std
+    from raft_tpu_torch.parallel.sweep import scale_diameters
+
+    dtype = torch.float32 if dtype is None else dtype
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    _, members, rna, env, wave, C_moor = _small_base(dev, dtype)
+    loss = _make_loss(members, rna, env, wave, C_moor, nacelle_accel_std, scale_diameters,
+                      None, _N_ITER, False, dtype=dtype, device=dev)
+    theta = torch.tensor(1.0, dtype=dtype).to(dev)
+    _value_and_grad(loss, theta)                # warming call
+    if on_card:
+        torch.cuda.synchronize(dev)
+    mode = _counting_mode()
+    seen: dict = {}
+
+    def hook(grad):
+        seen["thread"] = threading.get_ident()
+        n0, s0 = mode.ops, mode.syncs
+        (grad * 2.0 + 1.0).sum().item()
+        seen["hook_ops"], seen["hook_syncs"] = mode.ops - n0, mode.syncs - s0
+
+    def probe_loss(th):
+        th.register_hook(hook)
+        val = loss(th)
+        seen["forward_ops"] = mode.ops
+        return val
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with mode:
+                _value_and_grad(probe_loss, theta)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+    if "thread" not in seen:
+        raise RuntimeError("the backward probe's hook never ran")
+    return {
+        "device": str(dev),
+        "hook_on_calling_thread": seen["thread"] == threading.get_ident(),
+        "forward_ops": seen["forward_ops"],
+        "backward_ops": mode.ops - seen["forward_ops"],
+        "hook_ops_seen": seen["hook_ops"], "hook_ops_run": PROBE_HOOK_OPS,
+        "hook_syncs_seen": seen["hook_syncs"], "hook_syncs_run": PROBE_HOOK_SYNCS,
+        "host_syncs": mode.syncs,
+        "sync_debug_warnings": (sum(1 for c in caught if "synchronizing CUDA operation"
+                                    in str(c.message)) if on_card else None),
+    }
 
 
 def report_metrics(r: AuditReport) -> dict:

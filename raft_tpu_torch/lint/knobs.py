@@ -36,7 +36,10 @@ Classifications:
 Unlike the JAX package, ``RAFT_TPU_DONATE`` is ``host`` here: PyTorch has
 no buffer donation, and the port's ``donate_argnums`` only drops the
 executor's own references (``parallel/pipeline.py``), which changes no
-result.
+result.  The evidence runner's ``RAFT_EVIDENCE_*`` variables are
+registered too, as ``host`` knobs; the JAX runner's
+``RAFT_EVIDENCE_BENCH_TIMEOUT`` has no counterpart, since the port's
+runner has no bench step yet.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ import dataclasses
 import os
 import re
 
-#: env names GL201 (and the drift test) count as knob reads
-ENV_READ_RE = re.compile(r"^RAFT_TPU_[A-Z0-9_]+$")
+#: env names GL201 (and the drift test) count as knob reads: the port's
+#: ``RAFT_TPU_*`` and the evidence runner's ``RAFT_EVIDENCE_*``
+ENV_READ_RE = re.compile(r"^RAFT_(?:TPU|EVIDENCE)_[A-Z0-9_]+$")
 
 KEY = "key"
 HOST = "host"
@@ -75,6 +79,11 @@ KNOBS: tuple[Knob, ...] = (
          "with an f32 factor and refinement)",
          salted_via="raft_tpu_torch.hydro.torch_bem.solve_bem_jax",
          salt_token="str(dtype), prec"),
+    Knob("RAFT_TPU_BEM_ASSEMBLY", "auto (kernels on the card)", "hydro.torch_bem", KEY,
+         "Assembly route of the on-device panel solve: xla (the plain versions), "
+         "pallas (K3/K4), or auto",
+         salted_via="raft_tpu_torch.hydro.torch_bem.solve_bem_jax",
+         salt_token="resolved_assembly(assembly, dev)"),
     Knob("RAFT_TPU_BUCKETS", "built-in ladder", "build.buckets", KEY,
          "Size-class ladder of the shape-bucketed design batches; the bucket "
          "signature is part of the chunk store's key",
@@ -127,6 +136,18 @@ KNOBS: tuple[Knob, ...] = (
          "Sliding window of the restart bound"),
     Knob("RAFT_TPU_FLEET_SOCKET", "per-uid tmp path", "serve.fleet", HOST,
          "Front-end AF_UNIX socket path of the fleet router"),
+    # ---------------------------------------------------- evidence runner ----
+    # the JAX runner's variables, read by raft_tpu_torch/evidence.py
+    Knob("RAFT_EVIDENCE_SKIP_TESTS", "unset", "evidence", HOST,
+         "Skip the evidence runner's fast test tier"),
+    Knob("RAFT_EVIDENCE_LINT_TIMEOUT", "600 s", "evidence", HOST,
+         "Timeout of the evidence runner's lint step"),
+    Knob("RAFT_EVIDENCE_SERVE_TIMEOUT", "600 s", "evidence", HOST,
+         "Timeout of the evidence runner's serve smoke"),
+    Knob("RAFT_EVIDENCE_FLEET_TIMEOUT", "600 s", "evidence", HOST,
+         "Timeout of the evidence runner's fleet smoke"),
+    Knob("RAFT_EVIDENCE_DRYRUN_TIMEOUT", "300 s", "evidence", HOST,
+         "Timeout of the evidence runner's SPMD smoke (the JAX runner's multichip dry run)"),
     # -------------------------------------------------- fault injection ----
     Knob("RAFT_TPU_FAULT_INJECT", "unset", "resilience.faults", FAULT,
          "Deterministic host-side fault specs (nan_chunk:K, kill_after_chunk:K, ...)"),

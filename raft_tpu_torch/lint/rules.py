@@ -1988,7 +1988,7 @@ def hot_functions(paths: list[str], root: str) -> list[str]:
 
 
 def collect_env_reads(paths: list[str], root: str) -> dict:
-    """Every ``RAFT_TPU_*`` env read under ``paths``:
+    """Every ``RAFT_TPU_*`` and ``RAFT_EVIDENCE_*`` env read under ``paths``:
     ``{knob name: ["relpath:line", ...]}``."""
     a = Analyzer(collect_py_files(paths, root), root)
     out: dict = {}

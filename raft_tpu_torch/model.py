@@ -194,15 +194,8 @@ class Model:
                      device=self.device, return_diagnostics=True)
         w = _np(self.w)
         if headings is not None:
-            beta = float(self.env.beta)
-            betas = np.sort(np.asarray(headings, dtype=float))
-            if not (betas[0] - 1e-9 <= beta <= betas[-1] + 1e-9):
-                raise ValueError(
-                    f"current heading {beta:.3f} rad outside the requested grid "
-                    f"[{betas[0]:.3f}, {betas[-1]:.3f}]: include it or setEnv first")
-            A, B, F_all, self.bem_diagnostics = solve_bem_any(panels, w, beta=betas, **solve)
-            self._bem_headings = (betas, F_all, A, B)
-            self.bem = (A, B, interp_heading_excitation(betas, F_all, beta))
+            self._bem_headings, self.bem, self.bem_diagnostics = solve_bem_heading_grid(
+                panels, w, headings=headings, beta=float(self.env.beta), **solve)
         else:
             A, B, F, self.bem_diagnostics = solve_bem_any(panels, w, beta=float(self.env.beta),
                                                           **solve)
@@ -580,6 +573,35 @@ def plot_member_wireframe(ax, m, offset=(0.0, 0.0), n_ring: int = 24):
         step = max(1, len(ringA) // 8)
         for j in range(0, len(ringA), step):
             ax.plot(*np.stack([ringA[j], ringB[j]]).T, "k-", lw=0.4)
+
+
+def solve_bem_heading_grid(panels, w, rho, g, depth, lid, headings, beta, mode=None,
+                           return_diagnostics: bool = False, **solve):
+    """Solve the radiation once and the diffraction for a whole heading
+    grid, and stage the excitation at the current heading ``beta``: the
+    staging shared by :meth:`Model.calcBEM` and ``ArrayModel.calcBEM``
+    (port of ``raft_tpu.model.solve_bem_heading_grid``).
+
+    Returns ``(bem_headings, bem)``: ``bem_headings = (betas, F_all[nb, 6,
+    nw], A, B)``, the grid a later ``setEnv`` re-stages from, and ``bem``
+    the (A, B, F[6, nw]) tuple at ``beta``.  ``mode`` routes the solver
+    (:func:`raft_tpu_torch.hydro.torch_bem.solve_bem_any`, which also takes
+    the port's ``solve`` keywords: ``cache``, ``dtype``, ``device``,
+    ``precision``, ``nthreads``).  A heading outside the grid
+    raises before the panel solve.  With ``return_diagnostics`` the
+    solver's diagnostics come third."""
+    from raft_tpu_torch.hydro.torch_bem import solve_bem_any
+
+    betas = np.sort(np.asarray(headings, dtype=float))
+    if not (betas[0] - 1e-9 <= beta <= betas[-1] + 1e-9):
+        raise ValueError(
+            f"current heading {beta:.3f} rad outside the requested grid "
+            f"[{betas[0]:.3f}, {betas[-1]:.3f}]: include it or setEnv first")
+    A, B, F_all, diag = solve_bem_any(panels, np.asarray(w), rho=rho, g=g, beta=betas,
+                                      depth=depth, lid=lid, mode=mode, return_diagnostics=True,
+                                      **solve)
+    out = (betas, F_all, A, B), (A, B, interp_heading_excitation(betas, F_all, beta))
+    return out + (diag,) if return_diagnostics else out
 
 
 def interp_heading_excitation(betas, F_all, beta: float) -> np.ndarray:

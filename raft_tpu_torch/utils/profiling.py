@@ -13,10 +13,18 @@ arrays the block produced; ``sync=False`` skips the barrier (host-only
 phases, hot loops).  Without CUDA, or before CUDA's first use in the
 process, there is nothing to wait for and the phase does not initialise
 CUDA to find that out.
+
+:func:`torch_trace` is the counterpart of the JAX package's ``xla_trace``
+(renamed as ``jax_bem`` became ``torch_bem``): a ``torch.profiler``
+capture of the enclosed block written as a Chrome trace, in which a
+``phase(..., jax_trace=True)`` shows as a named range beside the kernels
+it launched.
 """
 from __future__ import annotations
 
 import contextlib
+import os
+import time
 
 from raft_tpu_torch.obs import trace as _trace
 
@@ -29,14 +37,43 @@ def _sync(device) -> None:
 
 
 @contextlib.contextmanager
-def phase(name: str, sync: bool = True, device=None):
+def phase(name: str, sync: bool = True, device=None, jax_trace: bool = False):
     """Time a named phase (nested names join with '/', per thread); with
     ``sync``, wait for ``device``'s queued work (the current card when
-    None) before the phase closes."""
-    with _trace.span(name):
+    None) before the phase closes.  ``jax_trace=True`` (the JAX package's
+    keyword, kept) also marks the block as a ``torch.profiler`` range
+    (``obs.trace.span(jax_trace=)``), seen while a profiler runs, e.g.
+    under :func:`torch_trace`."""
+    with _trace.span(name, jax_trace=jax_trace):
         yield
         if sync:
             _sync(device)
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block, CPU
+    activity and, when CUDA is available, the card's, and write it as a
+    Chrome trace (``trace-<pid>-<ns>.json``) into ``log_dir`` on exit; the
+    counterpart of the JAX package's ``xla_trace``.  Yields the path the
+    trace will be written to."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield path
+    finally:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(path)
 
 
 def summary() -> str:

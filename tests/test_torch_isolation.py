@@ -127,6 +127,40 @@ def test_lint_modules_import_nothing_of_jax():
     assert {f"lint/{m}.py" for m in ("__init__", "__main__", "rules", "knobs", "registry",
                                      "audit", "race", "baseline", "cli")} <= names
 
+def test_smokes_and_evidence_import_nothing_of_jax():
+    """The slice's smokes (``build.smoke``, ``hydro.bem_smoke``,
+    ``obs.smoke`` with ``obs.__main__``) and the evidence runner load in a
+    fresh process without JAX or the JAX package, and the two packages'
+    module lists differ only by the documented renames and the port's own
+    additions."""
+    code = (
+        "import sys\n"
+        "import raft_tpu_torch.build.smoke, raft_tpu_torch.hydro.bem_smoke\n"
+        "import raft_tpu_torch.obs.smoke, raft_tpu_torch.obs.__main__\n"
+        "import raft_tpu_torch.evidence, raft_tpu_torch.utils\n"
+        "from raft_tpu_torch.model import solve_bem_heading_grid\n"
+        "from raft_tpu_torch.hydro.torch_bem import assembly_mode, resolved_assembly\n"
+        "from raft_tpu_torch.utils import torch_trace\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+    port = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    jax = {p.relative_to(ROOT / "raft_tpu").as_posix() for p in (ROOT / "raft_tpu").rglob("*.py")}
+    renamed = {"hydro/jax_bem.py": "hydro/torch_bem.py", "core/pallas6.py": "core/cuda6.py",
+               "core/pallas_bem.py": "core/cuda_bem.py"}
+    assert {f for f in jax if "/_build/" not in f} - port == set(renamed)
+    assert set(renamed.values()) <= port
+    assert {"evidence.py", "build/smoke.py", "hydro/bem_smoke.py", "obs/smoke.py",
+            "obs/__main__.py"} <= port
+
+
 def test_no_forbidden_import_in_source():
     found = []
     for path in sorted(PKG.rglob("*.py")):

@@ -674,13 +674,13 @@ def test_every_env_read_is_registered_and_every_knob_read():
     reads = collect_env_reads(list(DEFAULT_TARGETS), REPO)
     assert set(reads) <= knobs.names(), sorted(set(reads) - knobs.names())
     assert knobs.names() <= set(reads), sorted(knobs.names() - set(reads))
-    assert len(knobs.KNOBS) == len(knobs.names()) == 24
+    assert len(knobs.KNOBS) == len(knobs.names()) == 30
 
 
 def test_key_knobs_have_live_salt_sites():
     keyed = [k for k in knobs.KNOBS if k.classification == knobs.KEY]
-    assert {k.name for k in keyed} == {"RAFT_TPU_BEM", "RAFT_TPU_BEM_PRECISION",
-                                       "RAFT_TPU_BUCKETS"}
+    assert {k.name for k in keyed} == {"RAFT_TPU_BEM", "RAFT_TPU_BEM_ASSEMBLY",
+                                       "RAFT_TPU_BEM_PRECISION", "RAFT_TPU_BUCKETS"}
     for k in keyed:
         mod, fn = k.salted_via.rsplit(".", 1)
         src = inspect.getsource(getattr(importlib.import_module(mod), fn))
