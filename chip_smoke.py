@@ -3917,9 +3917,8 @@ class Smoke:
         smoke's JSON line must hold; each smoke's wall and its children's are
         printed, and the children's K1, K3 and K4 launches join the kernels
         line.  Meanwhile, in this process, ``utils.torch_trace`` wraps one
-        ``sweep_designs`` call of the same stream under a ``phase(...,
-        jax_trace=True)``: the trace written must hold K1's kernel and the
-        phase's range."""
+        ``sweep_designs`` call of the same stream under a ``phase``: the
+        trace written must hold K1's kernel and the phase's range."""
         import os
         import tempfile
         from concurrent.futures import ThreadPoolExecutor
@@ -3942,7 +3941,7 @@ class Smoke:
             self.zero_counts()
             with tempfile.TemporaryDirectory(prefix="raft_torch_trace_") as d:
                 with torch_trace(d) as path:
-                    with phase("smokes_traced_sweep", jax_trace=True):
+                    with phase("smokes_traced_sweep"):
                         sweep_designs(design_paths(), n_iter=8, return_xi=False,
                                       device=self.dev, **stage_kw(200))
                 launched = self.counts()["fused"]

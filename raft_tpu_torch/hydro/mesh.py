@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from raft_tpu_torch.obs.trace import span
+
 
 def _profile(stations: np.ndarray, radii: np.ndarray, dz_max: float):
     """Refine a station profile so no axial span exceeds dz_max."""
@@ -363,18 +365,20 @@ def mesh_design(design: dict, dz_max: float = 3.0, da_max: float = 2.0,
                 trim: bool = True) -> np.ndarray:
     """Mesh every ``potMod`` circular member of a design dict
     (cf. FOWT.calcBEM, raft/raft.py:2016-2047).  Heading replication matches
-    the member builder; panels interior to adjoining members are trimmed."""
-    groups, solids = [], []
-    for stations, d, rA, rB in _iter_potmod_members(design):
-        groups.append(
-            mesh_member(stations, d, rA, rB, dz_max=dz_max, da_max=da_max)
-        )
-        solids.append(_MemberSolid(stations, 0.5 * d, rA, rB))
-    if not groups:
-        return np.zeros((0, 4, 3))
-    if trim:
-        return trim_interior_panels(groups, solids)
-    return np.concatenate(groups, axis=0)
+    the member builder; panels interior to adjoining members are trimmed.
+    Timed in the span ``mesh``."""
+    with span("mesh"):
+        groups, solids = [], []
+        for stations, d, rA, rB in _iter_potmod_members(design):
+            groups.append(
+                mesh_member(stations, d, rA, rB, dz_max=dz_max, da_max=da_max)
+            )
+            solids.append(_MemberSolid(stations, 0.5 * d, rA, rB))
+        if not groups:
+            return np.zeros((0, 4, 3))
+        if trim:
+            return trim_interior_panels(groups, solids)
+        return np.concatenate(groups, axis=0)
 
 
 # ------------------------------------------------------------- file output

@@ -89,6 +89,7 @@ from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.cuda_bem import rankine_assembly, wave_assembly
 from raft_tpu_torch.core.device import require_on, resolve_device
 from raft_tpu_torch.hydro import wavetable
+from raft_tpu_torch.obs.trace import span
 
 Tensor = torch.Tensor
 
@@ -808,8 +809,10 @@ class _SolveRefined(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, M2, B2):
-        LU, piv = _lu_factor(M2)
-        x = _refined(M2, LU, piv, B2)
+        with span("factor"):
+            LU, piv = _lu_factor(M2)
+        with span("refine"):
+            x = _refined(M2, LU, piv, B2)
         ctx.save_for_backward(M2, LU, piv, x)
         return x
 
@@ -877,7 +880,13 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
 
     Returns A, B (nw, 6, 6) with [j, k] = force j per unit mode-k motion,
     F a Cx (nw, nb, 6), and resid (nw,), the largest relative residual of
-    the block system after refinement."""
+    the block system after refinement.
+
+    Spans: ``rankine`` (the Rankine assembly), then one ``chunk`` per
+    frequency chunk with ``wave`` (its wave assembly), ``factor`` (the LU)
+    and ``refine`` (the solve and its refinement) inside.  Under autograd
+    the backward pass recomputes a chunk, and its spans, on autograd's
+    thread."""
     dev = resolve_device(device)
     if assembly not in ASSEMBLIES:
         raise ValueError(f"assembly {assembly!r}: expected one of {ASSEMBLIES}")
@@ -900,8 +909,9 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
     pans_a, c_a, nrm_a, area_a, diag_a, mask_a, spot_a, tab_a = _cast(
         (pans, c, nrm, area, diag, panel_mask, self_pot, tab), a_dtype)
     rankine = rankine_assembly if assembly == "kernels" else rankine_plain
-    R_pot, R_dn = rankine(pans_a, c_a, nrm_a, area_a, diag_a, mask_a, lid_surface, spot_a,
-                          quad=tab_a["quad"])
+    with span("rankine"):
+        R_pot, R_dn = rankine(pans_a, c_a, nrm_a, area_a, diag_a, mask_a, lid_surface, spot_a,
+                              quad=tab_a["quad"])
 
     nvec6 = torch.cat([nrm, torch.linalg.cross(c, nrm)], dim=1)      # (n, 6)
     Wn = nvec6 * (hull_mask * area)[:, None]                          # (n, 6)
@@ -919,12 +929,13 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
         k = om * om / g
         fd_c = _cast({key: val[sl] for key, val in fd.items()}, a_dtype) if finite_depth else None
         wargs = (R_pot, R_dn, c_a, nrm_a, area_a, mask_a, lid_surface, tab_a, k.to(a_dtype), fd_c)
-        if assembly == "kernels":
-            parts = wave_assembly(*wargs, finite_depth=finite_depth, depth=depth,
-                                  fd_active=fd_active[sl])
-        else:
-            parts = wave_plain(*wargs, finite_depth=finite_depth, depth=depth,
-                               fd_active=fd_active[sl])
+        with span("wave"):
+            if assembly == "kernels":
+                parts = wave_assembly(*wargs, finite_depth=finite_depth, depth=depth,
+                                      fd_active=fd_active[sl])
+            else:
+                parts = wave_plain(*wargs, finite_depth=finite_depth, depth=depth,
+                                   fd_active=fd_active[sl])
         # the assembly -> solve dtype boundary (the bf16 mode casts up here)
         S_re, S_im, Dn_re, Dn_im = (x.to(dtype) for x in parts)
         M_re = torch.where(lid_row, S_re, Dn_re - _TWO_PI * eye)
@@ -978,8 +989,10 @@ def solve_panels(pans, panel_mask, lid_mask, w, betas, fd: dict, tab: dict, *, f
                 -rho * omc * exc_im, rho * omc * exc_re, resid)
 
     chunk = freq_chunk(n, nw)
-    outs = [_remat(one_chunk, slice(lo, min(lo + chunk, nw)), R_pot, R_dn)
-            for lo in range(0, nw, chunk)]
+    outs = []
+    for lo in range(0, nw, chunk):
+        with span("chunk"):
+            outs.append(_remat(one_chunk, slice(lo, min(lo + chunk, nw)), R_pot, R_dn))
     A, B, Fr, Fi, resid = (torch.cat(parts) for parts in zip(*outs))
     return A, B, Cx(Fr, Fi), resid
 
@@ -1099,7 +1112,9 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
     precision, ``N_REFINE``, the wave tables and the hash of the route's
     sources: a result of the plain version is never served to a call on the
     card's kernels, nor a bf16 result to an f32 call.  Nothing here asks for
-    the host compiler (the native solver's keys name ``g++``'s version)."""
+    the host compiler (the native solver's keys name ``g++``'s version).
+    The span ``bem_stage`` times the staging of the padded mesh, the
+    inputs and the tables on ``device``."""
     from raft_tpu_torch.hydro import native_bem
 
     dev = resolve_device(device)
@@ -1138,12 +1153,14 @@ def solve_bem_jax(panels: np.ndarray, w, rho: float = 1025.0, g: float = 9.81,
                 return out + (diagnostics(float(hit["resid"].max()), True),)
             return out
 
-    padded, panel_mask, lid_mask = pad_mesh(panels, lid)
-    staged = stage_inputs(padded, panel_mask, lid_mask, w_np, betas,
-                          wavetable.fd_fit_grid(w_np, depth_f, g), finite_depth=finite_depth,
-                          dtype=dtype, device=dev)
+    with span("bem_stage"):
+        padded, panel_mask, lid_mask = pad_mesh(panels, lid)
+        staged = stage_inputs(padded, panel_mask, lid_mask, w_np, betas,
+                              wavetable.fd_fit_grid(w_np, depth_f, g),
+                              finite_depth=finite_depth, dtype=dtype, device=dev)
+        tab_d = stage_tables(tab, dtype, dev)
     A6, B6, F_cx, resid = solve_panels(
-        **staged, tab=stage_tables(tab, dtype, dev), rho=float(rho), g=float(g),
+        **staged, tab=tab_d, rho=float(rho), g=float(g),
         depth=float(depth_f if finite_depth else 0.0), finite_depth=finite_depth,
         assembly=route, precision=prec, dtype=dtype, device=dev)
     A = A6.double().cpu().numpy().transpose(1, 2, 0)              # (6, 6, nw)

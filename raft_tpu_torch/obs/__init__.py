@@ -3,8 +3,8 @@ per-kernel performance ledger (port of ``raft_tpu.obs``).
 
 * :mod:`raft_tpu_torch.obs.trace` — thread-safe nested span tracing with
   request-scoped trace ids that cross threads (context tokens +
-  synthetic request tracks) and a Chrome trace-event exporter; a span
-  with ``jax_trace=True`` also opens a ``torch.profiler`` range;
+  synthetic request tracks) and a Chrome trace-event exporter; while a
+  ``torch.profiler`` records, every span is also a profiler range;
 * :mod:`raft_tpu_torch.obs.metrics` — process-wide counters, gauges,
   log-bucket latency histograms with deterministic quantiles, and
   sliding-window SLO histograms on an injectable clock;

@@ -23,6 +23,9 @@ event per track; load the file in Perfetto or ``chrome://tracing`` —
 children nest by time containment per thread track), and
 :func:`rollup` is the machine-readable per-name summary a run report
 embeds (:func:`raft_tpu_torch.obs.export.obs_block`).  All host-side: a span never changes what the device computes.
+While a ``torch.profiler`` records, every span is also a profiler range
+under its full path (:func:`span`), so a profile names the host work
+around the device's idle gaps by the program's own spans.
 
 **Trace context (request-scoped tracing).**  A span tree that follows
 one *request* crosses threads: the client submits on one, a connection
@@ -48,6 +51,7 @@ import dataclasses
 import hashlib
 import itertools
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -186,7 +190,7 @@ def record(full: str, t0_ns: int, t1_ns: int, depth: int = 0,
         dur_us=end_us - t0_us,
         tid=tid,
         depth=depth,
-        attrs=tuple(sorted(attrs.items())) if attrs else (),
+        attrs=tuple(sorted(attrs.items())) if attrs is not None else (),
         trace=current_trace() if trace is None else trace,
         track=track or "",
     )
@@ -206,13 +210,15 @@ def record(full: str, t0_ns: int, t1_ns: int, depth: int = 0,
 
 
 @contextlib.contextmanager
-def span(name: str, jax_trace: bool = False, attrs: dict | None = None):
+def span(name: str, attrs: dict | None = None):
     """Time a named region (nested names join with '/', per thread).
 
-    ``jax_trace=True`` (the JAX package's keyword, kept) additionally
-    opens ``torch.profiler.record_function(full)``, so the region shows
-    as a named range in a ``torch.profiler`` trace, beside the kernels it
-    launched (it shows only while a profiler is active).
+    While a ``torch.profiler`` records, the span also opens
+    ``torch.profiler.record_function`` under its full nested path, so the
+    region is a ``user_annotation`` range on the profiler's clock, beside
+    the kernels it launched; otherwise it never enters ``record_function``
+    (whose cost, with no profiler, is about a whole span's).  The check
+    reads torch only once torch is loaded: a span never loads it.
     ``attrs`` is a small dict of static labels carried into the Chrome
     trace event's ``args`` (chunk index, bucket signature, ...).
 
@@ -224,17 +230,20 @@ def span(name: str, jax_trace: bool = False, attrs: dict | None = None):
     st = _stack()
     full = "/".join([*st, name])
     st.append(name)
-    ctx = contextlib.nullcontext()
-    if jax_trace:
+    rng = None
+    torch = sys.modules.get("torch")
+    if torch is not None and torch._C._autograd._profiler_enabled():
         from torch.profiler import record_function
 
-        ctx = record_function(full)
+        rng = record_function(full)
+        rng.__enter__()
     t0 = time.perf_counter_ns()
     try:
-        with ctx:
-            yield
+        yield
     finally:
         t1 = time.perf_counter_ns()
+        if rng is not None:
+            rng.__exit__(None, None, None)
         st.pop()
         record(full, t0, t1, depth=len(st), attrs=attrs)
 

@@ -33,6 +33,7 @@ import torch
 from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.device import resolve_device
 from raft_tpu_torch.core.types import Env, MemberSet, RNA, WaveState
+from raft_tpu_torch.obs.trace import span
 from raft_tpu_torch.parallel.sweep import (_bem_device_layout, _stage_heading_rows, _stage_zeta,
                                            forward_response, scale_diameters)
 
@@ -153,10 +154,12 @@ def _theta(theta, dtype, dev) -> Tensor:
 
 
 def _value_and_grad(loss, theta: Tensor):
-    """(objective, d sum(objective) / d theta), both detached."""
+    """(objective, d sum(objective) / d theta), both detached; the reverse
+    pass in the span ``backward``."""
     th = theta.detach().requires_grad_(True)
     val = loss(th)
-    (g,) = torch.autograd.grad(val.sum(), th)
+    with span("backward"):
+        (g,) = torch.autograd.grad(val.sum(), th)
     return val.detach(), g
 
 

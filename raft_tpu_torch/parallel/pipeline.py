@@ -349,7 +349,7 @@ def run_pipelined(fn, items, *, depth: int | None = None, stage=None,
             donated = [weakref.ref(t) for t in leaves]
             del leaves
         t_disp = time.perf_counter()
-        with _obs.trace.span("pipeline/dispatch", jax_trace=True, attrs={"chunk": k}):
+        with _obs.trace.span("pipeline/dispatch", attrs={"chunk": k}):
             out = fn(*staged) if isinstance(staged, tuple) else fn(staged)
         # the executor's own references to the staged chunk end here
         staged = None

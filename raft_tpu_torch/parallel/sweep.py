@@ -60,6 +60,7 @@ from raft_tpu_torch.core.types import Env, MemberSet, RNA, WaveState
 from raft_tpu_torch.core.waves import jonswap, spreading_weights, wave_number
 from raft_tpu_torch.hydro.strip import node_kinematics, strip_added_mass, strip_excitation
 from raft_tpu_torch.mooring.system import mooring_stiffness, parse_mooring
+from raft_tpu_torch.obs.trace import span
 from raft_tpu_torch.parallel import multihost as _mh
 from raft_tpu_torch.parallel.geometry import make_scale_plan, make_stretch_draft
 from raft_tpu_torch.solve.dynamics import LinearCoeffs, RAOResult, solve_dynamics
@@ -207,6 +208,10 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     ``bem``) hold this rank's shard of a frequency grid sharded over
     ``axis`` (``solve_dynamics(axis=...)``): the JAX package's
     ``_local_freq_solve``.
+
+    Spans: ``forward`` around the whole, with ``statics``, ``strip`` (the
+    strip hydro: kinematics, added mass, excitation) and ``dynamics``
+    (:func:`~raft_tpu_torch.solve.dynamics.solve_dynamics`) inside.
     """
     dev = resolve_device(device)
     require_on(dev, dtype, node_r=members.node_r, w=wave.w, zeta=wave.zeta, C_moor=C_moor)
@@ -219,21 +224,24 @@ def forward_response(members: MemberSet, rna: RNA, env: Env, wave: WaveState,
     if wave.beta is not None:
         env = dataclasses.replace(env, beta=wave.beta)
     exclude = bem is not None
-    stat = assemble_statics(members, rna, env)
-    kin = node_kinematics(members, wave, env)
-    A = strip_added_mass(members, env, exclude_potmod=exclude)
-    F = strip_excitation(members, kin, env, exclude_potmod=exclude)
-    if bem is not None:
-        F = F + bem[2]
-    MA = stat.M_struc + A
-    M = MA[..., None, :, :].expand(*F.re.shape[:-2], nw, 6, 6)
-    B = torch.zeros_like(M)
-    if bem is not None:
-        M = M + bem[0]
-        B = B + bem[1]
-    lin = LinearCoeffs(M=M, B=B, C=stat.C_struc + stat.C_hydro + C_moor, F=F)
-    return solve_dynamics(members, kin, wave, env, lin, n_iter=n_iter, relax=relax,
-                          method=method, remat=remat, tik=tik, axis=axis)
+    with span("forward"):
+        with span("statics"):
+            stat = assemble_statics(members, rna, env)
+        with span("strip"):
+            kin = node_kinematics(members, wave, env)
+            A = strip_added_mass(members, env, exclude_potmod=exclude)
+            F = strip_excitation(members, kin, env, exclude_potmod=exclude)
+        if bem is not None:
+            F = F + bem[2]
+        MA = stat.M_struc + A
+        M = MA[..., None, :, :].expand(*F.re.shape[:-2], nw, 6, 6)
+        B = torch.zeros_like(M)
+        if bem is not None:
+            M = M + bem[0]
+            B = B + bem[1]
+        lin = LinearCoeffs(M=M, B=B, C=stat.C_struc + stat.C_hydro + C_moor, F=F)
+        return solve_dynamics(members, kin, wave, env, lin, n_iter=n_iter, relax=relax,
+                              method=method, remat=remat, tik=tik, axis=axis)
 
 
 def response_std(Xi_abs2: Tensor, w: Tensor) -> Tensor:
@@ -903,13 +911,10 @@ def _sig_label(sig) -> str:
 
 def _record_bucket_metrics(_obs, batch, B, dispatch_s) -> None:
     """Per-bucket registry feed of one :func:`_sweep_designs_bucket`
-    dispatch: the latency histogram (one per bucket signature), the
-    mixed-stream throughput gauge (lanes x physical bins per second) and
-    the lane counter."""
+    dispatch: the latency histogram (one per bucket signature) and the
+    lane counter."""
     label = _sig_label(batch.sig)
     _obs.metrics.histogram(f"sweep_designs.dispatch_s[{label}]").observe(dispatch_s)
-    if dispatch_s > 0:
-        _obs.metrics.gauge("sweep_designs.solves_per_s").set(B * batch.nw / dispatch_s)
     _obs.metrics.counter("sweep_designs.lanes").inc(B)
 
 
@@ -1299,22 +1304,25 @@ def sweep_north_star(n_designs: int = 1000, nw: int = 200, chunk: int = 250,
     the escalation ladder, each rung a single-lane ``while`` solve, and
     the block is returned under ``"resilience"``.  With any of the three
     the result gains the ``"pipeline"`` block (and ``"checkpoint"`` when
-    a store was used); without them it is what it always was.
+    a store was used); without them it is what it always was.  The span
+    ``rebuild`` times the per-call set-up before the chunks (design,
+    mooring stiffness, the BEM cast, the draft and plan warps, the grid).
     """
     from raft_tpu_torch.parallel import pipeline as _pipe
     from raft_tpu_torch.resilience import checkpoint as _ckpt
 
     dev = resolve_device(device)
-    _design, members, rna, env, wave, C_moor = _volturnus(nw, dtype, dev)
-    if bem is not None:
-        A, B, F = bem
-        bem = (A.to(dtype), B.to(dtype), Cx(F.re.to(dtype), F.im.to(dtype)))
-    draft = make_stretch_draft(members)
-    plan = make_scale_plan(members)
+    with span("rebuild"):
+        _design, members, rna, env, wave, C_moor = _volturnus(nw, dtype, dev)
+        if bem is not None:
+            A, B, F = bem
+            bem = (A.to(dtype), B.to(dtype), Cx(F.re.to(dtype), F.im.to(dtype)))
+        draft = make_stretch_draft(members)
+        plan = make_scale_plan(members)
 
-    grid = north_star_grid(n_designs)
-    if lanes is not None:
-        grid = grid[lanes]
+        grid = north_star_grid(n_designs)
+        if lanes is not None:
+            grid = grid[lanes]
     n = grid.shape[0]
 
     def solve(th, n_it=n_iter, relax=0.8, tik=0.0):

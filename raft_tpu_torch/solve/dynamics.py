@@ -19,6 +19,13 @@ single design, ``(B,)`` for a design batch).  Two loops share one step:
   ``jax.checkpoint``) instead of keeping its intermediates.
 
 On CPU tensors both take K1's plain version.
+
+Spans (:mod:`raft_tpu_torch.obs.trace`): ``dynamics`` around the solve,
+one ``step`` per fixed-point step in either loop, with ``drag`` (the
+linearization) and ``solve`` (K1) inside; in the ``while`` loop one
+``exit_test`` per pass beside the steps (the steps plus the last, failing
+test), the loop's one host wait; the final linearization is a ``drag``
+directly under ``dynamics``.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from raft_tpu_torch.core.cuda6 import solve_rao, solve_rao_ad
 from raft_tpu_torch.core.types import Env, MemberSet, WaveState
 from raft_tpu_torch.hydro.strip import StripKin, linearized_drag
 from raft_tpu_torch.core.collectives import pmax
+from raft_tpu_torch.obs.trace import span
 
 Tensor = torch.Tensor
 
@@ -103,82 +111,91 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
     """
     if method not in ("while", "scan"):
         raise ValueError(f"unknown method {method!r}")
-    nw = wave.w.shape[-1]
-    dtype, dev = lin.C.dtype, lin.C.device
-    lead = tuple(lin.F.re.shape[:-2])
+    with span("dynamics"):
+        nw = wave.w.shape[-1]
+        dtype, dev = lin.C.dtype, lin.C.device
+        lead = tuple(lin.F.re.shape[:-2])
 
-    Xi0 = Cx(torch.full(lead + (nw, 6), 0.1, dtype=dtype, device=dev),
-             torch.zeros(lead + (nw, 6), dtype=dtype, device=dev))
-    if wave.freq_mask is not None:
-        Xi0 = Cx(Xi0.re * wave.freq_mask[..., None].to(dtype), Xi0.im)
-    Z0 = impedance(wave.w, lin.M, lin.B, lin.C)
-    if tik:
-        d_re = torch.diagonal(Z0.re, dim1=-2, dim2=-1)
-        dmag = torch.sqrt(d_re**2 + torch.diagonal(Z0.im, dim1=-2, dim2=-1) ** 2)
-        lam = tik * torch.amax(dmag, dim=-1)
-        shift = torch.where(d_re >= 0, 1.0, -1.0).to(dtype) * lam[..., None]
-        Z0 = Cx(Z0.re + shift[..., None] * torch.eye(6, dtype=dtype, device=dev), Z0.im)
+        Xi0 = Cx(torch.full(lead + (nw, 6), 0.1, dtype=dtype, device=dev),
+                 torch.zeros(lead + (nw, 6), dtype=dtype, device=dev))
+        if wave.freq_mask is not None:
+            Xi0 = Cx(Xi0.re * wave.freq_mask[..., None].to(dtype), Xi0.im)
+        Z0 = impedance(wave.w, lin.M, lin.B, lin.C)
+        if tik:
+            d_re = torch.diagonal(Z0.re, dim1=-2, dim2=-1)
+            dmag = torch.sqrt(d_re**2 + torch.diagonal(Z0.im, dim1=-2, dim2=-1) ** 2)
+            lam = tik * torch.amax(dmag, dim=-1)
+            shift = torch.where(d_re >= 0, 1.0, -1.0).to(dtype) * lam[..., None]
+            Z0 = Cx(Z0.re + shift[..., None] * torch.eye(6, dtype=dtype, device=dev), Z0.im)
 
-    done = torch.zeros(lead, dtype=torch.bool, device=dev)
-    count = torch.zeros(lead, dtype=torch.int32, device=dev)
-    hist = (torch.full(lead + (n_iter,), float("nan"), dtype=dtype, device=dev)
-            if history else None)
+        done = torch.zeros(lead, dtype=torch.bool, device=dev)
+        count = torch.zeros(lead, dtype=torch.int32, device=dev)
+        hist = (torch.full(lead + (n_iter,), float("nan"), dtype=dtype, device=dev)
+                if history else None)
 
-    def log_error(hist, err, live, count):
-        """Write each live lane's error at its own iteration index."""
-        idx = torch.clamp(count, max=n_iter - 1).long()[..., None]
-        cur = hist.gather(-1, idx)
-        return hist.scatter(-1, idx, torch.where(live[..., None], err[..., None], cur))
+        def log_error(hist, err, live, count):
+            """Write each live lane's error at its own iteration index."""
+            idx = torch.clamp(count, max=n_iter - 1).long()[..., None]
+            cur = hist.gather(-1, idx)
+            return hist.scatter(-1, idx, torch.where(live[..., None], err[..., None], cur))
 
-    if method == "while":
-        Xi_last, Xi_out = Xi0, Xi0
-        while True:
-            active = ~done & (count < n_iter)
-            if not bool(active.any()):
-                break
-            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
-            Xi = solve_rao(Z0, wave.w, B_drag, lin.F + F_drag)
-            err = _error(Xi, Xi_last, tol)
-            if axis is not None:
-                err = pmax(err, axis)       # the host's exit test reads the group's error
-            a = active[..., None, None]
-            Xi_out = cplx.where(a, Xi, Xi_out)
-            Xi_last = cplx.where(a, Xi_last * (1.0 - relax) + Xi * relax, Xi_last)
-            if hist is not None:
-                hist = log_error(hist, err, active, count)
-            count = count + active.to(count.dtype)
-            done = done | (active & (err < tol))
-    else:
-        def advance(last_re, last_im, out_re, out_im, done):
-            """One step with the post-convergence freeze, in the JAX
-            loop's order of selects (Xi_out, then Xi_next)."""
-            Xi_last = Cx(last_re, last_im)
-            B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
-            Xi = solve_rao_ad(Z0, wave.w, B_drag, lin.F + F_drag)
-            # only decides convergence: |.| at an exact zero would put NaN
-            # into the backward pass
-            err = _error(Cx(Xi.re.detach(), Xi.im.detach()),
-                         Cx(last_re.detach(), last_im.detach()), tol)
-            d = done[..., None, None]
-            Xi_out = cplx.where(d, Cx(out_re, out_im), Xi)
-            Xi_next = cplx.where(d, Xi_last, Xi_last * (1.0 - relax) + Xi * relax)
-            return Xi_next.re, Xi_next.im, Xi_out.re, Xi_out.im, err
+        if method == "while":
+            Xi_last, Xi_out = Xi0, Xi0
+            while True:
+                with span("exit_test"):
+                    active = ~done & (count < n_iter)
+                    if not bool(active.any()):
+                        break
+                with span("step"):
+                    with span("drag"):
+                        B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
+                    with span("solve"):
+                        Xi = solve_rao(Z0, wave.w, B_drag, lin.F + F_drag)
+                    err = _error(Xi, Xi_last, tol)
+                    if axis is not None:
+                        err = pmax(err, axis)       # the host's exit test reads the group's error
+                    a = active[..., None, None]
+                    Xi_out = cplx.where(a, Xi, Xi_out)
+                    Xi_last = cplx.where(a, Xi_last * (1.0 - relax) + Xi * relax, Xi_last)
+                    if hist is not None:
+                        hist = log_error(hist, err, active, count)
+                    count = count + active.to(count.dtype)
+                    done = done | (active & (err < tol))
+        else:
+            def advance(last_re, last_im, out_re, out_im, done):
+                """One step with the post-convergence freeze, in the JAX
+                loop's order of selects (Xi_out, then Xi_next)."""
+                Xi_last = Cx(last_re, last_im)
+                with span("drag"):
+                    B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
+                with span("solve"):
+                    Xi = solve_rao_ad(Z0, wave.w, B_drag, lin.F + F_drag)
+                # only decides convergence: |.| at an exact zero would put NaN
+                # into the backward pass
+                err = _error(Cx(Xi.re.detach(), Xi.im.detach()),
+                             Cx(last_re.detach(), last_im.detach()), tol)
+                d = done[..., None, None]
+                Xi_out = cplx.where(d, Cx(out_re, out_im), Xi)
+                Xi_next = cplx.where(d, Xi_last, Xi_last * (1.0 - relax) + Xi * relax)
+                return Xi_next.re, Xi_next.im, Xi_out.re, Xi_out.im, err
 
-        state = (Xi0.re, Xi0.im, Xi0.re, Xi0.im)
-        for _ in range(n_iter):
-            if remat:
-                *state, err = checkpoint(advance, *state, done, use_reentrant=False)
-            else:
-                *state, err = advance(*state, done)
-            if axis is not None:
-                # outside ``advance``: a recomputed step issues no MAX
-                err = pmax(err, axis)
-            if hist is not None:
-                hist = log_error(hist, err, ~done, count)
-            count = count + (~done).to(count.dtype)
-            done = done | (err < tol)
-        Xi_out = Cx(state[2], state[3])
+            state = (Xi0.re, Xi0.im, Xi0.re, Xi0.im)
+            for _ in range(n_iter):
+                with span("step"):
+                    if remat:
+                        *state, err = checkpoint(advance, *state, done, use_reentrant=False)
+                    else:
+                        *state, err = advance(*state, done)
+                    if axis is not None:
+                        # outside ``advance``: a recomputed step issues no MAX
+                        err = pmax(err, axis)
+                    if hist is not None:
+                        hist = log_error(hist, err, ~done, count)
+                    count = count + (~done).to(count.dtype)
+                    done = done | (err < tol)
+            Xi_out = Cx(state[2], state[3])
 
-    B_drag, F_drag = linearized_drag(m, kin, Xi_out, wave, env, axis=axis)
-    return RAOResult(Xi=Xi_out, n_iter=count, converged=done, B_drag=B_drag,
-                     F_drag=F_drag, err_hist=hist)
+        with span("drag"):
+            B_drag, F_drag = linearized_drag(m, kin, Xi_out, wave, env, axis=axis)
+        return RAOResult(Xi=Xi_out, n_iter=count, converged=done, B_drag=B_drag,
+                         F_drag=F_drag, err_hist=hist)

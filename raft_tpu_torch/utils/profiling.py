@@ -16,9 +16,9 @@ CUDA to find that out.
 
 :func:`torch_trace` is the counterpart of the JAX package's ``xla_trace``
 (renamed as ``jax_bem`` became ``torch_bem``): a ``torch.profiler``
-capture of the enclosed block written as a Chrome trace, in which a
-``phase(..., jax_trace=True)`` shows as a named range beside the kernels
-it launched.
+capture of the enclosed block written as a Chrome trace, in which every
+phase (every span, :func:`raft_tpu_torch.obs.trace.span`) shows as a named
+range beside the kernels it launched.
 """
 from __future__ import annotations
 
@@ -37,14 +37,13 @@ def _sync(device) -> None:
 
 
 @contextlib.contextmanager
-def phase(name: str, sync: bool = True, device=None, jax_trace: bool = False):
+def phase(name: str, sync: bool = True, device=None):
     """Time a named phase (nested names join with '/', per thread); with
     ``sync``, wait for ``device``'s queued work (the current card when
-    None) before the phase closes.  ``jax_trace=True`` (the JAX package's
-    keyword, kept) also marks the block as a ``torch.profiler`` range
-    (``obs.trace.span(jax_trace=)``), seen while a profiler runs, e.g.
-    under :func:`torch_trace`."""
-    with _trace.span(name, jax_trace=jax_trace):
+    None) before the phase closes.  While a profiler runs (e.g. under
+    :func:`torch_trace`) the phase is a ``torch.profiler`` range too, as
+    every span is."""
+    with _trace.span(name):
         yield
         if sync:
             _sync(device)

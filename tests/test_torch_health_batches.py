@@ -126,7 +126,6 @@ def test_sweep_designs_feeds_the_bucket_span_and_metrics(tmp_path, monkeypatch):
     snap = obs.snapshot()
     assert snap["counters"]["sweep_designs.lanes"] == 2
     assert snap["histograms"]["sweep_designs.dispatch_s[16x64x16]"]["count"] == 1
-    assert "sweep_designs.solves_per_s" in snap["gauges"]
     logs = [p for p in os.listdir(tmp_path) if p.startswith("obs-sweep_designs")]
     assert len(logs) == 1                      # maybe_publish wrote the sinks
     obs.reset()

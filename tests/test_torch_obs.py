@@ -5,8 +5,8 @@ The same numpy-seeded observation sequences (an injected clock for the
 sliding windows) give identical ``snapshot()``s, quantiles included, and
 identical Prometheus text; the same span sequences give the same
 ``rollup()`` names and counts and a Chrome trace of the same schema; the
-flight recorders keep and dump the same records.  Port-only: a span with
-``jax_trace=True`` opens a ``torch.profiler`` range, the sinks publish and
+flight recorders keep and dump the same records.  Port-only: every span
+opens a ``torch.profiler`` range while a profiler records, the sinks publish and
 read back, and the ``obs`` block carries the compile counts of the
 kernel-library registry (``cache/aot.py``) where the JAX package's carries
 its executable registry's.
@@ -182,16 +182,21 @@ def test_trace_context_crosses_threads():
 
 
 def test_span_with_jax_trace_opens_a_profiler_range():
-    """``jax_trace=True`` opens ``torch.profiler.record_function`` with the
-    span's full name, so the range shows in a ``torch.profiler`` trace."""
+    """While a profiler records, every span opens
+    ``torch.profiler.record_function`` with its full name, so the range
+    shows in a ``torch.profiler`` trace (the ``jax_trace`` keyword that
+    once chose which spans did is gone); a span outside the profiler opens
+    none."""
     from torch.profiler import ProfilerActivity, profile
 
+    with trace.span("before"):
+        pass
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with trace.span("outer"):
-            with trace.span("pipeline/dispatch", jax_trace=True):
+            with trace.span("pipeline/dispatch"):
                 sum(range(10))
     names = {e.name for e in prof.events()}
-    assert "outer/pipeline/dispatch" in names and "outer" not in names
+    assert {"outer", "outer/pipeline/dispatch"} <= names and "before" not in names
     assert trace.rollup()["outer/pipeline/dispatch"]["count"] == 1
 
 

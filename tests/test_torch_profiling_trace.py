@@ -1,8 +1,8 @@
 """``raft_tpu_torch.utils.profiling.torch_trace`` (the counterpart of the
 JAX package's ``xla_trace``) on the CPU: it writes a Chrome trace into its
-directory that holds the range of a ``phase(jax_trace=True)`` and the ops
-run inside it; a phase without the flag leaves no range, and both feed the
-span roll-up."""
+directory that holds the range of every phase run under it and the ops run
+inside each; a phase outside it leaves no range, and all feed the span
+roll-up."""
 import json
 
 import torch
@@ -14,8 +14,10 @@ from raft_tpu_torch.utils import profiling
 def test_torch_trace_holds_the_phase_range(tmp_path):
     profiling.reset()
     log_dir = tmp_path / "trace"
+    with utils.phase("outside_phase"):
+        torch.zeros(8).add_(1)
     with utils.torch_trace(str(log_dir)) as path:
-        with utils.phase("traced_phase", jax_trace=True):
+        with utils.phase("traced_phase"):
             x = torch.ones(64, 64)
             (x @ x).sum()
         with utils.phase("untraced_phase"):
@@ -24,11 +26,14 @@ def test_torch_trace_holds_the_phase_range(tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
-    assert "traced_phase" in names and "untraced_phase" not in names
+    # "untraced_phase" (no flag, as it once had to be) now shows too
+    assert {"traced_phase", "untraced_phase"} <= names and "outside_phase" not in names
     rng = next(e for e in events if e.get("name") == "traced_phase")
     mm = [e for e in events if e.get("name") == "aten::mm"]
     assert mm and all(rng["ts"] <= e["ts"] <= rng["ts"] + rng["dur"] for e in mm)
-    assert {"traced_phase", "untraced_phase"} <= set(profiling.totals())
+    add = next(e for e in events if e.get("name") == "untraced_phase")
+    assert rng["ts"] + rng["dur"] <= add["ts"]
+    assert {"outside_phase", "traced_phase", "untraced_phase"} <= set(profiling.totals())
     profiling.reset()
 
 
