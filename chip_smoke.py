@@ -10,8 +10,8 @@ result line):
 
 1. device: CUDA is required; prints the card's name and power limit;
 2. build: compiles kernels K1/K2 (``csrc/solve6.cu``), K3
-   (``csrc/bem_rankine.cu``) and K4 (``csrc/bem_wave.cu``; each with
-   float64, float32 and bfloat16 entries) of
+   (``csrc/bem_rankine.cu``), K4 (``csrc/bem_wave.cu``; each with
+   float64, float32 and bfloat16 entries) and K5 (``csrc/drag.cu``) of
    ``raft_tpu_torch`` with one nvcc each, all at once, prints ptxas'
    registers and spills (kept beside each library, so a run that only loads
    a built library prints them too), and builds (or loads) the BEM
@@ -24,7 +24,16 @@ result line):
    guard) and a pivot-tie batch (equal |.|^2 in the pivot column; float64
    bit for bit); the adjoint mode against the forward mode on materialized
    transposes (bit for bit); with kernel, plain-version and
-   ``torch.linalg.solve`` times beside the bound;
+   ``torch.linalg.solve`` times beside the bound; then, as phase "K5 vs
+   plain", K5 (one fixed-point step's drag linearization) against its plain
+   version at the main paths' shapes (2,048 OC3spar variants x 200
+   frequencies and 250 VolturnUS-S variants x 200 in float32, the daemon's
+   8 sea-state lanes x 100 in float64, 8 lanes sharing one design's
+   kinematics in float64): scale-relative difference within ``TOL`` (the
+   moments sum 3 x nw terms in another order, and erf and exp round
+   differently), two launches bit for bit, one launch a call, with kernel,
+   plain-version and eager ``linearized_drag`` times beside the bound and
+   the wrapper's host time a call;
 4. K2 against its plain version at ``bench.py::pallas6_microbench``'s shape
    (16,384 diagonally dominant systems) in float64 and float32, with the
    same permutation, singular, pivot-tie and adjoint-mode cases; then the
@@ -547,16 +556,17 @@ class Smoke:
     # ---------------------------------------------------------------- phases
 
     def phase_build(self):
-        from raft_tpu_torch.core import cuda6, cuda_bem, nvcc
+        from raft_tpu_torch.core import cuda6, cuda_bem, cuda_drag, nvcc
         from raft_tpu_torch.hydro import wavetable
 
         t0 = time.perf_counter()
-        nvcc.compile_all([cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE])
+        nvcc.compile_all([cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE, cuda_drag.SPEC])
         cuda6.build()
         cuda_bem.build()
-        print(f"  K1/K2, K3, K4 built in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
+        cuda_drag.build()
+        print(f"  K1/K2, K3, K4, K5 built in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
               f"parallel)")
-        for spec in (cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE):
+        for spec in (cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE, cuda_drag.SPEC):
             log = nvcc.build_log(spec)
             if log is None:
                 print(f"  ptxas {spec.name}: no log beside {spec.path().name}")
@@ -668,6 +678,103 @@ class Smoke:
                 if name == "float32" and B == 250:   # the sweep's call shape
                     self.record = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+    def _k5_inputs(self, kind: str, design: str, L: int, nw: int, dtype, rng):
+        """One solve's drag inputs as ``solve_dynamics`` gets them:
+        ``(plan, Xi, (members, kin, wave, env))`` for ``L`` seeded diameter
+        variants (``variants``), ``L`` sea states of one design (``sea``:
+        the kinematics carry the lanes, the nodes do not) or ``L`` lanes of
+        one design's kinematics (``shared``: lane stride 0)."""
+        import dataclasses
+
+        from raft_tpu_torch.core import cuda_drag
+        from raft_tpu_torch.core.cplx import Cx
+        from raft_tpu_torch.hydro import strip
+        from raft_tpu_torch.model import stage_design_base
+        from raft_tpu_torch.parallel.sweep import _apply_lanes, make_wave_states, scale_diameters
+
+        torch = self.torch
+        _, m, _, env, wave, _ = stage_design_base(str(DESIGNS / f"{design}.yaml"), nw=nw, Hs=8.0,
+                                                  Tp=12.0, w_min=0.05, w_max=2.95,
+                                                  with_mooring=False, dtype=dtype,
+                                                  device=self.dev)
+        if kind == "variants":
+            th = torch.as_tensor(rng.uniform(0.9, 1.1, L), dtype=dtype, device=self.dev)
+            m = _apply_lanes(scale_diameters, m, th)
+        elif kind == "sea":
+            rows = np.stack([rng.uniform(2.0, 10.0, L), rng.uniform(6.0, 16.0, L),
+                             rng.uniform(-0.5, 0.5, L)], axis=1)
+            waves = make_wave_states(wave.w.cpu().numpy(), rows, float(env.depth), dtype=dtype,
+                                     device=self.dev)
+            wave = dataclasses.replace(waves, w=waves.w[0], k=waves.k[0])
+            env = dataclasses.replace(env, beta=waves.beta)
+        kin = strip.node_kinematics(m, wave, env)
+        shape = (L, nw, 6)
+        Xi = Cx(torch.as_tensor(0.3 * rng.normal(size=shape), dtype=dtype, device=self.dev),
+                torch.as_tensor(0.3 * rng.normal(size=shape), dtype=dtype, device=self.dev))
+        p = cuda_drag.plan(strip.drag_coeffs(m, env), kin.u, wave.w, (L,))
+        return p, Xi, (m, kin, wave, env)
+
+    def phase_k5(self):
+        from raft_tpu_torch.core import cuda_drag
+        from raft_tpu_torch.core.cplx import Cx
+        from raft_tpu_torch.hydro import strip
+        from raft_tpu_torch.obs import ledger
+
+        torch = self.torch
+        rng = np.random.default_rng(20261019)
+        cases = (("OC3spar", "variants", 2048, 200, torch.float32),
+                 ("VolturnUS-S", "variants", 250, 200, torch.float32),
+                 ("VolturnUS-S", "sea", 8, 100, torch.float64),
+                 ("OC4semi", "shared", 8, 100, torch.float64))
+        for design, kind, L, nw, dtype in cases:
+            name = str(dtype).split(".")[-1]
+            label = f"K5 {name} {design} {kind} {L} x {nw}"
+            p, Xi, (m, kin, wave, env) = self._k5_inputs(kind, design, L, nw, dtype, rng)
+            n0 = cuda_drag.LAUNCHES["step"]
+            B, F = cuda_drag.drag_step(p, Xi)
+            B2, F2 = cuda_drag.drag_step(p, Xi)
+            Bp, Fp = cuda_drag.drag_step_plain(p, Xi)
+            Be, Fe = strip.linearized_drag(m, kin, Xi, wave, env)
+            torch.cuda.synchronize()
+            launched = cuda_drag.LAUNCHES["step"] - n0
+
+            def rel(got, want):
+                return (float(max((g - w).abs().max() for g, w in zip(got, want)))
+                        / float(max(w.abs().max() for w in want)))
+
+            out, plain, eager = (B, F.re, F.im), (Bp, Fp.re, Fp.im), (Be, Fe.re, Fe.im)
+            d, d_eager = rel(out, plain), rel(out, eager)
+            worst_abs = float(max((g - w).abs().max() for g, w in zip(out, plain)))
+            finite = all(bool(torch.isfinite(t).all()) for t in out)
+            same = all(torch.equal(a, b) for a, b in zip(out, (B2, F2.re, F2.im)))
+            n_sub = round(float(p.coef[..., 0].sum()) / p.coef.shape[0])
+            self.check(finite and d <= TOL[name] and launched == 2,
+                       f"{label} ({n_sub} of {p.coef.shape[1]} nodes submerged): scale-relative "
+                       f"diff to the plain version {d:.3e} (limit {TOL[name]:.0e}), one launch "
+                       f"a call; against the eager linearized_drag {d_eager:.3e}")
+            self.check(same, f"{label}: two launches give the same bits")
+            ms = self.time_ms(lambda: cuda_drag.drag_step(p, Xi))
+            plain_ms = self.time_ms(lambda: cuda_drag.drag_step_plain(p, Xi), reps=5)
+            eager_ms = self.time_ms(lambda: strip.linearized_drag(m, kin, Xi, wave, env), reps=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                cuda_drag.drag_step(p, Xi)
+            host_us = 1e6 * (time.perf_counter() - t0) / 100
+            torch.cuda.synchronize()
+            w = cuda_drag.work(L, n_sub, nw, torch.finfo(dtype).bits // 8, p.coef.shape[1],
+                               kin_lanes=p.u.re.shape[0], coef_lanes=p.coef.shape[0])
+            t_b, by = ledger.bound_s(w["flops"], w["bytes_accessed"], "NVIDIA H100", name)
+            print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, eager "
+                  f"linearized_drag {eager_ms:.4f} ms, bound {1e3 * t_b:.4f} ms ({by}, "
+                  f"{w['bytes_accessed'] / 1e6:.1f} MB); wrapper {host_us:.1f} us of host a "
+                  f"call; max abs diff {worst_abs:.3e}")
+            if design == "OC3spar":                 # the wide sweep's call shape
+                self.records["drag"] = {"max_abs_err": worst_abs, "ms": ms,
+                                        "plain_ms": plain_ms, "bound_ms": 1e3 * t_b,
+                                        "bound_by": by, "library_ms": None}
+            del p, Xi, m, kin, B, F, B2, F2, Bp, Fp, Be, Fe
 
     def _k2_inputs(self, case: str, n: int, dtype, rng):
         """``bench.py::pallas6_microbench``'s systems (diagonally dominant:
@@ -1112,7 +1219,7 @@ class Smoke:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = self.counts()["fused"]
-        self.add_main(self.counts(), ("fused",))
+        self.add_main(self.counts(), ("fused", "step"))
         self.record["launches"] = launches
         self.record["sweep_wall_ms"] = 1e3 * wall
         peak = torch.cuda.max_memory_allocated()
@@ -1140,15 +1247,15 @@ class Smoke:
                    "16-lane subset: kernel == plain (identical iterations, std 1e-10)")
 
     def counts(self) -> dict:
-        """Every kernel wrapper's launch count, by entry."""
-        from raft_tpu_torch.core import cuda6, cuda_bem
+        """Every kernel wrapper's launch count, by entry (K5's is ``step``)."""
+        from raft_tpu_torch.core import cuda6, cuda_bem, cuda_drag
 
-        return {**cuda6.LAUNCHES, **cuda_bem.LAUNCHES}
+        return {**cuda6.LAUNCHES, **cuda_bem.LAUNCHES, **cuda_drag.LAUNCHES}
 
     def zero_counts(self):
-        from raft_tpu_torch.core import cuda6, cuda_bem
+        from raft_tpu_torch.core import cuda6, cuda_bem, cuda_drag
 
-        for counts in (cuda6.LAUNCHES, cuda_bem.LAUNCHES):
+        for counts in (cuda6.LAUNCHES, cuda_bem.LAUNCHES, cuda_drag.LAUNCHES):
             counts.update(dict.fromkeys(counts, 0))
 
     def _model(self, design, dtype, full: bool = True):
@@ -1258,8 +1365,9 @@ class Smoke:
                                device="cuda", bem=staged)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: v for k, v in self.counts().items() if k in ("fused", "rankine", "wave")}
-        self.add_main(launches, ("fused", "rankine", "wave"))
+        launches = {k: v for k, v in self.counts().items()
+                    if k in ("fused", "rankine", "wave", "step")}
+        self.add_main(launches, ("fused", "rankine", "wave", "step"))
         self.staged = staged
         self.staged_std = res["std"]
         peak = torch.cuda.max_memory_allocated()
@@ -1436,8 +1544,9 @@ class Smoke:
         print(line)
         self.check(n_conv == n and bool(torch.isfinite(std).all())
                    and sweep_launches.get("fused", 0) > 0
-                   and set(sweep_launches) == {"fused"},
-                   f"native-staged sweep: {n_conv}/{n} lanes converged, all finite, K1 launched")
+                   and set(sweep_launches) == {"fused", "step"},
+                   f"native-staged sweep: {n_conv}/{n} lanes converged, all finite, K1 and K5 "
+                   f"launched")
         self.native_coeffs = diag["coeffs"]
         self.native_staged = staged
         self.record_native = {"stage_s": t_native, "solve_s": diag["seconds"], "cores": cores,
@@ -1499,7 +1608,7 @@ class Smoke:
         total = time.perf_counter() - t_all
         launches = self.counts()
         peak = torch.cuda.max_memory_allocated()
-        self.add_main(launches, ("fused", "fused_adjoint"))
+        self.add_main(launches, ("fused", "fused_adjoint", "step"))
         grad = torch.cat(grads)
         loss = _make_loss(members, rna, env, wave, C, nacelle_accel_std, apply_fn, bem, n_iter,
                           False, dtype=torch.float32, device=self.dev)
@@ -1746,7 +1855,7 @@ class Smoke:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = self.counts()
-        self.add_main(launches, ("fused", "fused_adjoint"))
+        self.add_main(launches, ("fused", "fused_adjoint", "step"))
         v32 = float(res.history[0])
         g32 = float(np.sign(res.thetas[0] - res.thetas[1])) * float(res.grad_norm)
         dv32, d32 = abs(v32 - v64) / abs(v64), abs(g32 - g64) / abs(g64)
@@ -1799,7 +1908,7 @@ class Smoke:
                                device=self.dev)
         wall = time.perf_counter() - t0
         launches = self.counts()
-        self.add_main(launches, ("fused", "rankine", "wave"))
+        self.add_main(launches, ("fused", "rankine", "wave", "step"))
         it = res["iterations"]
         print(f"  DLC table: calcBEM 200 w x 7 headings float64 {t_bem:.2f} s (max refinement "
               f"residual {m.bem_diagnostics['max_residual']:.2e}); sweep_sea_states "
@@ -1913,7 +2022,7 @@ class Smoke:
         res = run()                                   # numpy out: ends in a synchronise
         wall = time.perf_counter() - t0
         launches = self.counts()
-        self.add_main(launches, ("fused",))
+        self.add_main(launches, ("fused", "step"))
         it, std = res["iterations"], res["std dev"]
         conv = int((it < n_iter).sum())
         print(f"  variant sweep OC3spar {n} x {nw} float32: staging {t_stage:.3f} s, sweep "
@@ -1998,7 +2107,7 @@ class Smoke:
         res = run()
         wall = time.perf_counter() - t0
         launches = self.counts()
-        self.add_main(launches, ("fused",))
+        self.add_main(launches, ("fused", "step"))
         bk, it, std = res["buckets"], res["iterations"], res["std dev"]
         conv = int((it < n_iter).sum())
         fam = it.reshape(4, -1)
@@ -2078,7 +2187,7 @@ class Smoke:
                               dtype=torch.float32, device=self.dev)
         wall_b = time.perf_counter() - t0
         launches = self.counts()
-        self.add_main(launches, ("fused",))
+        self.add_main(launches, ("fused", "step"))
         it_b = res_b["iterations"]
         conv_b = int((it_b < n_iter).sum())
         print(f"  {len(vus)} VolturnUS-S designs with the nominal hull's BEM ({'native' if self.native_coeffs is not None else 'card'} "
@@ -2211,7 +2320,7 @@ class Smoke:
             t0 = time.perf_counter()
             res_h = sweep_north_star(**kw, pipeline_depth=2, health=True)
             wall_h = time.perf_counter() - t0
-            self.add_main(self.counts(), ("fused",))
+            self.add_main(self.counts(), ("fused", "step"))
         finally:
             os.environ.pop("RAFT_TPU_STRICT", None)
         rz = res_h["resilience"]
@@ -2255,7 +2364,7 @@ class Smoke:
             mixed = sweep_designs(**mix, chunk=self.chunk, pipeline_depth=2)
             t_mixed_chunked = time.perf_counter() - t0
             launches = self.counts()
-            self.add_main(launches, ("fused",))
+            self.add_main(launches, ("fused", "step"))
             paths = obs.publish("operations")
         finally:
             os.environ.pop("RAFT_TPU_OBS", None)
@@ -2325,7 +2434,7 @@ class Smoke:
             nan = sweep_sea_states(members, rna, env, waves, C, chunk=16, **dlc)
             t_nan = time.perf_counter() - t0
             launches = self.counts()
-            self.add_main(launches, ("fused",))
+            self.add_main(launches, ("fused", "step"))
         finally:
             os.environ.pop("RAFT_TPU_FAULT_INJECT", None)
         hn = nan["health"]
@@ -2582,7 +2691,7 @@ class Smoke:
                 seq_out = loadgen.run_sequential(cl, 12, 400.0, **sched)
             torch.cuda.synchronize()
             launches = self.counts()
-            self.add_main(launches, ("fused",))
+            self.add_main(launches, ("fused", "step"))
             print(f"  mixed stream: 24 solve + 1 dlc (8 lanes) + 1 sweep (3 lanes), cold "
                   f"staging included: {t_mixed:.3f} s; K1 launches in the served path "
                   f"{launches['fused']}")
@@ -2753,7 +2862,7 @@ class Smoke:
             torch.cuda.synchronize()
             times[step] = time.perf_counter() - t0
         launches = self.counts()
-        self.add_main(launches, ("fused", "rankine", "wave"))
+        self.add_main(launches, ("fused", "rankine", "wave", "step"))
         resp = farm.results["response"]
         n_chunks = -(-len(farm.w) // 2)
         print(f"  farm of {len(pos)} VolturnUS-S, BEM='jax' ({farm.bem_diagnostics['panels']} panels -> "
@@ -2939,7 +3048,7 @@ class Smoke:
             self.zero_counts()
             got = ns(mesh)
             k_sharded = self.counts()["fused"]
-            self.add_main(self.counts(), ("fused",))
+            self.add_main(self.counts(), ("fused", "step"))
             self.zero_counts()
             want = ns()
             k_plain = self.counts()["fused"]
@@ -2975,7 +3084,7 @@ class Smoke:
             self.zero_counts()
             out_s = fs()
             k_fs = self.counts()["fused"]
-            self.add_main(self.counts(), ("fused",))
+            self.add_main(self.counts(), ("fused", "step"))
             out_u = fu()
             with plain_solve():
                 out_p = fs()
@@ -3018,7 +3127,7 @@ class Smoke:
             self.zero_counts()
             dp = forward_response_dp_sp(m64, rna64, env64, wave64, C64, th4, mesh2, bem=bem,
                                         device=self.dev)
-            self.add_main(self.counts(), ("fused",))
+            self.add_main(self.counts(), ("fused", "step"))
             with torch.no_grad():
                 ref = forward_response(
                     _apply_lanes(scale_diameters, m64, torch.as_tensor(th4, device=self.dev)),
@@ -3036,7 +3145,7 @@ class Smoke:
             self.zero_counts()
             dlc_s = sweep_sea_states(mem, rna_, env_, waves, C_, bem=self.dlc_grid, n_iter=25,
                                      mesh=mesh, dtype=f64, device=self.dev)
-            self.add_main(self.counts(), ("fused",))
+            self.add_main(self.counts(), ("fused", "step"))
             dlc_u = sweep_sea_states(mem, rna_, env_, waves, C_, bem=self.dlc_grid, n_iter=25,
                                      dtype=f64, device=self.dev)
             d_dlc = max(float(np.abs(dlc_s[k] - dlc_u[k]).max() / np.abs(dlc_u[k]).max())
@@ -3057,7 +3166,7 @@ class Smoke:
             self.zero_counts()
             mix_s = sweep_designs(staged=staged, n_iter=25, return_xi=False, mesh=mesh,
                                   dtype=f32, device=self.dev)
-            self.add_main(self.counts(), ("fused",))
+            self.add_main(self.counts(), ("fused", "step"))
             mix_u = sweep_designs(staged=staged, n_iter=25, return_xi=False, dtype=f32,
                                   device=self.dev)
             print(f"  sweep_designs(mesh=) {len(mix_s['designs'])} designs in "
@@ -3077,7 +3186,7 @@ class Smoke:
                    if isinstance(v, np.ndarray)}
             self.zero_counts()
             farm.solveDynamics(mesh=mesh)
-            self.add_main(self.counts(), ("fused",))
+            self.add_main(self.counts(), ("fused", "step"))
             r_s = farm.results["response"]
             print(f"  ArrayModel(4 VolturnUS-S).solveDynamics(mesh=) float64: iterations "
                   f"{r_s['iterations'].tolist()}, bit for bit {same(r_s, r_u)}")
@@ -3143,7 +3252,7 @@ class Smoke:
             self.zero_counts()
             reports = audit.run_audit(device="cuda")
             probe = audit.backward_probe(device="cuda")
-            self.add_main(self.counts(), ("fused", "fused_adjoint", "rankine", "wave"))
+            self.add_main(self.counts(), ("fused", "fused_adjoint", "rankine", "wave", "step"))
             t2 = time.perf_counter()
         finally:
             rc, rep, wall, err = self._cli_wait(races, timeout=300)
@@ -3548,7 +3657,7 @@ class Smoke:
                     t_in = time.perf_counter() - t0
                     launches = {k: v for k, v in self.counts().items() if v}
                     self.add_main(self.counts(), ("fused", "rankine", "wave", "rankine_bf16",
-                                                  "wave_bf16"))
+                                                  "wave_bf16", "step"))
                 finally:
                     cache.disable()             # main enabled the cache at this run's root
                     for k, v in saved.items():
@@ -3556,8 +3665,8 @@ class Smoke:
                             os.environ.pop(k, None)
                         else:
                             os.environ[k] = v
-                want = ({"rankine_bf16", "wave_bf16", "fused"} if prec == "bf16"
-                        else {"rankine", "wave", "fused"})
+                want = ({"rankine_bf16", "wave_bf16", "fused", "step"} if prec == "bf16"
+                        else {"rankine", "wave", "fused", "step"})
                 if prec == "bf16":
                     # the f32 subprocess below measures the CLI's start-up; a
                     # second one at bf16 would repeat it
@@ -3945,7 +4054,7 @@ class Smoke:
                         sweep_designs(design_paths(), n_iter=8, return_xi=False,
                                       device=self.dev, **stage_kw(200))
                 launched = self.counts()["fused"]
-                self.add_main(self.counts(), ("fused",))
+                self.add_main(self.counts(), ("fused", "step"))
                 with open(path) as f:
                     events = json.load(f)["traceEvents"]
             steps = {k: f.result() for k, f in futs.items()}
@@ -4200,6 +4309,7 @@ class Smoke:
         torch = self.torch
         # solve6_kernel<T, FUSED, ADJOINT>: K1 is FUSED, forward and adjoint
         K1, K3, K4 = ("solve6_kernel", ", true, "), ("rankine_kernel",), ("wave_kernel",)
+        K5 = ("drag_kernel",)
 
         def strip():
             sweep_north_star(n_designs=1000, nw=200, chunk=250, n_iter=40,
@@ -4223,8 +4333,10 @@ class Smoke:
             with record_function("codesign backward"):
                 torch.autograd.grad(val.sum(), t)
 
-        self._profile("strip sweep", strip, {"K1": K1}, (self.record, ("sweep_wall_ms",)))
-        self._profile("BEM staging + BEM-staged sweep", bem, {"K1": K1, "K3": K3, "K4": K4},
+        self._profile("strip sweep", strip, {"K1": K1, "K5": K5},
+                      (self.record, ("sweep_wall_ms",)))
+        self._profile("BEM staging + BEM-staged sweep", bem,
+                      {"K1": K1, "K3": K3, "K4": K4, "K5": K5},
                       (self.record_bem, ("stage_ms", "sweep_wall_ms")))
         label = f"co-design gradient, one chunk of {self.chunk} x {self.nw}"
         n_dev = self._profile(label, grad_chunk, {"K1": K1}, (self.record_grad, ("chunk_ms",)),
@@ -4281,6 +4393,7 @@ class Smoke:
         self.check(torch.backends.cuda.matmul.allow_tf32 is False,
                    "TF32 matmul is off (PyTorch's default; the port never turns it on)")
         phases = [("build", self.phase_build), ("K1 vs plain", self.phase_k1),
+                  ("K5 vs plain", self.phase_k5),
                   ("K2 vs plain", self.phase_k2), ("K2 microbench", self.phase_k2_microbench),
                   ("adjoints", self.phase_adjoint),
                   ("gradient guard", self.phase_grad_guard),
@@ -4366,6 +4479,10 @@ class Smoke:
              "replaces": "raft_tpu/core/pallas_bem.py:255",
              "launches": self.main_launches["wave_bf16"],
              **{k: self.records["wave_bf16"][k] for k in fields}},
+            {"name": "drag_step", "route": "cuda", "source": "raft_tpu_torch/csrc/drag.cu",
+             "replaces": "no TPU kernel: the jnp ops of raft_tpu/hydro/strip.py::linearized_drag",
+             "launches": self.main_launches["step"],
+             **{k: self.records["drag"][k] for k in fields}},
         ]
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi())

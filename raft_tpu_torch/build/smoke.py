@@ -65,7 +65,7 @@ def _child(argv) -> None:
 
     from raft_tpu_torch import cache
     from raft_tpu_torch.cache import aot
-    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.core import cuda6, cuda_drag
     from raft_tpu_torch.core.device import resolve_device
     from raft_tpu_torch.model import stage_design_base
     from raft_tpu_torch.parallel.sweep import forward_response, response_std, sweep_designs
@@ -109,7 +109,7 @@ def smoke(argv) -> int:
     args = p.parse_args(argv)
 
     from raft_tpu_torch.cache import aot
-    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.core import cuda6, cuda_drag
     from raft_tpu_torch.core.device import resolve_device
     from raft_tpu_torch.evidence import run_child
 
@@ -119,7 +119,7 @@ def smoke(argv) -> int:
         print(f"raft_tpu_torch.build.smoke: {e}", file=sys.stderr)
         return 2
     if dev.type == "cuda":
-        aot.prepare([cuda6.SPEC])       # the children find K1's library built
+        aot.prepare([cuda6.SPEC, cuda_drag.SPEC])   # the children find K1's and K5's built
     d = args.dir or tempfile.mkdtemp(prefix="raft_tpu_torch_hetero_smoke_")
     child_args = ["child", "--nw", str(args.nw)] + (["--device", args.device]
                                                     if args.device else [])

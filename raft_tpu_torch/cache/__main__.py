@@ -90,13 +90,13 @@ def write_wamit_pair(root: str, seed: int = 5) -> tuple:
 
 def _libraries(dev) -> list:
     """The libraries a process on ``dev`` resolves: the host panel solver,
-    and on the card K1/K2, K3 and K4."""
-    from raft_tpu_torch.core import cuda6, cuda_bem
+    and on the card K1/K2, K3, K4 and K5."""
+    from raft_tpu_torch.core import cuda6, cuda_bem, cuda_drag
     from raft_tpu_torch.hydro import native_bem
 
     libs = [native_bem.LIBRARY]
     if dev.type == "cuda":
-        libs += [cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE]
+        libs += [cuda6.SPEC, cuda_bem.RANKINE, cuda_bem.WAVE, cuda_drag.SPEC]
     return libs
 
 

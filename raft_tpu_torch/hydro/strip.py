@@ -220,6 +220,26 @@ def node_motion(m: MemberSet, Xi: Cx, w: Tensor) -> Cx:
     return Cx(dr.re * w[:, None], dr.im * w[:, None]).mul_i()
 
 
+def drag_coeffs(m: MemberSet, env: Env) -> Tensor:
+    """The response-independent per-node terms of :func:`linearized_drag`,
+    packed (..., N, 20) for kernel K5 (:mod:`raft_tpu_torch.core.
+    cuda_drag`): the submerged mask (1 or 0), the current's projections
+    U_q, U_p1, U_p2, ``rho/2 area Cd`` for q, p1, p2 and the end disk, the
+    unit vectors q, p1, p2 and the node position r.  The lanes are those
+    of ``m`` and the Env's fields broadcast together."""
+    uc = node_current(m, env)
+    a_q, a_p1, a_p2, a_end = _drag_areas(m)
+    half_rho = 0.5 * per_lane(env.rho, 1)
+    scal = torch.broadcast_tensors(
+        _submerged(m).to(m.node_r.dtype),
+        (uc * m.node_q).sum(-1), (uc * m.node_p1).sum(-1), (uc * m.node_p2).sum(-1),
+        half_rho * a_q * m.node_Cd_q, half_rho * a_p1 * m.node_Cd_p1,
+        half_rho * a_p2 * m.node_Cd_p2, half_rho * a_end * m.node_Cd_end)
+    lead = tuple(scal[0].shape)
+    vecs = [v.broadcast_to(lead + (3,)) for v in (m.node_q, m.node_p1, m.node_p2, m.node_r)]
+    return torch.cat([torch.stack(scal, dim=-1), *vecs], dim=-1)
+
+
 def linearized_drag(m: MemberSet, kin: StripKin, Xi: Cx, wave: WaveState,
                     env: Env, axis=None):
     """Stochastically linearized Morison drag about the iterate Xi.

@@ -24,7 +24,8 @@ entry (:class:`AuditReport`):
   audit's ``retraces``;
 * ``ops``: the aten ops dispatched, the counterpart of ``n_eqns``;
 * on the card only: the kernel launches by name (``core/cuda6.py::
-  LAUNCHES``, ``core/cuda_bem.py::LAUNCHES``), ``peak_bytes``
+  LAUNCHES``, ``core/cuda_bem.py::LAUNCHES``, ``core/cuda_drag.py::
+  LAUNCHES``), ``peak_bytes``
   (``torch.cuda.max_memory_allocated`` during the call less what was
   allocated when it began: the call's own high-water mark, whatever the
   process holds) and ``sync_debug``,
@@ -184,10 +185,11 @@ def _counting_mode():
 
 
 def _launch_counts() -> dict:
-    from raft_tpu_torch.core import cuda6, cuda_bem
+    from raft_tpu_torch.core import cuda6, cuda_bem, cuda_drag
 
     return {**{f"k1_{k}": v for k, v in cuda6.LAUNCHES.items()},
-            **{f"bem_{k}": v for k, v in cuda_bem.LAUNCHES.items()}}
+            **{f"bem_{k}": v for k, v in cuda_bem.LAUNCHES.items()},
+            **{f"k5_{k}": v for k, v in cuda_drag.LAUNCHES.items()}}
 
 
 def _rebuild_count() -> int:

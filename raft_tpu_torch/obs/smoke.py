@@ -55,7 +55,7 @@ def _child(argv) -> None:
 
     from raft_tpu_torch import cache, obs
     from raft_tpu_torch.build.smoke import design_paths, stage_kw
-    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.core import cuda6, cuda_drag
     from raft_tpu_torch.core.device import resolve_device
     from raft_tpu_torch.model import stage_designs
     from raft_tpu_torch.parallel.sweep import sweep_designs
@@ -142,7 +142,7 @@ def smoke(argv) -> int:
     args = p.parse_args(argv)
 
     from raft_tpu_torch.cache import aot
-    from raft_tpu_torch.core import cuda6
+    from raft_tpu_torch.core import cuda6, cuda_drag
     from raft_tpu_torch.core.device import resolve_device
     from raft_tpu_torch.evidence import run_child
     from raft_tpu_torch.obs.export import read_jsonl
@@ -153,7 +153,7 @@ def smoke(argv) -> int:
         print(f"raft_tpu_torch.obs: {e}", file=sys.stderr)
         return 2
     if dev.type == "cuda":
-        aot.prepare([cuda6.SPEC])
+        aot.prepare([cuda6.SPEC, cuda_drag.SPEC])
     work = args.dir or tempfile.mkdtemp(prefix="raft_tpu_torch_obs_smoke_")
     cache_dir, obs_dir = os.path.join(work, "cache"), os.path.join(work, "obs")
     child_args = ["child", "--nw", str(args.nw)] + (["--device", args.device]

@@ -20,12 +20,28 @@ single design, ``(B,)`` for a design batch).  Two loops share one step:
 
 On CPU tensors both take K1's plain version.
 
+The drag linearization takes one of two routes, decided from the inputs:
+
+* kernel K5 (:func:`raft_tpu_torch.core.cuda_drag.drag_step`, its plain
+  version on CPU tensors), fed by the per-node coefficients that
+  :func:`~raft_tpu_torch.hydro.strip.drag_coeffs` builds once per call:
+  every solve in float32 or float64 that needs no gradient and is not
+  frequency-sharded, on a grid of at most 1,024 frequencies;
+* the differentiable :func:`~raft_tpu_torch.hydro.strip.linearized_drag`
+  in every step: when grad mode is on and an input requires grad, when
+  ``axis`` is set (the spectral moments need a SUM all-reduce between the
+  moment and the slope), in another dtype, or on a wider grid.
+
+The counters ``drag.kernel`` and ``drag.plain`` (:mod:`raft_tpu_torch.
+obs.metrics`) count the linearizations of each route.
+
 Spans (:mod:`raft_tpu_torch.obs.trace`): ``dynamics`` around the solve,
 one ``step`` per fixed-point step in either loop, with ``drag`` (the
 linearization) and ``solve`` (K1) inside; in the ``while`` loop one
 ``exit_test`` per pass beside the steps (the steps plus the last, failing
 test), the loop's one host wait; the final linearization is a ``drag``
-directly under ``dynamics``.
+directly under ``dynamics``, and so is K5's coefficient build, before the
+first step.
 """
 from __future__ import annotations
 
@@ -35,12 +51,13 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from raft_tpu_torch.core import cplx
+from raft_tpu_torch.core import cplx, cuda_drag
 from raft_tpu_torch.core.cplx import Cx
 from raft_tpu_torch.core.cuda6 import solve_rao, solve_rao_ad
 from raft_tpu_torch.core.types import Env, MemberSet, WaveState
-from raft_tpu_torch.hydro.strip import StripKin, linearized_drag
+from raft_tpu_torch.hydro.strip import StripKin, drag_coeffs, linearized_drag
 from raft_tpu_torch.core.collectives import pmax
+from raft_tpu_torch.obs import metrics
 from raft_tpu_torch.obs.trace import span
 
 Tensor = torch.Tensor
@@ -82,6 +99,20 @@ def _error(Xi: Cx, Xi_last: Cx, tol: float) -> Tensor:
     return torch.amax(num / den, dim=(-2, -1))
 
 
+def _kernel_route(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
+                  lin: LinearCoeffs, axis) -> bool:
+    """True when the drag linearization takes K5: float32 or float64, no
+    frequency sharding, a grid K5 takes (at most ``cuda_drag.MAX_NW``
+    frequencies), and no input that requires grad while grad mode is on."""
+    from raft_tpu_torch.parallel.pipeline import tensors    # parallel imports this module
+
+    if (axis is not None or lin.C.dtype not in (torch.float32, torch.float64)
+            or wave.w.shape[-1] > cuda_drag.MAX_NW):
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors((m, kin, wave, env, lin))))
+
+
 def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
                    lin: LinearCoeffs, n_iter: int = 15, tol: float = 0.01,
                    relax: float = 0.8, method: str = "scan", remat: bool = False,
@@ -108,6 +139,9 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
     then takes the same decisions, runs the same iterations and issues the
     same collectives in the same order, and reproduces the unsharded fixed
     point up to the order of the frequency sum.
+
+    The drag linearization's route (K5 or ``linearized_drag``) follows from
+    the inputs, as the module's docstring says.
     """
     if method not in ("while", "scan"):
         raise ValueError(f"unknown method {method!r}")
@@ -133,6 +167,22 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
         hist = (torch.full(lead + (n_iter,), float("nan"), dtype=dtype, device=dev)
                 if history else None)
 
+        # a Python bool from dtypes, shapes and autograd flags: no value is read
+        if _kernel_route(m, kin, wave, env, lin, axis):  # graftlint: disable=GL103
+            with span("drag"):
+                plan = cuda_drag.plan(drag_coeffs(m, env), kin.u, wave.w, lead)
+            route = metrics.counter("drag.kernel")
+
+            def linearize(Xi):
+                route.inc()
+                return cuda_drag.drag_step(plan, Xi)
+        else:
+            route = metrics.counter("drag.plain")
+
+            def linearize(Xi):
+                route.inc()
+                return linearized_drag(m, kin, Xi, wave, env, axis=axis)
+
         def log_error(hist, err, live, count):
             """Write each live lane's error at its own iteration index."""
             idx = torch.clamp(count, max=n_iter - 1).long()[..., None]
@@ -148,7 +198,7 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
                         break
                 with span("step"):
                     with span("drag"):
-                        B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
+                        B_drag, F_drag = linearize(Xi_last)
                     with span("solve"):
                         Xi = solve_rao(Z0, wave.w, B_drag, lin.F + F_drag)
                     err = _error(Xi, Xi_last, tol)
@@ -167,7 +217,7 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
                 loop's order of selects (Xi_out, then Xi_next)."""
                 Xi_last = Cx(last_re, last_im)
                 with span("drag"):
-                    B_drag, F_drag = linearized_drag(m, kin, Xi_last, wave, env, axis=axis)
+                    B_drag, F_drag = linearize(Xi_last)
                 with span("solve"):
                     Xi = solve_rao_ad(Z0, wave.w, B_drag, lin.F + F_drag)
                 # only decides convergence: |.| at an exact zero would put NaN
@@ -196,6 +246,6 @@ def solve_dynamics(m: MemberSet, kin: StripKin, wave: WaveState, env: Env,
             Xi_out = Cx(state[2], state[3])
 
         with span("drag"):
-            B_drag, F_drag = linearized_drag(m, kin, Xi_out, wave, env, axis=axis)
+            B_drag, F_drag = linearize(Xi_out)
         return RAOResult(Xi=Xi_out, n_iter=count, converged=done, B_drag=B_drag,
                          F_drag=F_drag, err_hist=hist)
